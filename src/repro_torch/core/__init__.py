@@ -1,0 +1,18 @@
+# The paper's DRL control loop: the DDPG agent (Algorithm 1), its K-NN
+# action projection, and the fleet runner.
+from repro_torch.core.api import (Agent, EpochDraws, agent_names, make_agent,
+                                  make_epoch_step, register_agent)
+from repro_torch.core.ddpg import (DDPGConfig, DDPGState, OfflineDraws,
+                                   init_state as ddpg_init)
+from repro_torch.core.agent import History, run_online_fleet
+from repro_torch.core.knn_projection import (distance_to, knn_actions,
+                                             knn_actions_exact,
+                                             knn_assignments_exact,
+                                             nearest_assignment)
+
+__all__ = [
+    "Agent", "EpochDraws", "agent_names", "make_agent", "make_epoch_step",
+    "register_agent", "DDPGConfig", "DDPGState", "OfflineDraws", "ddpg_init",
+    "History", "run_online_fleet", "distance_to", "knn_actions",
+    "knn_actions_exact", "knn_assignments_exact", "nearest_assignment",
+]

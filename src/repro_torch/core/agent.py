@@ -1,0 +1,107 @@
+"""The online-learning control loop over a fleet of lanes.
+
+Port of ``repro/core/agent.py``'s ``History`` and ``run_online_fleet``:
+``F`` independent runs step together, every per-lane tensor carrying the
+leading ``[F]`` axis, one epoch at a time (the reference's vmapped scan).
+Mesh sharding, checkpointing and the elastic lifecycle wait for later
+slices."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+from scipy.signal import butter, filtfilt
+
+from repro_torch.core.api import Agent, EpochDraws, make_epoch_step
+
+
+@dataclasses.dataclass
+class History:
+    """Reward / latency / movement traces of a fleet of runs ([F, T]);
+    final_assignment is [F, N, M]."""
+
+    rewards: np.ndarray
+    latencies: np.ndarray
+    moved: np.ndarray
+    final_assignment: np.ndarray
+
+    @property
+    def fleet(self) -> int | None:
+        """Fleet size, or None for a single-run history."""
+        return self.rewards.shape[0] if self.rewards.ndim == 2 else None
+
+    def lane(self, i: int) -> "History":
+        """The i-th run of a fleet history as a single-run History."""
+        if self.fleet is None:
+            raise ValueError("lane() on a single-run History")
+        return History(rewards=self.rewards[i], latencies=self.latencies[i],
+                       moved=self.moved[i],
+                       final_assignment=self.final_assignment[i])
+
+    def normalized_rewards(self) -> np.ndarray:
+        """(r - r_min)/(r_max - r_min), the paper's normalization, per lane
+        along the epoch axis."""
+        r = self.rewards
+        lo = r.min(axis=-1, keepdims=True)
+        hi = r.max(axis=-1, keepdims=True)
+        return (r - lo) / np.maximum(hi - lo, 1e-12)
+
+    def smoothed_rewards(self, cutoff: float = 0.05) -> np.ndarray:
+        """Forward-backward (zero-phase) Butterworth low-pass filter, as in
+        the paper ([20] Gustafsson filtfilt)."""
+        r = self.normalized_rewards()
+        if r.shape[-1] < 15:
+            return r
+        b, a = butter(2, cutoff)
+        return filtfilt(b, a, r, axis=-1)
+
+    def seed_band(self, cutoff: float = 0.05) -> tuple[np.ndarray, np.ndarray]:
+        """(mean, std) across the fleet axis of the smoothed normalized
+        reward curves — the seed-averaged curve and its variance band."""
+        r = np.atleast_2d(self.smoothed_rewards(cutoff))
+        return r.mean(axis=0), r.std(axis=0)
+
+
+def run_online_fleet(
+    gen_or_seed: torch.Generator | int,
+    env,
+    agent: Agent,
+    states,
+    T: int,
+    updates_per_epoch: int = 1,
+    explore: bool = True,
+    env_params=None,
+    draws: Sequence[EpochDraws] | None = None,
+):
+    """``T`` online decision epochs for every lane of ``states`` (stacked on
+    ``[F]``, e.g. from ``agent.init_fleet``, optionally pretrained).
+
+    Every lane starts from ``env.reset``.  ``draws`` holds one
+    :class:`EpochDraws` per epoch; without it every draw comes from the
+    generator (or a generator on ``env.device`` seeded with the int).
+    ``states`` is updated in place.  Returns (states, History)."""
+    T = int(T)
+    if T < 1:
+        raise ValueError(f"T must be >= 1, got {T}")
+    if draws is not None and len(draws) != T:
+        raise ValueError(f"draws holds {len(draws)} epochs, T is {T}")
+    if isinstance(gen_or_seed, torch.Generator):
+        gen = gen_or_seed
+    else:
+        gen = torch.Generator(device=env.device).manual_seed(int(gen_or_seed))
+    params = env.default_params() if env_params is None else env_params
+    env_state = env.reset(states.fleet, params)
+    step = make_epoch_step(env, agent, env_params=params,
+                           updates_per_epoch=updates_per_epoch,
+                           explore=explore)
+    traces = []
+    for t in range(T):
+        states, env_state, out = step(states, env_state, gen,
+                                      None if draws is None else draws[t])
+        traces.append(out)
+    rewards, lats, moved = (torch.stack(x, dim=-1).cpu().numpy()
+                            for x in zip(*traces))
+    return states, History(rewards=rewards, latencies=lats, moved=moved,
+                           final_assignment=env_state.X.cpu().numpy())

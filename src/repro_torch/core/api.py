@@ -1,0 +1,114 @@
+"""The pluggable ``Agent`` interface, the fused epoch step and the registry.
+
+Port of ``repro/core/api.py``.  An :class:`Agent` bundles module-level
+functions over a config:
+
+    init     (gen, cfg, fleet, device, env_params)           -> agent_state
+    select   (cfg, state, s_vec, env_state, env_params,
+              explore, draws, gen)                           -> (action, aux)
+    observe  (cfg, state, s_vec, aux, reward, s_next)        -> agent_state
+    update   (cfg, state, replay_idx, gen)                   -> agent_state
+    tick     (cfg, state)                                    -> agent_state
+
+Every tensor carries the fleet axis ``[F]``.  ``draws`` is one epoch's
+:class:`EpochDraws`, or None to draw from the ``torch.Generator`` ``gen``.
+Only ``ddpg`` is registered so far."""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+
+class EpochDraws(NamedTuple):
+    """Every random draw of one decision epoch, for ``F`` lanes."""
+
+    explore_add: torch.Tensor    # [F] bool — the ε coin
+    explore_noise: torch.Tensor  # [F, N, M] uniform [0, 1)
+    meas_z: torch.Tensor         # [F, 5] standard normal (× noise_sigma)
+    rate_z: torch.Tensor         # [F, S] standard normal (× rate jitter)
+    replay_idx: torch.Tensor     # [F, U, B] int
+
+    def to(self, device) -> "EpochDraws":
+        return EpochDraws(*(x.to(device) for x in self))
+
+
+class Agent(NamedTuple):
+    """Bundle of control-policy functions (signatures above)."""
+
+    name: str
+    cfg: Any
+    init_fn: Callable[..., Any]
+    select_fn: Callable[..., tuple[torch.Tensor, Any]]
+    observe_fn: Callable[..., Any]
+    update_fn: Callable[..., Any]
+    tick_fn: Callable[..., Any]
+
+    def init_fleet(self, gen: torch.Generator | None, fleet: int,
+                   device: str | torch.device | None = None, env_params=None):
+        """Independently-initialized lanes, stacked on ``[fleet]``, on
+        ``device`` (default CUDA; raises without a GPU)."""
+        return self.init_fn(gen, self.cfg, fleet, device, env_params)
+
+
+def make_epoch_step(env, agent: Agent, env_params=None,
+                    updates_per_epoch: int = 1, explore: bool = True):
+    """One online decision epoch for every lane: select → env.step →
+    observe → update×U → tick.
+
+    Returns ``epoch_step(state, env_state, gen=None, draws=None) ->
+    (state, env_state, (reward [F], latency_ms [F], moved [F]))``."""
+    params = env.default_params() if env_params is None else env_params
+
+    def epoch_step(state, env_state, gen: torch.Generator | None = None,
+                   draws: EpochDraws | None = None):
+        s_vec = env.state_vector(env_state, params)
+        action, aux = agent.select_fn(agent.cfg, state, s_vec, env_state,
+                                      params, explore, draws, gen)
+        out = env.step(env_state, action, params,
+                       meas_z=None if draws is None else draws.meas_z,
+                       rate_z=None if draws is None else draws.rate_z,
+                       gen=gen)
+        s_next = env.state_vector(out.state, params)
+        state = agent.observe_fn(agent.cfg, state, s_vec, aux, out.reward,
+                                 s_next)
+        for u in range(updates_per_epoch):
+            idx = None if draws is None else draws.replay_idx[:, u]
+            state = agent.update_fn(agent.cfg, state, idx, gen)
+        state = agent.tick_fn(agent.cfg, state)
+        return state, out.state, (out.reward, out.latency_ms, out.moved)
+
+    return epoch_step
+
+
+# --------------------------------------------------------------------------
+# Registry
+# --------------------------------------------------------------------------
+_REGISTRY: dict[str, Callable[..., Agent]] = {}
+
+
+def register_agent(name: str, factory: Callable[..., Agent]) -> None:
+    """Register ``factory(env, **overrides) -> Agent`` under ``name``."""
+    _REGISTRY[name] = factory
+
+
+def _load_builtins() -> None:
+    # built-in agents register themselves on import
+    import repro_torch.core.ddpg  # noqa: F401
+
+
+def agent_names() -> tuple[str, ...]:
+    _load_builtins()
+    return tuple(sorted(_REGISTRY))
+
+
+def make_agent(name: str, env, **overrides) -> Agent:
+    """Construct a registered agent sized for ``env``; ``overrides`` go to
+    the agent's config (or pass a ready config as ``cfg=``)."""
+    _load_builtins()
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown agent {name!r}; "
+                       f"known: {sorted(_REGISTRY)}") from None
+    return factory(env, **overrides)

@@ -1,0 +1,38 @@
+"""Exploration policy R(â) = â + εI  (paper §3.2.1, line 9).
+
+ε is the probability of perturbing the proto-action with uniform noise
+I ~ U[0,1]^{N·M}; it decays with the decision epoch so later epochs act
+greedily.  Port of ``repro/core/exploration.py`` with the coin flip and
+the noise passed in, one per lane."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class EpsilonSchedule:
+    eps_start: float = 1.0
+    eps_end: float = 0.02
+    decay_epochs: int = 800
+
+    def __call__(self, epoch: torch.Tensor) -> torch.Tensor:
+        frac = torch.clamp(epoch.to(torch.float32) / self.decay_epochs, 0.0, 1.0)
+        return self.eps_start + frac * (self.eps_end - self.eps_start)
+
+
+def perturb_proto(proto: torch.Tensor, eps: torch.Tensor,
+                  add: torch.Tensor | None = None,
+                  noise: torch.Tensor | None = None,
+                  gen: torch.Generator | None = None) -> torch.Tensor:
+    """With probability ``eps [F]`` add uniform noise in [0, 1) to the lane's
+    proto-action ``[F, N, M]``.  ``add [F]`` (bool) and ``noise [F, N, M]``
+    are the draws; those not passed in come from ``gen``."""
+    F = proto.shape[0]
+    if add is None:
+        add = torch.rand(F, generator=gen, device=proto.device) < eps
+    if noise is None:
+        noise = torch.rand(proto.shape, generator=gen, device=proto.device)
+    add = add.reshape(F, *(1,) * (proto.dim() - 1))
+    return torch.where(add, proto + noise, proto)
