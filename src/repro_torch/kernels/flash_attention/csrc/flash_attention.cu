@@ -1,0 +1,256 @@
+// GQA flash attention, causal or bidirectional, forward only.
+//
+// Replaces the TPU kernel
+// src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel
+// (Pallas body _fa_kernel, layout wrapper ops.flash_attention).  For
+// q [B, S, H, hd] and k, v [B, S, Hkv, hd] (float32 or bfloat16, all one
+// type; any strides over b, s and h, the last axis contiguous), query head
+// h reads kv head h / (H / Hkv) and
+//   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(hd),
+// over j <= i when causal and over all j otherwise, written as q's type
+// into a contiguous o [B, S, H, hd].  The math is float32 for both input
+// types, with the reference's online softmax: per tile of keys
+//   m_cur = max(m, max_j s_j); alpha = exp(m - m_cur); p_j = exp(s_j - m_cur)
+//   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j;  m = m_cur
+// and o = acc / max(l, 1e-30).  Masked scores are -1e30, as in the Pallas
+// kernel.  Every row is computed: a ragged S is masked here, not dropped.
+//
+// Bound on an H100: operations.  At the llama3-8b prefill shape
+// (B=4, S=2048, H=32, Hkv=8, hd=128, causal, bf16) the useful work is
+// 4*B*H*S^2*hd/2 = 137 GFLOP, 0.14 ms at the 989 TFLOP/s bf16 tensor-core
+// peak, against 0.05 ms for the 168 MB of q, k, v and o at 3.35 TB/s
+// (k and v at the 8 kv heads).
+//
+// Design (a first kernel that is right; tensor cores are later work):
+// one CTA of 8 warps per (b, h, tile of 64 query rows), each warp owning
+// 8 rows.  The CTA stages its q tile and, 32 keys at a time, a K and a V
+// tile in shared memory as float32, shared by all 8 warps.  Scores put a
+// key on each lane: lane j forms q_r . k_j for the warp's 8 rows with
+// 16-byte loads (the q reads are broadcasts; the K rows are padded by 4
+// floats so the lanes' 16-byte reads fall in distinct banks), so no
+// shuffle reduction is needed per score.  The softmax reduces each row's
+// 32 scores with 5 shuffles; P.V broadcasts p_j by shuffle while each lane
+// owns hd/32 output columns.  Causal tiles above the diagonal are not
+// visited, a warp skips a tile that its rows cannot see, and the CTAs
+// with the most causal work are launched first.  The math stays on the
+// CUDA cores in float32, so the tensor-core bound is far off: wgmma tiles
+// with TMA staging are the redesign.
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kRows = 8;                    // query rows per warp
+constexpr int kQTile = kWarps * kRows;      // query rows per CTA
+constexpr int kKTile = 32;                  // keys per tile: one per lane
+constexpr float kNegInf = -1e30f;           // the Pallas kernel's mask value
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Strides {
+  int64_t b, s, h;                          // element strides; last axis is 1
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+template <int HD>
+constexpr int smem_floats() {
+  return kQTile * HD + kKTile * (HD + 4) + kKTile * HD;
+}
+
+template <typename T, int HD, bool CAUSAL>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       int S, int H, int group, int BH, float scale) {
+  constexpr int KS = HD + 4;                // padded row of the K tile
+  constexpr int DPL = HD >= 32 ? HD / 32 : 1;  // output columns per lane
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [kQTile][HD]
+  float* Ks = Qs + kQTile * HD;                  // [kKTile][KS]
+  float* Vs = Ks + kKTile * KS;                  // [kKTile][HD]
+
+  const int n_qtiles = (S + kQTile - 1) / kQTile;
+  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int b = bh / H, h = bh % H, hk = h / group;
+  const int q0 = qt * kQTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + warp * kRows;       // this warp's first query row
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+
+  for (int i = threadIdx.x; i < kQTile * HD; i += blockDim.x) {
+    const int r = i / HD, d = i % HD, row = q0 + r;
+    Qs[i] = row < S ? to_f32(qb[row * sq.s + d]) : 0.f;
+  }
+
+  float m[kRows], l[kRows], acc[kRows][DPL];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
+  }
+
+  const int k_end = CAUSAL ? min(S, q0 + kQTile) : S;
+  for (int k0 = 0; k0 < k_end; k0 += kKTile) {
+    __syncthreads();                        // the last tile's readers are done
+    for (int i = threadIdx.x; i < kKTile * HD; i += blockDim.x) {
+      const int j = i / HD, d = i % HD, key = k0 + j;
+      Ks[j * KS + d] = key < S ? to_f32(kb[key * sk.s + d]) : 0.f;
+      Vs[i] = key < S ? to_f32(vb[key * sv.s + d]) : 0.f;
+    }
+    __syncthreads();
+    if (row0 >= S || (CAUSAL && row0 + kRows - 1 < k0)) continue;
+
+    // scores: lane j holds key k0 + j for each of the warp's rows
+    float s[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+    const float* krow = Ks + lane * KS;
+    const float* qrows = Qs + warp * kRows * HD;
+#pragma unroll 4
+    for (int d = 0; d < HD; d += 4) {
+      const float4 kk = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float4 qq = *reinterpret_cast<const float4*>(qrows + r * HD + d);
+        s[r] = fmaf(qq.x, kk.x, s[r]);
+        s[r] = fmaf(qq.y, kk.y, s[r]);
+        s[r] = fmaf(qq.z, kk.z, s[r]);
+        s[r] = fmaf(qq.w, kk.w, s[r]);
+      }
+    }
+
+    const int key = k0 + lane;
+    float p[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const bool valid = key < S && (!CAUSAL || key <= row0 + r);
+      const float sr = valid ? s[r] * scale : kNegInf;
+      const float m_cur = fmaxf(m[r], warp_max(sr));
+      const float alpha = expf(m[r] - m_cur);
+      p[r] = expf(sr - m_cur);
+      l[r] = l[r] * alpha + warp_sum(p[r]);
+      m[r] = m_cur;
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) acc[r][c] *= alpha;
+    }
+
+    // acc += P V: lane owns columns lane + 32c
+#pragma unroll 4
+    for (int j = 0; j < kKTile; ++j) {
+      float vv[DPL];
+#pragma unroll
+      for (int c = 0; c < DPL; ++c) {
+        const int d = lane + 32 * c;
+        vv[c] = d < HD ? Vs[j * HD + d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const float pj = __shfl_sync(kFull, p[r], j);
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row0 + r;
+    if (row >= S) break;
+    const float denom = fmaxf(l[r], 1e-30f);
+    T* orow = o + b * so.b + row * so.s + h * so.h;
+#pragma unroll
+    for (int c = 0; c < DPL; ++c) {
+      const int d = lane + 32 * c;
+      if (d < HD) orow[d] = from_f32<T>(acc[r][c] / denom);
+    }
+  }
+}
+
+template <typename T, int HD, bool CAUSAL>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   const Strides* st, int B, int S, int H, int Hkv,
+                   cudaStream_t stream) {
+  constexpr size_t smem = smem_floats<HD>() * sizeof(float);
+  auto kernel = flash_attention_kernel<T, HD, CAUSAL>;
+  static bool configured = false;           // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int BH = B * H;
+  const int n_qtiles = (S + kQTile - 1) / kQTile;
+  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  kernel<<<static_cast<unsigned>(BH) * n_qtiles, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, H, H / Hkv, BH, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, bool CAUSAL>
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
+                        const Strides* st, int B, int S, int H, int Hkv, int hd,
+                        cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
+    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
+    case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
+    case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
+// success).  dtype: 0 float32, 1 bfloat16.  strides: 12 element strides,
+// (b, s, h) of q, k, v and o in that order.  S == 0 launches nothing.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
+                                   void* o, int dtype, int causal, int B, int S,
+                                   int H, int Hkv, int hd, const int64_t* strides,
+                                   cudaStream_t stream) {
+  if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
+  if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  cudaError_t err;
+  if (dtype == 0)
+    err = causal ? dispatch_hd<float, true>(q, k, v, o, st, B, S, H, Hkv, hd, stream)
+                 : dispatch_hd<float, false>(q, k, v, o, st, B, S, H, Hkv, hd, stream);
+  else if (dtype == 1)
+    err = causal
+        ? dispatch_hd<__nv_bfloat16, true>(q, k, v, o, st, B, S, H, Hkv, hd, stream)
+        : dispatch_hd<__nv_bfloat16, false>(q, k, v, o, st, B, S, H, Hkv, hd, stream);
+  else
+    err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}

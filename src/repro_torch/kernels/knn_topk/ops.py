@@ -5,10 +5,17 @@ on the current stream; on a CPU tensor it runs the plain version
 (``ref.py``).  There is no fallback from one to the other."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels.knn_topk import build
+from repro_torch.kernels import _build
 from repro_torch.kernels.knn_topk.ref import row_top2_regret_ref
+
+NAME = "knn_topk"
+SIGNATURES = {"knn_row_top2_regret": (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int64, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
 
 # kernel launches since the last reset (the plain CPU path does not count)
 LAUNCHES = 0
@@ -40,7 +47,7 @@ def row_top2_regret(proto: torch.Tensor):
     rows = best.numel()
     if rows == 0:
         return best, second, regret
-    lib = build.load()
+    lib = _build.load(NAME, SIGNATURES)
     with torch.cuda.device(proto.device):
         stream = torch.cuda.current_stream(proto.device).cuda_stream
         rc = lib.knn_row_top2_regret(proto.data_ptr(), best.data_ptr(),

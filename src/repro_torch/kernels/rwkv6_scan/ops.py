@@ -1,0 +1,79 @@
+"""Wrapper of the WKV6 kernel.
+
+On CUDA tensors it launches the hand-written kernel (``csrc/wkv6.cu``) on
+the current stream; on CPU tensors it runs the plain version
+(``ref.py``).  There is no fallback from one to the other."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.rwkv6_scan.ref import wkv6_ref
+
+NAME = "rwkv6_scan"
+SIGNATURES = {"wkv6_fwd": (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p], ctypes.c_int)}
+HEAD_DIMS = (8, 16, 32, 64, 128)           # the kernel's instantiations
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# kernel launches since the last reset (the plain CPU path does not count)
+LAUNCHES = 0
+
+
+def wkv6(w: torch.Tensor, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         u: torch.Tensor, S0: torch.Tensor | None = None):
+    """w float32 and r, k, v (float32 or bfloat16, one dtype), all
+    ``[B, T, H, hd]`` with the last axis contiguous; u float32 ``[H, hd]``;
+    S0 float32 ``[B, H, hd, hd]`` or None for a zero state.  Returns
+    (out float32 ``[B, T, H, hd]``, S_T float32 ``[B, H, hd, hd]``)."""
+    global LAUNCHES
+    if r.dim() != 4:
+        raise ValueError("wkv6 takes w, r, k, v of rank 4 [B, T, H, hd]")
+    B, T, H, hd = r.shape
+    if w.shape != r.shape or k.shape != r.shape or v.shape != r.shape:
+        raise ValueError(f"wkv6: w {tuple(w.shape)}, r {tuple(r.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} differ")
+    if u.shape != (H, hd):
+        raise ValueError(f"wkv6: u is {tuple(u.shape)}, expected {(H, hd)}")
+    if S0 is not None and S0.shape != (B, H, hd, hd):
+        raise ValueError(f"wkv6: S0 is {tuple(S0.shape)}, expected {(B, H, hd, hd)}")
+    if (w.dtype != torch.float32 or u.dtype != torch.float32
+            or (S0 is not None and S0.dtype != torch.float32)):
+        raise TypeError("wkv6 takes w, u and S0 in float32")
+    if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"wkv6 takes float32 or bfloat16 r, k, v of one dtype, "
+                        f"got {r.dtype}, {k.dtype}, {v.dtype}")
+    tensors = (w, r, k, v, u) + (() if S0 is None else (S0,))
+    if any(t.device != r.device for t in tensors):
+        raise ValueError("wkv6: inputs lie on different devices")
+    if r.device.type == "cpu":
+        return wkv6_ref(w, r, k, v, u, S0)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"wkv6 kernel takes head_dim in {HEAD_DIMS}, got {hd}")
+    if any(t.stride(-1) != 1 for t in (w, r, k, v)):
+        raise ValueError("wkv6 needs the head_dim axis contiguous")
+    if not u.is_contiguous() or (S0 is not None and not S0.is_contiguous()):
+        raise ValueError("wkv6 takes u and S0 contiguous")
+    out = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
+    S_T = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
+    if B * H == 0:
+        return out, S_T
+    strides = (ctypes.c_int64 * 12)(*(st for t in (w, r, k, v)
+                                      for st in t.stride()[:3]))
+    lib = _build.load(NAME, SIGNATURES)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        rc = lib.wkv6_fwd(
+            w.data_ptr(), r.data_ptr(), k.data_ptr(), v.data_ptr(),
+            u.data_ptr(), None if S0 is None else S0.data_ptr(),
+            out.data_ptr(), S_T.data_ptr(), _DTYPES[r.dtype], B, T, H, hd,
+            strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"wkv6_fwd launch failed: CUDA error {rc}")
+    LAUNCHES += 1
+    return out, S_T

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain version.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 These tests need an NVIDIA GPU and skip without one.  They import nothing
 of JAX, so they also run where only the port is installed:
@@ -11,7 +11,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.knn_projection import knn_actions       # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.knn_topk import ops, row_top2_regret_ref  # noqa: E402
+from repro_torch.kernels.rwkv6_scan import ops as wkv_ops     # noqa: E402
+from repro_torch.kernels.rwkv6_scan import wkv6_ref           # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -20,6 +24,7 @@ pytestmark = pytest.mark.cuda
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False    # plain versions in float32
     return torch.device("cuda")
 
 
@@ -56,3 +61,85 @@ def test_beam_on_the_card_equals_the_beam_on_the_cpu(cuda_device, shape, k,
         p = np.round(p * quant) / quant
     gpu = knn_actions(torch.as_tensor(p, device=cuda_device), k).cpu()
     assert torch.equal(gpu, knn_actions(torch.as_tensor(p), k))
+
+
+# -- flash attention: tests/test_kernels.py's cases, a ragged S, every head
+# dim the kernel takes, strided views, and a llama3-8b head layout
+# (rtol, atol): in bfloat16 both sides round one float32 result, so they
+# differ by at most one bfloat16 step, 2^-7 of |want|
+FLASH_TOLS = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2e-3)}
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,dtype", [
+    (2, 128, 4, 4, 64, True, torch.float32),
+    (2, 128, 4, 2, 64, True, torch.float32),
+    (2, 256, 8, 2, 32, True, torch.float32),
+    (2, 128, 4, 1, 64, True, torch.float32),
+    (2, 128, 4, 2, 64, False, torch.float32),
+    (2, 128, 4, 2, 64, True, torch.bfloat16),
+    (2, 200, 4, 2, 32, True, torch.float32),      # ragged S
+    (2, 200, 4, 2, 32, False, torch.bfloat16),
+    (3, 37, 4, 2, 16, True, torch.float32),       # hd 16, S below one tile
+    (1, 1, 4, 2, 128, True, torch.float32),       # one row
+    (1, 512, 32, 8, 128, True, torch.bfloat16),   # llama3-8b heads
+])
+def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, hd,
+                                            causal, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(S + hd)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=cuda_device).to(dtype)
+               for h in (H, Hkv, Hkv))
+    before = fa_ops.LAUNCHES
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = FLASH_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_kernel_reads_strided_views(cuda_device):
+    """q, k, v as slices of one fused projection [B, S, H + 2 Hkv, hd]."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn(2, 96, 8, 32, generator=g, device=cuda_device)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fa_ops.flash_attention(q, k, v)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_wrapper_refuses_head_dims_the_kernel_lacks(cuda_device):
+    q = torch.zeros(1, 8, 2, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(q, q, q)
+
+
+# -- wkv6: tests/test_kernels.py's cases, a carried state, one step, bf16,
+# and the rwkv6-7b head size
+@pytest.mark.parametrize("B,T,H,hd,dtype,carry", [
+    (2, 64, 2, 16, torch.float32, False),
+    (2, 128, 3, 16, torch.float32, False),
+    (2, 96, 2, 8, torch.float32, False),
+    (2, 64, 2, 16, torch.bfloat16, False),
+    (2, 75, 3, 32, torch.float32, True),
+    (4, 1, 64, 64, torch.bfloat16, True),          # rwkv6-7b decode step
+    (2, 300, 4, 64, torch.float32, True),
+    (1, 40, 2, 128, torch.float32, True),
+])
+def test_wkv6_kernel_matches_plain_version(cuda_device, B, T, H, hd, dtype,
+                                           carry):
+    g = torch.Generator(device=cuda_device).manual_seed(T + hd)
+    shape = (B, T, H, hd)
+    w = torch.sigmoid(torch.randn(shape, generator=g, device=cuda_device)) * 0.5 + 0.45
+    r, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    u = torch.randn(H, hd, generator=g, device=cuda_device) * 0.5
+    S0 = (torch.randn(B, H, hd, hd, generator=g, device=cuda_device)
+          if carry else None)
+    before = wkv_ops.LAUNCHES
+    out, S_T = wkv_ops.wkv6(w, r, k, v, u, S0)
+    torch.cuda.synchronize()
+    assert wkv_ops.LAUNCHES == before + 1
+    want, want_S = wkv6_ref(w, r, k, v, u, S0)
+    torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(S_T, want_S, atol=1e-4, rtol=1e-4)

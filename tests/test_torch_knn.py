@@ -19,7 +19,8 @@ from repro_torch.core.knn_projection import (distance_to, knn_actions,
                                              knn_actions_exact,
                                              knn_assignments_exact,
                                              nearest_assignment)
-from repro_torch.kernels.knn_topk import build, ops, row_top2_regret_ref
+from repro_torch.kernels import _build
+from repro_torch.kernels.knn_topk import ops, row_top2_regret_ref
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -75,20 +76,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_kernel_library_is_named_by_a_hash_of_its_sources(monkeypatch):
     monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
-    path = build.library_path()
+    path = _build.library_path("knn_topk")
     assert path.parent == REPO / "build" / "kernels" and path.suffix == ".so"
-    assert path == build.library_path()
-    assert [s.name for s in build._SOURCES] == ["knn_topk.cu"]
+    assert path.name.startswith("knn_topk-")
+    assert path == _build.library_path("knn_topk")
+    assert [s.name for s in _build.sources("knn_topk")] == ["knn_topk.cu"]
 
 
 def test_kernel_build_dir_outside_a_checkout_must_be_given(monkeypatch,
                                                            tmp_path):
     monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
-    monkeypatch.setattr(build, "_ROOT", tmp_path)        # no pyproject.toml
+    monkeypatch.setattr(_build, "_ROOT", tmp_path)       # no pyproject.toml
     with pytest.raises(RuntimeError, match="REPRO_TORCH_BUILD_DIR"):
-        build.library_path()
+        _build.library_path("knn_topk")
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "k"))
-    assert build.library_path().parent == tmp_path / "k"
+    assert _build.library_path("knn_topk").parent == tmp_path / "k"
 
 
 # the shapes of tests/test_knn_projection.py's pallas-vs-XLA beam test
