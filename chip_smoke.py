@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's three CUDA kernels from the sources in this checkout
-(one ``nvcc`` each, all at once) and holds each against its plain PyTorch
-version on the card.  Then it drives the port's main paths:
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, all at once) and holds each against its plain
+PyTorch version on the card: the K-NN reduction, both flash-attention
+routes (bfloat16 on the tensor cores, float32 on the CUDA cores) and the
+WKV6 recurrence.  Then it drives the port's main paths:
 
 * the DSDPS control loop: the K-NN beam and a short loop on the card
   against the CPU, then ``repro_torch.launch.drl_control.run`` on
@@ -17,7 +19,8 @@ version on the card.  Then it drives the port's main paths:
   weights from a seeded generator): ``prefill_forward`` on 4 prompts of
   2048 tokens and ``Engine.generate`` on 4 prompts of 64 tokens with 32
   new greedy tokens, checking that every attention layer went through the
-  flash-attention kernel and every RWKV6 layer, in prefill and in every
+  bfloat16 flash-attention kernel (wgmma + TMA) and every RWKV6 layer, in
+  prefill and in every
   decode step, through the WKV6 kernel; then 256 decode steps are timed,
   the two prefills are held to each other in float32, and each bf16
   path's drift from the float32 answer to that of a control run with the
@@ -338,19 +341,20 @@ def time_critic_head(res) -> None:
 
 
 def check_flash(dev) -> dict:
-    """Phase 9: the flash-attention kernel against its plain version on
-    tests/test_kernels.py's cases, a ragged S and the llama3-8b prefill
-    shape; then kernel, plain, SDPA and bound at that shape."""
+    """Phase 9: both flash-attention routes against their plain version on
+    tests/test_kernels.py's cases, every head dim, ragged S, a strided view
+    and the llama3-8b prefill shape; then, at that shape, the float32
+    route's time, and the bfloat16 kernel's against plain, SDPA and bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_ref, ops
 
     # (rtol, atol) of |got - want| <= rtol * |want| + atol.  float32: both
     # sides compute in float32 and differ in summation order and exp only.
-    # bfloat16: both round one float32 result to bfloat16, so they differ by
-    # at most one bfloat16 step, 2^-7 = 0.0078 of |want| at most; rtol 1e-2
-    # holds that, and atol 2e-3 the outputs near 0 (max |err| read 0.0039,
-    # one step at |x| in [0.5, 1), on the H100)
+    # bfloat16: both round a float32 result to bfloat16, so they differ by
+    # at most one bfloat16 step, 2^-7 = 0.0078 of |want|; rtol 1e-2 holds
+    # that, and atol 2e-3 the outputs near 0.  The kernel carries P into P.V
+    # as two bfloat16 parts, ~2^-17 of p (tests/test_torch_flash_numerics.py)
     tols = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2e-3)}
     B, S, H, Hkv, hd = LM["batch"], LM["prefill_len"], 32, 8, 128
     cases = [(2, 128, 4, 4, 64, True, torch.float32),
@@ -361,49 +365,87 @@ def check_flash(dev) -> dict:
              (2, 128, 4, 2, 64, True, torch.bfloat16),
              (2, 200, 4, 2, 32, True, torch.float32),
              (3, 37, 4, 2, 16, True, torch.float32),
+             # the bfloat16 route at every head dim, both maskings, ragged S
+             (2, 256, 4, 2, 16, True, torch.bfloat16),
+             (2, 256, 8, 2, 32, False, torch.bfloat16),
+             (2, 384, 4, 1, 64, False, torch.bfloat16),
+             (2, 384, 8, 2, 128, False, torch.bfloat16),
+             (2, 200, 4, 2, 128, True, torch.bfloat16),
+             (3, 37, 4, 2, 32, True, torch.bfloat16),
              (B, S, H, Hkv, hd, True, torch.bfloat16)]
     gen = torch.Generator(device=dev).manual_seed(9)
-    max_err, inputs = 0.0, None
+
+    def check(q, k, v, causal, what):
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous(),
+                                   causal=causal)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        rtol, atol = tols[q.dtype]
+        if bool((diff > rtol * want.float().abs() + atol).any()) or not bool(
+                torch.isfinite(got).all()):
+            raise AssertionError(f"flash kernel off by {float(diff.max())} at {what}")
+        return float(diff.max())
+
+    max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    inputs = None
     for b, s, h, hkv, d, causal, dtype in cases:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dtype)
                    for n in (h, hkv, hkv))
-        got = ops.flash_attention(q, k, v, causal=causal)
-        want = flash_attention_ref(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        rtol, atol = tols[dtype]
-        bad = (got.float() - want.float()).abs() > rtol * want.float().abs() + atol
-        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"flash kernel off by {err} at {(b, s, h, hkv, d)} "
-                                 f"causal={causal} {dtype}")
-        max_err = max(max_err, err)
+        err = check(q, k, v, causal, f"{(b, s, h, hkv, d)} causal={causal} {dtype}")
+        max_err[dtype] = max(max_err[dtype], err)
         inputs = (q, k, v)
-        del got, want
-    log(f"phase 9 flash kernel vs plain version: {len(cases)} cases agree "
-        f"(max |err| {max_err:.3g}; |err| <= 2e-5 |x| + 2e-5 f32, 1e-2 |x| + 2e-3 bf16)")
+    # q, k, v as slices of one fused bf16 projection [B, S, H + 2 Hkv, hd]
+    qkv = torch.randn(2, 256, 8, 128, generator=gen, device=dev).bfloat16()
+    before = ops.LAUNCHES_BF16
+    err = check(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:], True, "a strided view")
+    if ops.LAUNCHES_BF16 != before + 1:
+        raise AssertionError("the strided bf16 view did not go through the bf16 kernel")
+    max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
+    log(f"phase 9 flash kernels vs plain version: {len(cases) + 1} cases agree "
+        f"(max |err| float32 route {max_err[torch.float32]:.3g}, bfloat16 route "
+        f"{max_err[torch.bfloat16]:.3g}; |err| <= 2e-5 |x| + 2e-5 f32, "
+        f"1e-2 |x| + 2e-3 bf16)")
 
     q, k, v = inputs
+    flops = 4 * B * H * hd * S * (S + 1) // 2            # causal: j <= i
+    elems = 2 * B * S * H * hd + 2 * B * S * Hkv * hd     # q, o and k, v
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+            enable_gqa=True)
+
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    f32 = dict(ms=eager_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True),
+                           iters=5, warmup=1),
+               plain_ms=eager_ms(lambda: flash_attention_ref(q32, k32, v32), iters=5,
+                                 warmup=1),
+               library_ms=eager_ms(lambda: sdpa(q32, k32, v32), iters=5, warmup=1),
+               bound_ms=max(flops / F32_OPS_PER_S, 4 * elems / HBM_BYTES_PER_S) * 1e3)
+    log(f"  [{B},{S},{H},{hd}] q x [{B},{S},{Hkv},{hd}] k/v float32 causal, float32 "
+        f"route (flash_attention.cu), ms per call: kernel {f32['ms']:.6f}  plain "
+        f"{f32['plain_ms']:.6f}  library (SDPA, float32) {f32['library_ms']:.6f}  "
+        f"bound {f32['bound_ms']:.6f} (operations: {flops / 1e9:.1f} GFLOP at 67 "
+        f"TFLOP/s); {flops / f32['ms'] / 1e9:.1f} TFLOP/s")
+    del q32, k32, v32
     kernel = lambda: ops.flash_attention(q, k, v, causal=True)          # noqa: E731
     plain = lambda: flash_attention_ref(q, k, v, causal=True)           # noqa: E731
-    library = lambda: F.scaled_dot_product_attention(                   # noqa: E731
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True)
-    sdpa = library().transpose(1, 2)
-    lib_err = float((sdpa.float() - kernel().float()).abs().max())
+    library = lambda: sdpa(q, k, v)                                     # noqa: E731
+    lib_err = float((library().transpose(1, 2).float() - kernel().float()).abs().max())
     t = dict(ms=eager_ms(kernel, iters=20, warmup=3),
              plain_ms=eager_ms(plain, iters=5, warmup=1),
              library_ms=eager_ms(library, iters=20, warmup=3))
-    flops = 4 * B * H * hd * S * (S + 1) // 2            # causal: j <= i
-    bytes_moved = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)
+    bytes_moved = 2 * elems
     t_ops, t_bytes = flops / BF16_TC_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
     t["bound_ms"] = max(t_ops, t_bytes) * 1e3
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"  [{B},{S},{H},{hd}] q x [{B},{S},{Hkv},{hd}] k/v bf16 causal, ms per "
-        f"call: kernel {t['ms']:.6f}  plain {t['plain_ms']:.6f}  library (SDPA) "
-        f"{t['library_ms']:.6f}  bound {t['bound_ms']:.6f} ({t['bound_by']}: "
-        f"{flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); "
-        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - SDPA| max {lib_err:.3g}")
-    return dict(max_abs_err=max_err, timings=t)
+    log(f"  [{B},{S},{H},{hd}] q x [{B},{S},{Hkv},{hd}] k/v bf16 causal, bfloat16 "
+        f"route (flash_attention_sm90.cu), ms per call: kernel {t['ms']:.6f}  plain "
+        f"{t['plain_ms']:.6f}  library (SDPA) {t['library_ms']:.6f}  bound "
+        f"{t['bound_ms']:.6f} ({t['bound_by']}: {flops / 1e9:.1f} GFLOP, "
+        f"{bytes_moved / 1e6:.1f} MB); {flops / t['ms'] / 1e9:.1f} TFLOP/s; "
+        f"|kernel - SDPA| max {lib_err:.3g}")
+    return dict(max_abs_err=max_err[torch.bfloat16], timings=t)
 
 
 def check_wkv(dev) -> dict:
@@ -574,6 +616,7 @@ def run_lm_path(dev, arch: str) -> dict:
     prefill(params, {"tokens": toks[:, :256]})           # warm the libraries
     torch.cuda.synchronize()
     fa_ops.LAUNCHES = wkv_ops.LAUNCHES = knn_ops.LAUNCHES = 0
+    fa_ops.LAUNCHES_BF16 = fa_ops.LAUNCHES_F32 = 0
     t0 = time.perf_counter()
     logits, kv = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
@@ -582,6 +625,10 @@ def run_lm_path(dev, arch: str) -> dict:
     if launches_prefill != want:
         raise AssertionError(f"{arch} prefill_forward launched its kernel "
                              f"{launches_prefill} times, expected {want}")
+    if cfg.family == "dense" and (fa_ops.LAUNCHES_BF16, fa_ops.LAUNCHES_F32) != (want, 0):
+        raise AssertionError(f"{arch} prefill_forward: {fa_ops.LAUNCHES_BF16} bf16 and "
+                             f"{fa_ops.LAUNCHES_F32} float32 flash launches, expected "
+                             f"{want} and 0")
     if logits.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch} prefill logits: shape {tuple(logits.shape)} "
                              "or non-finite values")
@@ -591,7 +638,7 @@ def run_lm_path(dev, arch: str) -> dict:
     del logits, kv
     log(f"  prefill_forward [{B},{S}]: {t_prefill:.3f} s = "
         f"{B * S / t_prefill:.1f} tokens/s; {launches_prefill} "
-        f"{'flash' if cfg.family == 'dense' else 'wkv'} launches (one per layer)")
+        f"{'bf16 flash' if cfg.family == 'dense' else 'wkv'} launches (one per layer)")
 
     eng = Engine(cfg, params, max_seq=LM["max_seq"], batch_size=B, device=dev)
     prompts = toks[:, :P]
@@ -759,13 +806,18 @@ def main() -> int:
     t0 = time.perf_counter()
     build_logs = _build.build_all(KERNELS, verbose=True)
     log(f"phase 2 build: " + ", ".join(_build.library_path(n).name for n in KERNELS)
-        + f" in {time.perf_counter() - t0:.2f} s (one nvcc each, in parallel)")
-    for name, text in build_logs.items():
+        + f" in {time.perf_counter() - t0:.2f} s (one nvcc per source, all at once, "
+        "then one link per kernel)")
+    for source, text in build_logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
         if regs:
-            log(f"  {name}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-                f"{sum(1 for b in spills if b)} with spills (max {max(spills)} B stored)")
+            log(f"  {source}: {len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+                f"{sum(1 for b in spills if b)} with spills (max {max(spills, default=0)} "
+                "B stored)")
+        for line in text.splitlines():
+            if "warning" in line.lower():
+                log(f"  {source}: {line.strip()}")
 
     kernel = check_kernel(dev)
     check_beam(dev)
@@ -792,7 +844,7 @@ def main() -> int:
             "src/repro/kernels/knn_topk/kernel.py:37", launches, kernel,
             kernel["timings"][25600]),
         row("flash_attention",
-            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
             "src/repro/kernels/flash_attention/kernel.py:74", llama["launches"],
             flash, flash["timings"]),
         row("wkv6", "src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",

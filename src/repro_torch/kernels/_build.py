@@ -1,17 +1,19 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel lives in ``kernels/<name>/csrc/*.cu`` and exports plain C
-entry points.  ``nvcc`` compiles a kernel's sources for ``sm_90a`` into a
-shared library, on first use, into ``build/kernels/`` at the root of the
-checkout (or into ``$REPRO_TORCH_BUILD_DIR`` where that is set, as it must
-be for an installed copy of the package).  The file name carries a hash
-of the sources and flags, so an edited source builds anew and an
-unchanged one is reused.  The library is loaded with ``ctypes``; each
-kernel's ``ops.py`` declares the argument types of its entry points
-(``c_void_p`` for pointers and the stream), so no pointer is cut to 32
-bits.
+Each kernel lives in ``kernels/<name>/csrc/``: ``*.cu`` sources that
+export plain C entry points, and the headers (``*.cuh``, ``*.h``) they
+include.  ``nvcc`` compiles a kernel's sources for ``sm_90a`` and links
+them into a shared library, on first use, into ``build/kernels/`` at the
+root of the checkout (or into ``$REPRO_TORCH_BUILD_DIR`` where that is
+set, as it must be for an installed copy of the package).  The file name
+carries a hash of every source and header and of the flags, so an edited
+file builds anew and an unchanged kernel is reused.  The library is
+loaded with ``ctypes``; each kernel's ``ops.py`` declares the argument
+types of its entry points (``c_void_p`` for pointers and the stream), so
+no pointer is cut to 32 bits.
 
-``build_all`` starts one ``nvcc`` per kernel at once and waits for all."""
+``build_all`` starts one ``nvcc -c`` per source of every kernel at once,
+waits for all, then links each kernel's objects."""
 from __future__ import annotations
 
 import ctypes
@@ -25,7 +27,8 @@ from typing import Iterable, Mapping, Sequence
 _KERNELS = pathlib.Path(__file__).resolve().parent
 _ROOT = _KERNELS.parents[2]           # src/repro_torch/kernels -> root
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+HEADER_SUFFIXES = (".cuh", ".h")
 # adds each kernel's registers, shared memory and spills to the build log;
 # the binary is the same, so it is not part of the hash
 VERBOSE_FLAGS = ("-Xptxas", "-v")
@@ -37,11 +40,19 @@ _libs: dict[str, ctypes.CDLL] = {}
 
 
 def sources(name: str) -> list[pathlib.Path]:
-    """The ``.cu`` files of kernel ``name``, sorted."""
+    """The ``.cu`` files of kernel ``name``, sorted: what ``nvcc`` compiles."""
     srcs = sorted((_KERNELS / name / "csrc").glob("*.cu"))
     if not srcs:
         raise FileNotFoundError(f"no CUDA sources in {_KERNELS / name / 'csrc'}")
     return srcs
+
+
+def build_inputs(name: str) -> list[pathlib.Path]:
+    """Every file the build of kernel ``name`` reads: its sources and the
+    headers beside them, sorted."""
+    csrc = _KERNELS / name / "csrc"
+    headers = [p for p in csrc.iterdir() if p.suffix in HEADER_SUFFIXES]
+    return sorted(sources(name) + headers)
 
 
 def _nvcc() -> str:
@@ -71,43 +82,63 @@ def build_dir() -> pathlib.Path:
 
 def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources(name):
+    for src in build_inputs(name):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(jobs: dict) -> tuple[dict[str, str], list[str]]:
+    """Starts every command of ``jobs`` (key -> argv) at once; returns each
+    one's output and the failures."""
+    procs = {key: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+             for key, cmd in jobs.items()}
+    logs, failed = {}, []
+    for key, proc in procs.items():
+        logs[key], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(jobs[key])}\n{logs[key]}")
+    return logs, failed
+
+
 def build_all(names: Iterable[str], verbose: bool = False) -> dict[str, str]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    each, all started together.  Returns the compiler's log per kernel
-    built ("" for one that was already there); raises if any build fails."""
-    procs = {}
+    """Compile every named kernel whose library is missing: one ``nvcc -c``
+    per source, all started together, then one link per kernel.  Returns
+    the compiler's log per source, keyed ``<kernel>/<file>`` ("" for the
+    sources of a kernel that was already built); raises if any step fails."""
+    logs: dict[str, str] = {}
+    compiles, objects, links, tmps = {}, [], {}, {}
     for name in names:
         out = library_path(name)
         if out.exists():
-            procs[name] = None
+            logs.update({f"{name}/{src.name}": "" for src in sources(name)})
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(VERBOSE_FLAGS if verbose else ()),
-               "-o", str(tmp), *map(str, sources(name))]
-        procs[name] = (cmd, tmp, out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for name, job in procs.items():
-        if job is None:
-            logs[name] = ""
-            continue
-        cmd, tmp, out, proc = job
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-        else:
-            os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("\n".join(failed))
+        objs = []
+        for src in sources(name):
+            obj = out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+            compiles[f"{name}/{src.name}"] = [
+                _nvcc(), *NVCC_FLAGS, *(VERBOSE_FLAGS if verbose else ()), "-c",
+                "-o", str(obj), str(src)]
+            objs.append(obj)
+        objects += objs
+        tmps[name] = out.with_suffix(f".{os.getpid()}.tmp")
+        links[name] = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmps[name]),
+                       *map(str, objs)]
+    try:
+        compiled, failed = _run_all(compiles)
+        logs.update(compiled)
+        if not failed:
+            _, failed = _run_all(links)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, tmp in tmps.items():
+            os.replace(tmp, library_path(name))
+    finally:
+        for path in (*objects, *tmps.values()):
+            path.unlink(missing_ok=True)
     return logs
 
 

@@ -1,42 +1,38 @@
-// GQA flash attention, causal or bidirectional, forward only.
+// GQA flash attention in float32, causal or bidirectional, forward only.
 //
 // Replaces the TPU kernel
-// src/repro/kernels/flash_attention/kernel.py::flash_attention_kernel
-// (Pallas body _fa_kernel, layout wrapper ops.flash_attention).  For
-// q [B, S, H, hd] and k, v [B, S, Hkv, hd] (float32 or bfloat16, all one
-// type; any strides over b, s and h, the last axis contiguous), query head
-// h reads kv head h / (H / Hkv) and
+// src/repro/kernels/flash_attention/kernel.py:74 flash_attention_kernel
+// (Pallas body _fa_kernel, layout wrapper ops.flash_attention) for float32
+// inputs; bfloat16 inputs go to flash_attention_sm90.cu.  For q [B, S, H, hd]
+// and k, v [B, S, Hkv, hd] in float32 (any strides over b, s and h, the
+// last axis contiguous), query head h reads kv head h / (H / Hkv) and
 //   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(hd),
-// over j <= i when causal and over all j otherwise, written as q's type
-// into a contiguous o [B, S, H, hd].  The math is float32 for both input
-// types, with the reference's online softmax: per tile of keys
+// over j <= i when causal and over all j otherwise, written into a
+// contiguous o [B, S, H, hd].  The math is full float32, with the
+// reference's online softmax: per tile of keys
 //   m_cur = max(m, max_j s_j); alpha = exp(m - m_cur); p_j = exp(s_j - m_cur)
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j;  m = m_cur
 // and o = acc / max(l, 1e-30).  Masked scores are -1e30, as in the Pallas
 // kernel.  Every row is computed: a ragged S is masked here, not dropped.
 //
-// Bound on an H100: operations.  At the llama3-8b prefill shape
-// (B=4, S=2048, H=32, Hkv=8, hd=128, causal, bf16) the useful work is
-// 4*B*H*S^2*hd/2 = 137 GFLOP, 0.14 ms at the 989 TFLOP/s bf16 tensor-core
-// peak, against 0.05 ms for the 168 MB of q, k, v and o at 3.35 TB/s
-// (k and v at the 8 kv heads).
+// Bound on an H100: operations.  At the llama3-8b prefill head layout
+// (B=4, S=2048, H=32, Hkv=8, hd=128, causal) the useful work is
+// 4*B*H*S^2*hd/2 = 137 GFLOP, 2.05 ms at the 67 TFLOP/s float32 rate of
+// the CUDA cores (the route must stay full float32, so TF32 and bf16
+// tensor cores are out).
 //
-// Design (a first kernel that is right; tensor cores are later work):
-// one CTA of 8 warps per (b, h, tile of 64 query rows), each warp owning
-// 8 rows.  The CTA stages its q tile and, 32 keys at a time, a K and a V
-// tile in shared memory as float32, shared by all 8 warps.  Scores put a
-// key on each lane: lane j forms q_r . k_j for the warp's 8 rows with
-// 16-byte loads (the q reads are broadcasts; the K rows are padded by 4
-// floats so the lanes' 16-byte reads fall in distinct banks), so no
-// shuffle reduction is needed per score.  The softmax reduces each row's
-// 32 scores with 5 shuffles; P.V broadcasts p_j by shuffle while each lane
-// owns hd/32 output columns.  Causal tiles above the diagonal are not
-// visited, a warp skips a tile that its rows cannot see, and the CTAs
-// with the most causal work are launched first.  The math stays on the
-// CUDA cores in float32, so the tensor-core bound is far off: wgmma tiles
-// with TMA staging are the redesign.
+// Design: one CTA of 8 warps per (b, h, tile of 64 query rows), each warp
+// owning 8 rows.  The CTA stages its q tile and, 32 keys at a time, a K and
+// a V tile in shared memory, shared by all 8 warps.  Scores put a key on
+// each lane: lane j forms q_r . k_j for the warp's 8 rows with 16-byte
+// loads (the q reads are broadcasts; the K rows are padded by 4 floats so
+// the lanes' 16-byte reads fall in distinct banks), so no shuffle
+// reduction is needed per score.  The softmax reduces each row's 32 scores
+// with 5 shuffles; P.V broadcasts p_j by shuffle while each lane owns hd/32
+// output columns.  Causal tiles above the diagonal are not visited, a warp
+// skips a tile that its rows cannot see, and the CTAs with the most causal
+// work are launched first.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,12 +49,8 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -230,27 +222,20 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
-// success).  dtype: 0 float32, 1 bfloat16.  strides: 12 element strides,
-// (b, s, h) of q, k, v and o in that order.  S == 0 launches nothing.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int causal, int B, int S,
-                                   int H, int Hkv, int hd, const int64_t* strides,
-                                   cudaStream_t stream) {
+// Launches the float32 kernel on `stream` and returns cudaGetLastError()
+// (0 on success).  strides: 12 element strides, (b, s, h) of q, k, v and o
+// in that order.  S == 0 launches nothing.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                       void* o, int causal, int B, int S, int H,
+                                       int Hkv, int hd, const int64_t* strides,
+                                       cudaStream_t stream) {
   if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
   if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  cudaError_t err;
-  if (dtype == 0)
-    err = causal ? dispatch_hd<float, true>(q, k, v, o, st, B, S, H, Hkv, hd, stream)
-                 : dispatch_hd<float, false>(q, k, v, o, st, B, S, H, Hkv, hd, stream);
-  else if (dtype == 1)
-    err = causal
-        ? dispatch_hd<__nv_bfloat16, true>(q, k, v, o, st, B, S, H, Hkv, hd, stream)
-        : dispatch_hd<__nv_bfloat16, false>(q, k, v, o, st, B, S, H, Hkv, hd, stream);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err =
+      causal ? dispatch_hd<float, true>(q, k, v, o, st, B, S, H, Hkv, hd, stream)
+             : dispatch_hd<float, false>(q, k, v, o, st, B, S, H, Hkv, hd, stream);
   return static_cast<int>(err);
 }

@@ -1,9 +1,17 @@
-"""Wrapper of the flash-attention kernel.
+"""Wrapper of the flash-attention kernels.
 
-On CUDA tensors it launches the hand-written kernel
-(``csrc/flash_attention.cu``) on the current stream; on CPU tensors it
-runs the plain version (``ref.py``).  There is no fallback from one to
-the other."""
+On CUDA tensors it launches one of two hand-written kernels on the current
+stream, chosen by dtype and by nothing else:
+
+* bfloat16 -> ``csrc/flash_attention_sm90.cu``: Hopper tensor cores
+  (``wgmma``), tiles moved by TMA.  TMA needs 16-byte-aligned bases and
+  strides that are multiples of 16 bytes; a tensor that breaks either rule
+  is refused, not copied.
+* float32 -> ``csrc/flash_attention.cu``: full float32 on the CUDA cores,
+  as the port's float32 paths require.
+
+On CPU tensors it runs the plain version (``ref.py``).  There is no
+fallback from one route to another."""
 from __future__ import annotations
 
 import ctypes
@@ -14,14 +22,32 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention"
-SIGNATURES = {"flash_attention_fwd": (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-    + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p], ctypes.c_int)}
-HEAD_DIMS = (16, 32, 64, 128)              # the kernel's instantiations
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+         + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
+ENTRY = {torch.float32: "flash_attention_fwd_f32",
+         torch.bfloat16: "flash_attention_fwd_bf16"}
+SIGNATURES = {fn: (_ARGS, ctypes.c_int) for fn in ENTRY.values()}
+HEAD_DIMS = (16, 32, 64, 128)              # both kernels' instantiations
+TMA_ALIGN = 16                             # bytes, for bases and strides
 
-# kernel launches since the last reset (the plain CPU path does not count)
+# kernel launches since the last reset (the plain CPU path does not count):
+# both routes, and each route on its own
 LAUNCHES = 0
+LAUNCHES_F32 = 0
+LAUNCHES_BF16 = 0
+
+
+def _check_tma_layout(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        size = t.element_size()
+        if t.data_ptr() % TMA_ALIGN:
+            raise ValueError(f"flash_attention: {name} starts at an address that is "
+                             f"not {TMA_ALIGN}-byte aligned, which the bfloat16 "
+                             "kernel's TMA loads need")
+        if any(st * size % TMA_ALIGN for st in t.stride()[:3]):
+            raise ValueError(f"flash_attention: {name} has strides {t.stride()} whose "
+                             f"b, s, h steps are not multiples of {TMA_ALIGN} bytes, "
+                             "which the bfloat16 kernel's TMA loads need")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -30,7 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16), H a multiple of Hkv, the last axis contiguous →
     ``[B, S, H, hd]`` in q's dtype.  Query head h reads kv head
     ``h // (H // Hkv)``; scores are scaled by ``1/sqrt(hd)``."""
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_F32, LAUNCHES_BF16
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q, k, v of rank 4 [B, S, H, hd]")
     B, S, H, hd = q.shape
@@ -38,7 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, S, Hkv, hd) or v.shape != k.shape or Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k "
                          f"{tuple(k.shape)} and v {tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.device != k.device or q.device != v.device:
@@ -52,18 +78,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {hd}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs the head_dim axis contiguous")
+    if q.dtype == torch.bfloat16:
+        _check_tma_layout(q=q, k=k, v=v)
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if o.numel() == 0:
         return o
     strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, o)
                                       for st in t.stride()[:3]))
     lib = _build.load(NAME, SIGNATURES)
+    entry = ENTRY[q.dtype]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
+        rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            _DTYPES[q.dtype], int(causal), B, S, H, Hkv, hd, strides, stream)
+            int(causal), B, S, H, Hkv, hd, strides, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES_F32 += 1
     return o

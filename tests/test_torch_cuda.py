@@ -64,13 +64,14 @@ def test_beam_on_the_card_equals_the_beam_on_the_cpu(cuda_device, shape, k,
 
 
 # -- flash attention: tests/test_kernels.py's cases, a ragged S, every head
-# dim the kernel takes, strided views, and a llama3-8b head layout
-# (rtol, atol): in bfloat16 both sides round one float32 result, so they
-# differ by at most one bfloat16 step, 2^-7 of |want|
+# dim the kernels take, strided views, and a llama3-8b head layout.
+# (rtol, atol) of |got - want| <= atol + rtol |want|.  float32: both sides
+# compute in float32.  bfloat16: both round a float32 result to bfloat16
+# (one step is at most 2^-7 of |want|), and the kernel carries P into P.V
+# as two bfloat16 parts; tests/test_torch_flash_numerics.py emulates that
+# arithmetic on the CPU at these cases and tolerances
 FLASH_TOLS = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2e-3)}
-
-
-@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,dtype", [
+FLASH_CASES = [
     (2, 128, 4, 4, 64, True, torch.float32),
     (2, 128, 4, 2, 64, True, torch.float32),
     (2, 256, 8, 2, 32, True, torch.float32),
@@ -82,7 +83,24 @@ FLASH_TOLS = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-2, 2e-3)}
     (3, 37, 4, 2, 16, True, torch.float32),       # hd 16, S below one tile
     (1, 1, 4, 2, 128, True, torch.float32),       # one row
     (1, 512, 32, 8, 128, True, torch.bfloat16),   # llama3-8b heads
-])
+    # the bfloat16 route (wgmma + TMA) at every head dim, both maskings,
+    # ragged S, one row
+    (2, 128, 4, 2, 16, True, torch.bfloat16),
+    (2, 128, 4, 2, 16, False, torch.bfloat16),
+    (2, 256, 8, 2, 32, True, torch.bfloat16),
+    (2, 256, 8, 2, 32, False, torch.bfloat16),
+    (2, 128, 4, 4, 64, False, torch.bfloat16),
+    (2, 384, 4, 1, 128, False, torch.bfloat16),
+    (2, 200, 4, 2, 64, True, torch.bfloat16),     # ragged S
+    (2, 200, 4, 2, 128, False, torch.bfloat16),
+    (3, 37, 4, 2, 16, True, torch.bfloat16),      # S below one tile
+    (3, 37, 4, 2, 128, False, torch.bfloat16),
+    (1, 1, 4, 2, 128, True, torch.bfloat16),      # one row
+    (1, 1, 4, 2, 16, False, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,dtype", FLASH_CASES)
 def test_flash_kernel_matches_plain_version(cuda_device, B, S, H, Hkv, hd,
                                             causal, dtype):
     g = torch.Generator(device=cuda_device).manual_seed(S + hd)
@@ -106,6 +124,47 @@ def test_flash_kernel_reads_strided_views(cuda_device):
     got = fa_ops.flash_attention(q, k, v)
     want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_bf16_kernel_reads_strided_views(cuda_device):
+    """The bfloat16 route's TMA maps take a fused [B, S, H + 2 Hkv, hd]
+    projection's slices as they are."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    qkv = torch.randn(2, 160, 8, 64, generator=g, device=cuda_device).bfloat16()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    before = fa_ops.LAUNCHES_BF16
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES_BF16 == before + 1
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    rtol, atol = FLASH_TOLS[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_bf16_wrapper_refuses_what_tma_cannot_load(cuda_device):
+    flat = torch.zeros(1 + 2 * 64 * 4 * 64, device=cuda_device, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 64, 4, 64)             # base 2 bytes past alignment
+    ok = torch.zeros(2, 64, 4, 64, device=cuda_device, dtype=torch.bfloat16)
+    before = fa_ops.LAUNCHES
+    with pytest.raises(ValueError, match="k starts at an address"):
+        fa_ops.flash_attention(ok, shifted, ok)
+    padded = torch.zeros(2, 64, 4, 20, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="v has strides"):
+        fa_ops.flash_attention(ok[..., :16], ok[..., :16], padded[..., :16])
+    assert fa_ops.LAUNCHES == before
+
+
+def test_flash_routes_count_their_own_launches(cuda_device):
+    q = torch.randn(1, 64, 2, 32, device=cuda_device)
+    counts = (fa_ops.LAUNCHES, fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_BF16)
+    fa_ops.flash_attention(q, q, q)
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_BF16) == (
+        counts[0] + 1, counts[1] + 1, counts[2])
+    fa_ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    fa_ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_BF16) == (
+        counts[0] + 3, counts[1] + 1, counts[2] + 2)
 
 
 def test_flash_wrapper_refuses_head_dims_the_kernel_lacks(cuda_device):

@@ -120,10 +120,33 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_flash_cpu_path_runs_the_plain_version_and_counts_no_launch():
     (_, qt), (_, kt), (_, vt) = _qkv(4, 1, 16, 2, 1, 16, "float32")
-    before = fa_ops.LAUNCHES
+    before = fa_ops.LAUNCHES, fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_BF16
     got = fa_ops.flash_attention(qt, kt, vt, causal=True)
     assert torch.equal(got, flash_attention_ref(qt, kt, vt, causal=True))
-    assert fa_ops.LAUNCHES == before
+    got = fa_ops.flash_attention(qt.bfloat16(), kt.bfloat16(), vt.bfloat16())
+    assert got.dtype == torch.bfloat16
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_BF16) == before
+
+
+def test_flash_routes_are_chosen_by_dtype_alone():
+    assert fa_ops.ENTRY == {torch.float32: "flash_attention_fwd_f32",
+                            torch.bfloat16: "flash_attention_fwd_bf16"}
+    assert set(fa_ops.SIGNATURES) == set(fa_ops.ENTRY.values())
+
+
+def test_tma_layout_check_names_the_tensor_it_refuses():
+    """What the bfloat16 route's TMA maps need: 16-byte-aligned bases and
+    b, s, h strides that are multiples of 16 bytes.  The check reads
+    pointers and strides only, so it runs here on CPU tensors."""
+    ok = torch.zeros(2, 64, 4, 64, dtype=torch.bfloat16)
+    fused = torch.zeros(2, 64, 8, 64, dtype=torch.bfloat16)
+    fa_ops._check_tma_layout(q=ok, k=fused[:, :, 4:6], v=fused[:, :, 6:])
+    shifted = torch.zeros(1 + ok.numel(), dtype=torch.bfloat16)[1:].view(ok.shape)
+    with pytest.raises(ValueError, match="k starts at an address"):
+        fa_ops._check_tma_layout(q=ok, k=shifted)
+    padded = torch.zeros(2, 64, 4, 20, dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError, match="v has strides"):
+        fa_ops._check_tma_layout(q=ok[..., :16], v=padded)
 
 
 # -- wkv6 --------------------------------------------------------------------------
@@ -211,19 +234,43 @@ def test_wkv6_cpu_path_runs_the_plain_version_and_counts_no_launch():
 
 
 # -- the shared build helper -----------------------------------------------------
-@pytest.mark.parametrize("name,source", [("knn_topk", "knn_topk.cu"),
-                                         ("flash_attention", "flash_attention.cu"),
-                                         ("rwkv6_scan", "wkv6.cu")])
+@pytest.mark.parametrize("name,source,headers", [
+    pytest.param("knn_topk", ["knn_topk.cu"], [], id="knn_topk-knn_topk.cu"),
+    pytest.param("flash_attention", ["flash_attention.cu", "flash_attention_sm90.cu"],
+                 ["sm90.cuh"], id="flash_attention-flash_attention.cu"),
+    pytest.param("rwkv6_scan", ["wkv6.cu"], [], id="rwkv6_scan-wkv6.cu")])
 def test_every_kernel_builds_from_its_own_sources_under_a_content_hash(
-        monkeypatch, name, source):
+        monkeypatch, name, source, headers):
     monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
-    assert [s.name for s in _build.sources(name)] == [source]
+    assert [s.name for s in _build.sources(name)] == source
+    assert [s.name for s in _build.build_inputs(name)] == sorted(source + headers)
     path = _build.library_path(name)
     assert path.name.startswith(f"{name}-") and path.suffix == ".so"
     assert path == _build.library_path(name)
     others = {_build.library_path(n) for n in ("knn_topk", "flash_attention",
                                                "rwkv6_scan")}
     assert len(others) == 3
+
+
+def test_editing_a_header_changes_the_library_name(monkeypatch, tmp_path):
+    """Headers are hashed with the sources, so an edited header builds anew
+    instead of reusing a stale library; files the build never reads are
+    not hashed, and headers are not compiled on their own."""
+    import shutil
+    kernels = tmp_path / "kernels"
+    shutil.copytree(_build._KERNELS / "flash_attention" / "csrc",
+                    kernels / "flash_attention" / "csrc")
+    monkeypatch.setattr(_build, "_KERNELS", kernels)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    csrc = kernels / "flash_attention" / "csrc"
+    before = _build.library_path("flash_attention")
+    (csrc / "notes.txt").write_text("not read by the build\n")
+    assert _build.library_path("flash_attention") == before
+    header = csrc / "sm90.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    after = _build.library_path("flash_attention")
+    assert after != before and after.parent == tmp_path / "build"
+    assert all(s.suffix == ".cu" for s in _build.sources("flash_attention"))
 
 
 def test_build_helper_raises_for_a_kernel_without_sources():
@@ -240,7 +287,7 @@ def test_package_data_covers_every_kernel_source():
     globs = cfg["tool"]["setuptools"]["package-data"]["repro_torch"]
     pkg = root / "src" / "repro_torch"
     for name in ("knn_topk", "flash_attention", "rwkv6_scan"):
-        for src in _build.sources(name):
+        for src in _build.build_inputs(name):
             rel = src.relative_to(pkg).as_posix()
             assert any(fnmatch.fnmatch(rel, g.replace("**/", "*/")) for g in globs), rel
 
