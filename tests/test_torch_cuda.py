@@ -174,8 +174,9 @@ def test_flash_wrapper_refuses_head_dims_the_kernel_lacks(cuda_device):
 
 
 # -- wkv6: tests/test_kernels.py's cases, a carried state, one step, bf16,
-# and the rwkv6-7b head size
-@pytest.mark.parametrize("B,T,H,hd,dtype,carry", [
+# the rwkv6-7b head size and heads, and a T one past a chunk (32 steps at
+# hd <= 64, 16 at hd = 128)
+WKV_CASES = [
     (2, 64, 2, 16, torch.float32, False),
     (2, 128, 3, 16, torch.float32, False),
     (2, 96, 2, 8, torch.float32, False),
@@ -184,21 +185,57 @@ def test_flash_wrapper_refuses_head_dims_the_kernel_lacks(cuda_device):
     (4, 1, 64, 64, torch.bfloat16, True),          # rwkv6-7b decode step
     (2, 300, 4, 64, torch.float32, True),
     (1, 40, 2, 128, torch.float32, True),
-])
-def test_wkv6_kernel_matches_plain_version(cuda_device, B, T, H, hd, dtype,
-                                           carry):
-    g = torch.Generator(device=cuda_device).manual_seed(T + hd)
+    (1, 2048, 4, 64, torch.bfloat16, False),       # rwkv6-7b prefill length
+    (2, 33, 2, 64, torch.float32, True),           # T = C + 1
+    (1, 17, 2, 128, torch.bfloat16, False),        # T = C + 1 at hd 128
+]
+
+
+def _wkv_inputs(device, B, T, H, hd, dtype, carry):
+    g = torch.Generator(device=device).manual_seed(T + hd)
     shape = (B, T, H, hd)
-    w = torch.sigmoid(torch.randn(shape, generator=g, device=cuda_device)) * 0.5 + 0.45
-    r, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    w = torch.sigmoid(torch.randn(shape, generator=g, device=device)) * 0.5 + 0.45
+    r, k, v = (torch.randn(shape, generator=g, device=device).to(dtype)
                for _ in range(3))
-    u = torch.randn(H, hd, generator=g, device=cuda_device) * 0.5
-    S0 = (torch.randn(B, H, hd, hd, generator=g, device=cuda_device)
-          if carry else None)
+    u = torch.randn(H, hd, generator=g, device=device) * 0.5
+    S0 = torch.randn(B, H, hd, hd, generator=g, device=device) if carry else None
+    return w, r, k, v, u, S0
+
+
+def _check_wkv(args):
     before = wkv_ops.LAUNCHES
-    out, S_T = wkv_ops.wkv6(w, r, k, v, u, S0)
+    out, S_T = wkv_ops.wkv6(*args)
     torch.cuda.synchronize()
     assert wkv_ops.LAUNCHES == before + 1
-    want, want_S = wkv6_ref(w, r, k, v, u, S0)
+    want, want_S = wkv6_ref(*(a if a is None else a.contiguous() for a in args))
     torch.testing.assert_close(out, want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(S_T, want_S, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,H,hd,dtype,carry", WKV_CASES)
+def test_wkv6_kernel_matches_plain_version(cuda_device, B, T, H, hd, dtype,
+                                           carry):
+    _check_wkv(_wkv_inputs(cuda_device, B, T, H, hd, dtype, carry))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv6_kernel_reads_strided_views(cuda_device, dtype):
+    """w, r, k, v as h- and t-strided slices of larger tensors, the last
+    axis contiguous; r starts one element past a 16-byte boundary, so it
+    is staged in narrower copies than the others."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    B, T, H, hd = 2, 70, 3, 64
+
+    def randn(*shape, dt=dtype):
+        return torch.randn(shape, generator=g, device=cuda_device).to(dt)
+
+    # decays in (0.45, 0.95), the h-slice of a wider tensor
+    w = (torch.sigmoid(randn(B, T, 2 * H, hd, dt=torch.float32)) * 0.5 + 0.45)[:, :, H:]
+    rkv = randn(B, T, 3 * H, hd)                       # a fused r/k/v projection
+    flat = randn(1 + B * 2 * T * H * hd)
+    r = flat[1:].view(B, 2 * T, H, hd)[:, ::2]         # t-strided, base + 1 element
+    k, v = rkv[:, :, H:2 * H], rkv[:, :, 2 * H:]
+    assert r.data_ptr() % 16 != 0 and r.stride(1) == 2 * H * hd
+    u = randn(H, hd, dt=torch.float32) * 0.5
+    S0 = randn(B, H, hd, hd, dt=torch.float32)
+    _check_wkv((w, r, k, v, u, S0))
