@@ -5,9 +5,11 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version on the card: the K-NN reduction, both flash-attention
-routes (bfloat16 on the tensor cores, float32 on the CUDA cores) and the
-WKV6 recurrence.  Then it drives the port's main paths:
+PyTorch version on the card: the K-NN reduction (NaN, ±inf and views off
+the 16-byte grid among its cases; its times beside a launch floor, its
+eager call's host time step by step), both flash-attention routes
+(bfloat16 on the tensor cores, float32 on the CUDA cores) and the WKV6
+recurrence.  Then it drives the port's main paths:
 
 * the DSDPS control loop: the K-NN beam and a short loop on the card
   against the CPU, then ``repro_torch.launch.drl_control.run`` on
@@ -117,35 +119,127 @@ def graph_ms(fn, reps: int = 100, replays: int = 10) -> float:
     return start.elapsed_time(end) / (reps * replays)
 
 
+def regret_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| where want is finite; raises unless NaN and ±inf
+    stand at the same places in both."""
+    special = ~torch.isfinite(want)
+    if not (torch.equal(special, ~torch.isfinite(got)) and torch.equal(
+            got[special].nan_to_num(), want[special].nan_to_num())):
+        raise AssertionError("kernel regret has NaN or inf where the plain "
+                             "version has not")
+    return float(torch.where(special, 0.0, got - want).abs().max())
+
+
+def host_breakdown(proto, calls: int = 3000) -> dict:
+    """Host µs per call of each step of an eager K-NN call at ``proto``'s
+    shape (``time.perf_counter`` around ``calls`` calls of the step alone),
+    of the whole wrapper, and of the steps the wrapper does not take in
+    their place: three allocations, a device context on every call, the
+    stream as a ``torch.cuda.Stream``, the library looked up each call."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.knn_topk import ops
+
+    *lead, m = proto.shape
+    out = torch.empty((3, *lead), dtype=torch.int32, device=proto.device)
+    rows = out[0].numel()
+    entry = getattr(_build.load(ops.NAME, ops.SIGNATURES), ops.ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    index = proto.get_device()
+
+    def outputs():
+        out = proto.new_empty((3, *lead), dtype=torch.int32)
+        return out[0], out[1], out[2].view(torch.float32)
+
+    def device_context():
+        with torch.cuda.device(proto.device):
+            pass
+
+    steps = {
+        "checks": lambda: (proto.dtype != torch.float32, proto.dim() < 1,
+                           proto.shape[-1] < 2, proto.is_contiguous(),
+                           proto.is_cuda),
+        "outputs: one [3, rows] new_empty, 3 views": outputs,
+        "device check (get_device == current_device)":
+            lambda: index == torch.cuda.current_device(),
+        "raw stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "ctypes call (the launch)":
+            lambda: entry(proto.data_ptr(), out.data_ptr(), rows, m, stream),
+        "whole wrapper": lambda: ops.row_top2_regret(proto),
+        "not taken: three torch.empty": lambda: [
+            torch.empty(lead, dtype=dt, device=proto.device)
+            for dt in (torch.int32, torch.int32, torch.float32)],
+        "not taken: a torch.cuda.device context": device_context,
+        "not taken: current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream(proto.device).cuda_stream,
+        "not taken: _build.load": lambda: _build.load(ops.NAME, ops.SIGNATURES),
+    }
+    us = {}
+    for name, fn in steps.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    return us
+
+
 def check_kernel(dev) -> dict:
-    """Phase 3: the kernel against its plain version at every shape."""
+    """Phase 3: the K-NN kernel against its plain version at every shape,
+    on edge rows and on views off the 16-byte grid; its times beside the
+    launch floor; the eager call's host time, step by step."""
     from repro_torch.kernels.knn_topk import row_top2_regret, row_top2_regret_ref
+    from repro_torch.kernels.knn_topk.ref import edge_rows
 
     gen = torch.Generator(device=dev).manual_seed(0)
     shapes = [(800, 10), (25600, 10), (3200, 10), (7, 3), (1, 2), (513, 16),
               (300, 33)]
-    cases = [torch.rand(s, generator=gen, device=dev) for s in shapes]
+    cases = [(str(s), torch.rand(s, generator=gen, device=dev)) for s in shapes]
     # quantized rows: ties everywhere, incl. a best value held by several
     # columns and rows that are constant
     tied = torch.round(torch.rand(1000, 10, generator=gen, device=dev) * 3) / 3
     tied[:50] = 0.5
-    cases.append(tied)
+    cases.append(("tied", tied))
     # a batched [F, B, N, M] proto, noise added as exploration does
-    cases.append(torch.rand(2, 16, 25, 10, generator=gen, device=dev) * 2)
+    cases.append(("[2,16,25,10]",
+                  torch.rand(2, 16, 25, 10, generator=gen, device=dev) * 2))
+    # NaN (first, middle, last, twice, beside +-inf), +-inf, all -inf, below
+    # and tied with -1e30, -0.0, ties: every 16th of 300 rows
+    for m in (2, 3, 10, 16, 33):
+        names, rows = edge_rows(m)
+        p = torch.rand(300, m, generator=gen, device=dev)
+        p[::16][:len(names)] = rows.to(dev)
+        cases.append((f"edge rows m={m}", p))
+    # contiguous views 1-3 floats off the 16-byte grid, edge rows in them
+    for off in (1, 2, 3):
+        for n, m in ((25600, 10), (513, 16), (300, 33), (7, 3)):
+            flat = torch.rand(off + n * m, generator=gen, device=dev)
+            p = flat[off:].view(n, m)
+            names, rows = edge_rows(m)
+            k = min(n, len(names))
+            p[-k:] = rows[:k].to(dev)
+            cases.append((f"[{n},{m}] at offset {off}", p))
     max_err = 0.0
-    for proto in cases:
+    for what, proto in cases:
         b, s, r = row_top2_regret(proto)
         rb, rs, rr = row_top2_regret_ref(proto)
         torch.cuda.synchronize()
         if not (torch.equal(b, rb) and torch.equal(s, rs)):
-            raise AssertionError(f"kernel indices differ at {tuple(proto.shape)}")
-        err = float((r - rr).abs().max())
+            raise AssertionError(f"kernel indices differ at {what}")
+        err = regret_err(r, rr)
         if err > 1e-6:
-            raise AssertionError(f"kernel regret off by {err} at {tuple(proto.shape)}")
+            raise AssertionError(f"kernel regret off by {err} at {what}")
         max_err = max(max_err, err)
-    log(f"phase 3 kernel vs plain version: {len(cases)} shapes agree "
-        f"(indices exact, max |regret err| {max_err})")
+    log(f"phase 3 kernel vs plain version: {len(cases)} cases agree, edge rows "
+        f"and offsets 1-3 among them (indices exact, NaN and inf at the same "
+        f"places, max |regret err| {max_err})")
 
+    one = torch.zeros(1, device=dev)
+    floor = graph_ms(lambda: one.fill_(1.0))
+    log(f"  launch floor: a 1-element fill_ in the same CUDA graph harness "
+        f"{floor:.6f} ms per call; eager {eager_ms(lambda: one.fill_(1.0)):.6f}")
     timings = {}
     for rows in (25600, 800):
         proto = torch.rand(rows, 10, generator=gen, device=dev)
@@ -160,7 +254,7 @@ def check_kernel(dev) -> dict:
         t = dict(ms=graph_ms(kernel), plain_ms=graph_ms(plain),
                  library_ms=graph_ms(library), eager_ms=eager_ms(kernel),
                  eager_plain_ms=eager_ms(plain),
-                 eager_library_ms=eager_ms(library))
+                 eager_library_ms=eager_ms(library), floor_ms=floor)
         bytes_moved = rows * m * 4 + rows * 12
         ops = rows * 2 * m                      # two compares per element
         t["bound_ms"] = max(bytes_moved / HBM_BYTES_PER_S,
@@ -169,13 +263,24 @@ def check_kernel(dev) -> dict:
                          >= ops / F32_OPS_PER_S else "operations")
         timings[rows] = t
         log(f"  [{rows},{m}] device ms per call (CUDA graph): kernel "
-            f"{t['ms']:.6f}  plain {t['plain_ms']:.6f}  library (torch.topk "
-            f"+ sub) {t['library_ms']:.6f}  bound {t['bound_ms']:.6f} "
-            f"({t['bound_by']})")
+            f"{t['ms']:.6f} = floor + {(t['ms'] - floor) * 1e3:.3f} us  plain "
+            f"{t['plain_ms']:.6f}  library (torch.topk + sub) "
+            f"{t['library_ms']:.6f}  bound {t['bound_ms']:.6f} ({t['bound_by']})")
         log(f"  [{rows},{m}] eager ms per call (host dispatch included): "
             f"kernel {t['eager_ms']:.6f}  plain {t['eager_plain_ms']:.6f}  "
             f"library {t['eager_library_ms']:.6f}")
-    return dict(max_abs_err=max_err, timings=timings)
+    # rows read from shared memory as float2 (m 10) or float4 (m 16) at
+    # offset 0, as floats (2-way and 16-way bank conflicts) at offset 1
+    for m in (10, 16):
+        flat = torch.rand(1 + 25600 * m, generator=gen, device=dev)
+        at = {off: graph_ms(lambda p=flat[off:off + 25600 * m].view(25600, m):
+                            row_top2_regret(p)) for off in (0, 1)}
+        log(f"  [25600,{m}] device ms per call at offset 0 (vector row reads) "
+            f"{at[0]:.6f}, at offset 1 (scalar row reads, scalar head) {at[1]:.6f}")
+    us = host_breakdown(torch.rand(25600, 10, generator=gen, device=dev))
+    log("  eager host us per call at [25600,10] (perf_counter, 3000 calls a "
+        "step): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    return dict(max_abs_err=max_err, timings=timings, host_us=us)
 
 
 def check_beam(dev) -> None:

@@ -2,7 +2,13 @@
 
 On a CUDA tensor it launches the hand-written kernel (``csrc/knn_topk.cu``)
 on the current stream; on a CPU tensor it runs the plain version
-(``ref.py``).  There is no fallback from one to the other."""
+(``ref.py``).  There is no fallback from one to the other.
+
+The loop that calls it waits on the host, so a call does little there: one
+allocation for the three outputs, the entry point bound once, the raw
+stream handle in place of a ``torch.cuda.Stream`` object (which took longer
+to make than the launch; chip_smoke.py's phase 3 times every step), and
+the device switched only when the tensor is not on the current one."""
 from __future__ import annotations
 
 import ctypes
@@ -13,12 +19,24 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.knn_topk.ref import row_top2_regret_ref
 
 NAME = "knn_topk"
-SIGNATURES = {"knn_row_top2_regret": (
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int64, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)}
+ENTRY = "knn_row_top2_regret"
+# (proto, out [3, rows] int32, rows, m, stream)
+SIGNATURES = {ENTRY: (
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+     ctypes.c_void_p], ctypes.c_int)}
 
 # kernel launches since the last reset (the plain CPU path does not count)
 LAUNCHES = 0
+_entry = None                 # the C entry point, bound on the first launch
+
+
+def _launch(proto: torch.Tensor, out: torch.Tensor, rows: int, m: int,
+            index: int) -> int:
+    global _entry
+    if _entry is None:
+        _entry = getattr(_build.load(NAME, SIGNATURES), ENTRY)
+    stream = torch._C._cuda_getCurrentRawStream(index)   # cudaStream_t
+    return _entry(proto.data_ptr(), out.data_ptr(), rows, m, stream)
 
 
 def row_top2_regret(proto: torch.Tensor):
@@ -26,7 +44,8 @@ def row_top2_regret(proto: torch.Tensor):
     second ``[...]`` int32, regret ``[...]`` float32).
 
     All leading axes are flattened into rows, so a fleet's whole select
-    (``[F, N, M]``) or update (``[F, B, N, M]``) is one launch."""
+    (``[F, N, M]``) or update (``[F, B, N, M]``) is one launch.  On the card
+    the three are rows of one ``[3, ...]`` buffer, each contiguous."""
     global LAUNCHES
     if proto.dtype != torch.float32:
         raise TypeError(f"row_top2_regret takes float32, got {proto.dtype}")
@@ -35,24 +54,23 @@ def row_top2_regret(proto: torch.Tensor):
                          f"shape {tuple(proto.shape)}")
     if not proto.is_contiguous():
         raise ValueError("row_top2_regret takes a contiguous tensor")
-    if proto.device.type == "cpu":
-        return row_top2_regret_ref(proto)
-    if proto.device.type != "cuda":
+    if not proto.is_cuda:
+        if proto.device.type == "cpu":
+            return row_top2_regret_ref(proto)
         raise ValueError(f"row_top2_regret runs on cuda or cpu, not "
                          f"{proto.device}")
-    lead, m = proto.shape[:-1], proto.shape[-1]
-    best = torch.empty(lead, dtype=torch.int32, device=proto.device)
-    second = torch.empty(lead, dtype=torch.int32, device=proto.device)
-    regret = torch.empty(lead, dtype=torch.float32, device=proto.device)
+    *lead, m = proto.shape
+    out = proto.new_empty((3, *lead), dtype=torch.int32)
+    best, second, regret = out[0], out[1], out[2].view(torch.float32)
     rows = best.numel()
     if rows == 0:
         return best, second, regret
-    lib = _build.load(NAME, SIGNATURES)
-    with torch.cuda.device(proto.device):
-        stream = torch.cuda.current_stream(proto.device).cuda_stream
-        rc = lib.knn_row_top2_regret(proto.data_ptr(), best.data_ptr(),
-                                     second.data_ptr(), regret.data_ptr(),
-                                     rows, m, stream)
+    index = proto.get_device()
+    if index == torch.cuda.current_device():
+        rc = _launch(proto, out, rows, m, index)
+    else:
+        with torch.cuda.device(index):
+            rc = _launch(proto, out, rows, m, index)
     if rc != 0:
         raise RuntimeError(f"knn_row_top2_regret launch failed: CUDA error {rc}")
     LAUNCHES += 1

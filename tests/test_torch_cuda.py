@@ -14,6 +14,7 @@ from repro_torch.core.knn_projection import knn_actions       # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.knn_topk import ops, row_top2_regret_ref  # noqa: E402
+from repro_torch.kernels.knn_topk.ref import edge_rows        # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops     # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_ref           # noqa: E402
 
@@ -49,6 +50,53 @@ def test_kernel_skips_the_launch_for_no_rows(cuda_device):
         torch.empty(0, 10, device=cuda_device))
     assert best.shape == second.shape == regret.shape == (0,)
     assert ops.LAUNCHES == before
+
+
+def _assert_as_plain(got, want):
+    """Indices exact; regret within 1e-6, NaN and ±inf at the same places."""
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=1e-6,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("m", range(2, 34))
+def test_kernel_matches_plain_version_on_edge_rows(cuda_device, m):
+    """NaN, ±inf, all -inf, below and tied with -1e30, -0.0, ties: each
+    edge row once among 300 uniform rows, so that they share tiles."""
+    names, rows = edge_rows(m)
+    g = torch.Generator(device=cuda_device).manual_seed(m)
+    p = torch.rand(300, m, generator=g, device=cuda_device)
+    p[::16][:len(names)] = rows.to(cuda_device)
+    got = ops.row_top2_regret(p)
+    torch.cuda.synchronize()
+    _assert_as_plain(got, row_top2_regret_ref(p))
+
+
+@pytest.mark.parametrize("m", [2, 3, 4, 8, 10, 16, 17, 33])
+@pytest.mark.parametrize("rows", [1, 129, 25600])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_kernel_reads_views_off_the_16_byte_grid(cuda_device, m, rows, offset):
+    g = torch.Generator(device=cuda_device).manual_seed(rows * m + offset)
+    flat = torch.rand(offset + rows * m, generator=g, device=cuda_device)
+    flat[offset::7] = torch.round(flat[offset::7] * 2) / 2          # ties
+    p = flat[offset:].view(rows, m)
+    assert p.is_contiguous() and p.data_ptr() % 16 == 4 * offset
+    got = ops.row_top2_regret(p)
+    torch.cuda.synchronize()
+    _assert_as_plain(got, row_top2_regret_ref(p))
+
+
+@pytest.mark.parametrize("shape", [(10,), (800, 10), (2, 16, 25, 10),
+                                   (5, 33)])
+def test_kernel_outputs_and_one_launch_per_call(cuda_device, shape):
+    p = torch.rand(shape, device=cuda_device)
+    before = ops.LAUNCHES
+    best, second, regret = ops.row_top2_regret(p)
+    assert ops.LAUNCHES == before + 1
+    for t, dtype in ((best, torch.int32), (second, torch.int32),
+                     (regret, torch.float32)):
+        assert t.dtype == dtype and t.shape == shape[:-1]
+        assert t.is_contiguous() and t.device == p.device
 
 
 @pytest.mark.parametrize("shape,k,quant", [((8, 100, 10), 16, None),

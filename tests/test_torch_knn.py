@@ -21,6 +21,7 @@ from repro_torch.core.knn_projection import (distance_to, knn_actions,
                                              nearest_assignment)
 from repro_torch.kernels import _build
 from repro_torch.kernels.knn_topk import ops, row_top2_regret_ref
+from repro_torch.kernels.knn_topk.ref import edge_rows
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -51,6 +52,44 @@ def test_plain_row_top2_matches_pallas_kernel_and_reference(seed, n, m, quant):
         assert_exact(got[1], want[1])
         assert_f32(got[2], want[2], rtol=1e-6, atol=1e-6)
     assert got[0].dtype == got[1].dtype == torch.int32
+
+
+EDGE_MS = (2, 3, 10, 16, 33)
+EDGE_CASES = [(m, i, name) for m in EDGE_MS
+              for i, name in enumerate(edge_rows(m)[0])]
+
+
+def assert_regret(got, want):
+    """Within 1e-6, with NaN and ±inf at the same places."""
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=0,
+                               atol=1e-6, equal_nan=True)
+
+
+@pytest.mark.parametrize("m,i,name", EDGE_CASES,
+                         ids=[f"{name}-m{m}" for m, _, name in EDGE_CASES])
+def test_plain_row_top2_matches_pallas_kernel_and_reference_on_edge_rows(
+        m, i, name):
+    """NaN ranks first (the first NaN is the maximum), ties go to the first
+    index, -0.0 ties 0.0, and the masked best column (-1e30) is second
+    where nothing else is above it: jnp.argmax's order, kept by the Pallas
+    kernel and the port.  The reference's ``lax.top_k`` path returns two
+    distinct columns and orders -0.0 below 0.0, so it differs from the
+    Pallas kernel on exactly those rows, and is held to it elsewhere."""
+    p = edge_rows(m)[1][i:i + 1].numpy()
+    got = row_top2_regret_ref(to_torch(p))
+    pallas = jax_top2(jnp.asarray(p), row_blk=16)
+    assert_exact(got[0], pallas[0])
+    assert_exact(got[1], pallas[1])
+    assert_regret(got[2], pallas[2])
+    ref = jax_top2_ref(jnp.asarray(p))
+    if int(pallas[1][0]) == int(pallas[0][0]):
+        assert int(ref[1][0]) != int(ref[0][0])          # top_k: distinct
+    elif name == "neg_zero_first":
+        assert (int(ref[0][0]), int(ref[1][0])) == (1, 0)   # 0.0 above -0.0
+    else:
+        assert_exact(got[0], ref[0])
+        assert_exact(got[1], ref[1])
+        assert_regret(got[2], ref[2])
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
