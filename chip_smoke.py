@@ -26,7 +26,13 @@ recurrence.  Then it drives the port's main paths:
   decode step, through the WKV6 kernel; then 256 decode steps are timed,
   the two prefills are held to each other in float32, and each bf16
   path's drift from the float32 answer to that of a control run with the
-  kernels' plain versions.
+  kernels' plain versions;
+* the paper's baselines and scenario fleets: round-robin, DQN and the
+  model-based scheduler [25] under a mixed scenario fleet on the card
+  against the CPU, then each through ``drl_control.run`` at ``cq_large``
+  with 8 lanes, each lane slowing its own machine (the model-based lanes
+  fit their own cluster), and DDPG at the main path's budget under a mixed
+  fleet, every select and update through the K-NN kernel.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -58,6 +64,8 @@ KERNELS = ("knn_topk", "flash_attention", "rwkv6_scan")
 MAIN = dict(app="cq_large", fleet=8, k=16, offline=1000, offline_updates=100,
             epochs=50)
 U = 1                           # the launcher's updates per online epoch
+# the baselines at the same width (no offline pretraining: DDPG alone has it)
+BASELINES = dict(app="cq_large", fleet=8, epochs=50)
 
 # the LM serving paths: prefill_forward on 4 x 2048 tokens, and
 # Engine.generate on 4 prompts of 64 tokens with 32 new greedy tokens
@@ -300,9 +308,25 @@ def check_beam(dev) -> None:
     log("phase 4 K-NN beam: card == CPU, bit for bit, on 4 shapes")
 
 
+def numpy_draws(rng, F: int, T: int, env, batch: int) -> list:
+    """``T`` epochs of draws for ``F`` lanes from a numpy generator, for a
+    run on the card and on the CPU alike."""
+    from repro_torch.core import EpochDraws
+
+    N, M, S = env.N, env.M, env.workload.num_spouts
+    return [EpochDraws(
+        explore_add=torch.as_tensor(rng.uniform(size=F) < 0.7),
+        explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
+        meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
+        rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
+        replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, batch))),
+        explore_move=torch.as_tensor(rng.integers(0, N * M, F)),
+    ) for t in range(T)]
+
+
 def check_loop_vs_cpu(dev) -> None:
     """Phase 5: cq_small, F=2, T=5 with the same draws on the card and CPU."""
-    from repro_torch.core import EpochDraws, make_agent, run_online_fleet
+    from repro_torch.core import make_agent, run_online_fleet
     from repro_torch.core.convert import ddpg_state_from_numpy, ddpg_state_to_numpy
     from repro_torch.dsdps import SchedulingEnv, apps
     from repro_torch.dsdps.apps import default_workload
@@ -318,16 +342,8 @@ def check_loop_vs_cpu(dev) -> None:
             init = ddpg_state_to_numpy(
                 agent.init_fleet(torch.Generator().manual_seed(5), F, "cpu"))
         states = ddpg_state_from_numpy(init, where)
-        rng = np.random.default_rng(6)
-        draws = [EpochDraws(
-            explore_add=torch.as_tensor(rng.uniform(size=F) < 0.7),
-            explore_noise=torch.as_tensor(
-                rng.uniform(size=(F, env.N, env.M)).astype(np.float32)),
-            meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
-            rate_z=torch.as_tensor(
-                rng.normal(size=(F, env.workload.num_spouts)).astype(np.float32)),
-            replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, cfg.batch))),
-        ).to(where) for t in range(T)]
+        draws = [d.to(where) for d in numpy_draws(
+            np.random.default_rng(6), F, T, env, cfg.batch)]
         _, histories[str(where)] = run_online_fleet(
             0, env, agent, states, T, updates_per_epoch=U, draws=draws)
     cpu, gpu = histories["cpu"], histories[str(dev)]
@@ -374,6 +390,150 @@ def run_main_path(dev):
         f"{1 - finals.mean() / rrs.mean():.2%} mean, "
         f"{1 - finals[res['best']] / rrs[res['best']]:.2%} best lane)")
     return launches, res
+
+
+def check_baselines_vs_cpu(dev) -> None:
+    """Phase 14: round-robin, DQN and model-based lanes, cq_small, F=2, T=5,
+    under a mixed scenario fleet, on the card and on the CPU from the same
+    states (made on the CPU), scenarios and draws."""
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.core.convert import dqn_state_from_numpy, dqn_state_to_numpy
+    from repro_torch.dsdps import EnvParams, SchedulingEnv, apps, scenarios
+    from repro_torch.dsdps.apps import default_workload
+
+    F, T = 2, 5
+    topo = apps.continuous_queries("small")
+    cpu_env = SchedulingEnv(topo, default_workload(topo), device="cpu")
+    params = scenarios.build("mixed", cpu_env, F, broadcast_invariant=True)
+    rng = np.random.default_rng(14)
+    for name in ("round_robin", "dqn", "model_based"):
+        agent = make_agent(name, cpu_env)
+        init = agent.init_fleet(torch.Generator().manual_seed(14), F, "cpu",
+                                env_params=params)
+        if name == "dqn":
+            init = dqn_state_to_numpy(init)
+        draws = numpy_draws(rng, F, T, cpu_env, getattr(agent.cfg, "batch", 1))
+        hists = {}
+        for where in ("cpu", dev):
+            env = SchedulingEnv(topo, default_workload(topo), device=where)
+            ag = make_agent(name, env)
+            states = (dqn_state_from_numpy(init, where) if name == "dqn"
+                      else init.clone().to(where))
+            _, hists[str(where)] = run_online_fleet(
+                0, env, ag, states, T, updates_per_epoch=U,
+                env_params=EnvParams(*(x.to(where) for x in params)),
+                draws=[d.to(where) for d in draws])
+        cpu, gpu = hists["cpu"], hists[str(dev)]
+        np.testing.assert_array_equal(gpu.moved, cpu.moved)
+        np.testing.assert_array_equal(gpu.final_assignment, cpu.final_assignment)
+        # DQN learns over the 5 epochs (1e-4, as phase 5's DDPG); the
+        # other two only read the simulator and the fitted model
+        rtol = 1e-4 if name == "dqn" else 1e-5
+        np.testing.assert_allclose(gpu.latencies, cpu.latencies, rtol=rtol)
+        np.testing.assert_allclose(gpu.rewards, cpu.rewards, rtol=rtol)
+        log(f"phase 14 {name} cq_small F={F} T={T} under mixed: card == CPU "
+            f"(moved {cpu.moved.sum()} in all, exact; final assignments exact; "
+            f"latencies max rel diff "
+            f"{np.abs(gpu.latencies / cpu.latencies - 1).max():.3g}, tol {rtol})")
+
+
+def run_baselines(dev, card: str) -> dict:
+    """Phase 15: the launcher's ``run`` at cq_large, fleet 8, under
+    one_slow_machine, for round-robin, model-based (its fit in ``init``)
+    and DQN; then the model-based select's peak memory and the greedy
+    local search's wall time on the fitted lanes."""
+    from repro_torch.core import model_based as mb
+    from repro_torch.dsdps import lane_params
+    from repro_torch.launch import drl_control
+
+    out = {}
+    for agent in ("round_robin", "model_based", "dqn"):
+        res = drl_control.run(device=dev, agent=agent, scenario="one_slow_machine",
+                              **BASELINES)
+        torch.cuda.synchronize()
+        hist, env, params = res["history"], res["env"], res["env_params"]
+        F, T = BASELINES["fleet"], BASELINES["epochs"]
+        if not (np.isfinite(hist.rewards).all() and np.isfinite(hist.latencies).all()
+                and hist.rewards.shape == (F, T) and (hist.latencies > 0).all()):
+            raise AssertionError(f"{agent}: bad traces at cq_large")
+        X = hist.final_assignment
+        if X.shape != (F, env.N, env.M) or not np.array_equal(X.sum(-1), np.ones((F, env.N))):
+            raise AssertionError(f"{agent}: final assignments are not one-hot")
+        rr = env.round_robin_assignment()
+        for f in range(F):
+            lane_p = lane_params(params, env.default_params(), f)
+            own = float(env.evaluate(rr, lane_p.base_rates, params=lane_p))
+            if not abs(res["rrs"][f] / own - 1) <= 1e-6:
+                raise AssertionError(f"{agent}: lane {f}'s round-robin score "
+                                     f"{res['rrs'][f]} is not its own {own}")
+        if len(set(res["rrs"])) == 1:
+            raise AssertionError(f"{agent}: the lanes' scenarios do not differ")
+        finals, rrs, s = res["finals"], res["rrs"], res["seconds"]
+        if agent == "round_robin" and not np.allclose(finals, rrs, rtol=1e-6):
+            raise AssertionError("round_robin lanes left round-robin")
+        log(f"phase 15 {agent} {BASELINES['app']} N={env.N} M={env.M} fleet={F} "
+            f"T={T} under one_slow_machine ({card}): wall s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in s.items())
+            + f"; online {res['lane_epochs_per_s']:.1f} lane-epochs/s; final "
+            f"latency {finals.mean():.4f} ± {finals.std():.4f} ms (lanes "
+            f"{finals.min():.4f}-{finals.max():.4f}) vs each lane's "
+            f"round-robin {rrs.mean():.4f} ms (improvement "
+            f"{1 - finals.mean() / rrs.mean():.2%} mean, "
+            f"{1 - finals[res['best']] / rrs[res['best']]:.2%} best lane)")
+        out[agent] = res
+        if agent == "model_based":
+            ag, thetas = res["agent"], res["states"]
+            state = env.reset(F, params)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            ag.select_fn(ag.cfg, thetas, None, state, params, True, None, None)
+            torch.cuda.synchronize()
+            t_select = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() - base
+            t0 = time.perf_counter()
+            mb.sweep_schedule_fleet(state.X, state.w, thetas, env, params, 3)
+            torch.cuda.synchronize()
+            t_sweep = time.perf_counter() - t0
+            log(f"  model_based select over {F} x {env.N * env.M} moves: peak "
+                f"{peak / 2**20:.1f} MiB above the {base / 2**20:.1f} MiB held, "
+                f"{t_select * 1e3:.3f} ms; sweep_schedule_fleet ({env.N} x 3 "
+                f"steps of {env.M} candidates, eager) {t_sweep:.3f} s")
+            res["select_peak_bytes"], res["sweep_s"] = peak, t_sweep
+    return out
+
+
+def run_ddpg_mixed(dev, card: str):
+    """Phase 16: the launcher's DDPG at the main path's budget under a mixed
+    scenario fleet; every select and update through the K-NN kernel."""
+    from repro_torch.kernels.knn_topk import ops
+    from repro_torch.launch import drl_control
+
+    ops.LAUNCHES = 0
+    res = drl_control.run(device=dev, scenario="mixed", **MAIN)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES
+    hist, env = res["history"], res["env"]
+    F, T = MAIN["fleet"], MAIN["epochs"]
+    if not (np.isfinite(hist.rewards).all() and np.isfinite(res["finals"]).all()
+            and hist.rewards.shape == (F, T)):
+        raise AssertionError("non-finite traces on the DDPG mixed path")
+    if not np.array_equal(hist.final_assignment.sum(-1), np.ones((F, env.N))):
+        raise AssertionError("final assignments are not one-hot per executor")
+    want = MAIN["offline_updates"] + T * (1 + U)
+    if launches != want:
+        raise AssertionError(f"row_top2_regret launched {launches} times on the "
+                             f"mixed DDPG path, expected {want}")
+    finals, rrs, s = res["finals"], res["rrs"], res["seconds"]
+    log(f"phase 16 ddpg {MAIN['app']} fleet={F} under mixed ({card}): {launches} "
+        f"kernel launches (= {MAIN['offline_updates']} offline updates + {T} "
+        f"epochs x (1 select + {U} update)); wall s "
+        + ", ".join(f"{k} {v:.3f}" for k, v in s.items())
+        + f"; online {res['lane_epochs_per_s']:.1f} lane-epochs/s; final latency "
+        f"{finals.mean():.4f} ± {finals.std():.4f} ms vs each lane's round-robin "
+        f"{rrs.mean():.4f} ms")
+    return launches
 
 
 def profile_online(res, epochs: int = 5) -> None:
@@ -936,6 +1096,11 @@ def main() -> int:
     check_lm_smoke(dev)
     llama = run_lm_path(dev, "llama3-8b")
     rwkv = run_lm_path(dev, "rwkv6-7b")
+    t0 = time.perf_counter()
+    check_baselines_vs_cpu(dev)
+    run_baselines(dev, card)
+    run_ddpg_mixed(dev, card)
+    log(f"phases 14-16 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,

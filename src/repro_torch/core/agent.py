@@ -2,7 +2,8 @@
 
 Port of ``repro/core/agent.py``'s ``History`` and ``run_online_fleet``:
 ``F`` independent runs step together, every per-lane tensor carrying the
-leading ``[F]`` axis, one epoch at a time (the reference's vmapped scan).
+leading ``[F]`` axis, one epoch at a time (the reference's vmapped scan),
+each lane under one shared scenario or its own.
 Mesh sharding, checkpointing and the elastic lifecycle wait for later
 slices."""
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 from scipy.signal import butter, filtfilt
 
 from repro_torch.core.api import Agent, EpochDraws, make_epoch_step
+from repro_torch.dsdps.simulator import params_lanes
 
 
 @dataclasses.dataclass
@@ -78,10 +80,13 @@ def run_online_fleet(
     """``T`` online decision epochs for every lane of ``states`` (stacked on
     ``[F]``, e.g. from ``agent.init_fleet``, optionally pretrained).
 
-    Every lane starts from ``env.reset``.  ``draws`` holds one
-    :class:`EpochDraws` per epoch; without it every draw comes from the
-    generator (or a generator on ``env.device`` seeded with the int).
-    ``states`` is updated in place.  Returns (states, History)."""
+    Every lane starts from ``env.reset``.  ``env_params`` is one scenario
+    for every lane or a lane-stacked fleet of scenarios
+    (``dsdps.scenarios.build``), lane ``f`` reset and stepped under its
+    own.  ``draws`` holds one :class:`EpochDraws` per epoch; without it
+    every draw comes from the generator (or a generator on ``env.device``
+    seeded with the int).  ``states`` is updated in place.  Returns
+    (states, History)."""
     T = int(T)
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
@@ -91,8 +96,14 @@ def run_online_fleet(
         gen = gen_or_seed
     else:
         gen = torch.Generator(device=env.device).manual_seed(int(gen_or_seed))
+    # the non-learning baselines' states are bare tensors ([F] epochs, [F, P]
+    # fitted models); the learners' carry a fleet property
+    fleet = states.shape[0] if isinstance(states, torch.Tensor) else states.fleet
     params = env.default_params() if env_params is None else env_params
-    env_state = env.reset(states.fleet, params)
+    lanes = params_lanes(params, env.default_params())
+    if lanes not in (None, fleet):
+        raise ValueError(f"env_params holds {lanes} lanes, the states {fleet}")
+    env_state = env.reset(fleet, params)
     step = make_epoch_step(env, agent, env_params=params,
                            updates_per_epoch=updates_per_epoch,
                            explore=explore)

@@ -12,7 +12,10 @@ functions over a config:
 
 Every tensor carries the fleet axis ``[F]``.  ``draws`` is one epoch's
 :class:`EpochDraws`, or None to draw from the ``torch.Generator`` ``gen``.
-Only ``ddpg`` is registered so far."""
+``env_params`` is one EnvParams shared by every lane or a lane-stacked
+scenario fleet (``dsdps.scenarios``); learning agents ignore it, the
+model-based baseline profiles and searches each lane's own cluster with
+it.  Registered: ``ddpg``, ``dqn``, ``round_robin`` and ``model_based``."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
@@ -23,8 +26,9 @@ import torch
 class EpochDraws(NamedTuple):
     """Every random draw of one decision epoch, for ``F`` lanes."""
 
-    explore_add: torch.Tensor    # [F] bool — the ε coin
-    explore_noise: torch.Tensor  # [F, N, M] uniform [0, 1)
+    explore_add: torch.Tensor    # [F] bool — the ε coin (DDPG and DQN)
+    explore_noise: torch.Tensor  # [F, N, M] uniform [0, 1) (DDPG)
+    explore_move: torch.Tensor   # [F] int in [0, N·M) — DQN's random move
     meas_z: torch.Tensor         # [F, 5] standard normal (× noise_sigma)
     rate_z: torch.Tensor         # [F, S] standard normal (× rate jitter)
     replay_idx: torch.Tensor     # [F, U, B] int
@@ -47,14 +51,17 @@ class Agent(NamedTuple):
     def init_fleet(self, gen: torch.Generator | None, fleet: int,
                    device: str | torch.device | None = None, env_params=None):
         """Independently-initialized lanes, stacked on ``[fleet]``, on
-        ``device`` (default CUDA; raises without a GPU)."""
+        ``device`` (default CUDA; raises without a GPU).  A lane-stacked
+        ``env_params`` initializes each lane under its own scenario (the
+        model-based baseline fits the lane's cluster)."""
         return self.init_fn(gen, self.cfg, fleet, device, env_params)
 
 
 def make_epoch_step(env, agent: Agent, env_params=None,
                     updates_per_epoch: int = 1, explore: bool = True):
     """One online decision epoch for every lane: select → env.step →
-    observe → update×U → tick.
+    observe → update×U → tick.  ``env_params`` may be lane-stacked; every
+    agent takes the epoch's draws, whichever of them it uses.
 
     Returns ``epoch_step(state, env_state, gen=None, draws=None) ->
     (state, env_state, (reward [F], latency_ms [F], moved [F]))``."""
@@ -94,7 +101,10 @@ def register_agent(name: str, factory: Callable[..., Agent]) -> None:
 
 def _load_builtins() -> None:
     # built-in agents register themselves on import
-    import repro_torch.core.ddpg  # noqa: F401
+    import repro_torch.core.ddpg         # noqa: F401
+    import repro_torch.core.dqn          # noqa: F401
+    import repro_torch.core.model_based  # noqa: F401
+    import repro_torch.core.round_robin  # noqa: F401
 
 
 def agent_names() -> tuple[str, ...]:

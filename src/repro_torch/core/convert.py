@@ -1,12 +1,13 @@
 """Carry agent states and environment parameters across from numpy.
 
-The reference's ``DDPGState`` / ``EnvParams`` pytrees, after
+The reference's ``DDPGState`` / ``DQNState`` / ``EnvParams`` pytrees, after
 ``jax.tree.map(np.asarray, ·)``, are read here by attribute name only —
 the port imports nothing of the reference.  A single lane's state (scalar
 ``epoch``) gains the fleet axis ``[1]``; a stacked fleet keeps its
 ``[F]``.  Target nets become copies: the reference's ``init_state``
 shares the online arrays with them, and an in-place soft update here would
-corrupt an alias."""
+corrupt an alias.  The model-based baseline's state is its fitted theta,
+``[5M + 8]`` for one lane or ``[F, 5M + 8]``."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.ddpg import DDPGState
+from repro_torch.core.dqn import DQNState
 from repro_torch.core.networks import FleetMLP
 from repro_torch.core.replay import Replay
 from repro_torch.dsdps.simulator import EnvParams
@@ -57,77 +59,141 @@ class DDPGArrays(NamedTuple):
     r_count: np.ndarray
 
 
-def ddpg_state_from_numpy(tree, device: str | torch.device) -> DDPGState:
-    """A port ``DDPGState`` from a numpy ``DDPGState``-shaped tree."""
-    lane_axis = np.ndim(tree.epoch) == 0
+class DQNArrays(NamedTuple):
+    """The reference ``DQNState``'s layout, every leaf stacked on [F]."""
 
-    def t(x, dtype=None):
+    qnet: MLPArrays
+    target: MLPArrays
+    opt: AdamArrays
+    replay: ReplayArrays
+    epoch: np.ndarray
+    r_mean: np.ndarray
+    r_var: np.ndarray
+    r_count: np.ndarray
+
+
+class _FromNumpy:
+    """Numpy leaves of one state tree to tensors on ``device``, adding the
+    fleet axis when the tree is a single lane."""
+
+    def __init__(self, tree, device):
+        self.lane_axis = np.ndim(tree.epoch) == 0
+        self.device = device
+
+    def t(self, x, dtype=None) -> torch.Tensor:
         a = np.asarray(x)
-        if lane_axis:
+        if self.lane_axis:
             a = a[None]
-        return torch.tensor(a, dtype=dtype, device=device)
+        return torch.tensor(a, dtype=dtype, device=self.device)
 
-    def mlp(p, trainable: bool) -> FleetMLP:
-        net = FleetMLP([t(w) for w in p.weights], [t(b) for b in p.biases])
+    def mlp(self, p, trainable: bool) -> FleetMLP:
+        net = FleetMLP([self.t(w) for w in p.weights],
+                       [self.t(b) for b in p.biases])
         return net.requires_grad_(trainable)
 
-    def adam_state(o) -> AdamState:
+    def adam(self, o) -> AdamState:
+        t = self.t
         return AdamState(step=t(o.step, torch.int32),
                          mu=[t(x) for x in (*o.mu.weights, *o.mu.biases)],
                          nu=[t(x) for x in (*o.nu.weights, *o.nu.biases)])
 
-    rp = tree.replay
-    return DDPGState(
-        actor=mlp(tree.actor, True),
-        critic=mlp(tree.critic, True),
-        target_actor=mlp(tree.target_actor, False),
-        target_critic=mlp(tree.target_critic, False),
-        opt_actor=adam_state(tree.opt_actor),
-        opt_critic=adam_state(tree.opt_critic),
-        replay=Replay(states=t(rp.states), actions=t(rp.actions),
+    def replay(self, rp) -> Replay:
+        t = self.t
+        return Replay(states=t(rp.states), actions=t(rp.actions),
                       rewards=t(rp.rewards), next_states=t(rp.next_states),
-                      ptr=t(rp.ptr, torch.int32), size=t(rp.size, torch.int32)),
-        epoch=t(tree.epoch, torch.int32),
-        r_mean=t(tree.r_mean, torch.float32),
-        r_var=t(tree.r_var, torch.float32),
-        r_count=t(tree.r_count, torch.int32),
+                      ptr=t(rp.ptr, torch.int32), size=t(rp.size, torch.int32))
+
+    def stats(self, tree) -> dict:
+        t = self.t
+        return dict(epoch=t(tree.epoch, torch.int32),
+                    r_mean=t(tree.r_mean, torch.float32),
+                    r_var=t(tree.r_var, torch.float32),
+                    r_count=t(tree.r_count, torch.int32))
+
+
+def _a(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _mlp_arrays(net: FleetMLP) -> MLPArrays:
+    return MLPArrays(weights=tuple(_a(w) for w in net.weights),
+                     biases=tuple(_a(b) for b in net.biases))
+
+
+def _adam_arrays(o: AdamState) -> AdamArrays:
+    n = len(o.mu) // 2          # weights first, then biases
+    return AdamArrays(step=_a(o.step),
+                      mu=MLPArrays(tuple(map(_a, o.mu[:n])),
+                                   tuple(map(_a, o.mu[n:]))),
+                      nu=MLPArrays(tuple(map(_a, o.nu[:n])),
+                                   tuple(map(_a, o.nu[n:]))))
+
+
+def _replay_arrays(rp: Replay) -> ReplayArrays:
+    return ReplayArrays(_a(rp.states), _a(rp.actions), _a(rp.rewards),
+                        _a(rp.next_states), _a(rp.ptr), _a(rp.size))
+
+
+def ddpg_state_from_numpy(tree, device: str | torch.device) -> DDPGState:
+    """A port ``DDPGState`` from a numpy ``DDPGState``-shaped tree."""
+    c = _FromNumpy(tree, device)
+    return DDPGState(
+        actor=c.mlp(tree.actor, True),
+        critic=c.mlp(tree.critic, True),
+        target_actor=c.mlp(tree.target_actor, False),
+        target_critic=c.mlp(tree.target_critic, False),
+        opt_actor=c.adam(tree.opt_actor),
+        opt_critic=c.adam(tree.opt_critic),
+        replay=c.replay(tree.replay),
+        **c.stats(tree),
     )
 
 
 def ddpg_state_to_numpy(state: DDPGState) -> DDPGArrays:
     """The state as numpy arrays in the reference's layout, stacked on [F]."""
-    def a(x):
-        return x.detach().cpu().numpy()
-
-    def mlp(net: FleetMLP) -> MLPArrays:
-        return MLPArrays(weights=tuple(a(w) for w in net.weights),
-                         biases=tuple(a(b) for b in net.biases))
-
-    def adam_state(o: AdamState) -> AdamArrays:
-        n = len(o.mu) // 2          # weights first, then biases
-        return AdamArrays(step=a(o.step),
-                          mu=MLPArrays(tuple(map(a, o.mu[:n])),
-                                       tuple(map(a, o.mu[n:]))),
-                          nu=MLPArrays(tuple(map(a, o.nu[:n])),
-                                       tuple(map(a, o.nu[n:]))))
-
-    rp = state.replay
     return DDPGArrays(
-        actor=mlp(state.actor), critic=mlp(state.critic),
-        target_actor=mlp(state.target_actor),
-        target_critic=mlp(state.target_critic),
-        opt_actor=adam_state(state.opt_actor),
-        opt_critic=adam_state(state.opt_critic),
-        replay=ReplayArrays(a(rp.states), a(rp.actions), a(rp.rewards),
-                            a(rp.next_states), a(rp.ptr), a(rp.size)),
-        epoch=a(state.epoch), r_mean=a(state.r_mean), r_var=a(state.r_var),
-        r_count=a(state.r_count),
+        actor=_mlp_arrays(state.actor), critic=_mlp_arrays(state.critic),
+        target_actor=_mlp_arrays(state.target_actor),
+        target_critic=_mlp_arrays(state.target_critic),
+        opt_actor=_adam_arrays(state.opt_actor),
+        opt_critic=_adam_arrays(state.opt_critic),
+        replay=_replay_arrays(state.replay),
+        epoch=_a(state.epoch), r_mean=_a(state.r_mean), r_var=_a(state.r_var),
+        r_count=_a(state.r_count),
     )
+
+
+def dqn_state_from_numpy(tree, device: str | torch.device) -> DQNState:
+    """A port ``DQNState`` from a numpy ``DQNState``-shaped tree."""
+    c = _FromNumpy(tree, device)
+    return DQNState(qnet=c.mlp(tree.qnet, True),
+                    target=c.mlp(tree.target, False),
+                    opt=c.adam(tree.opt), replay=c.replay(tree.replay),
+                    **c.stats(tree))
+
+
+def dqn_state_to_numpy(state: DQNState) -> DQNArrays:
+    """The state as numpy arrays in the reference's layout, stacked on [F]."""
+    return DQNArrays(qnet=_mlp_arrays(state.qnet),
+                     target=_mlp_arrays(state.target),
+                     opt=_adam_arrays(state.opt),
+                     replay=_replay_arrays(state.replay),
+                     epoch=_a(state.epoch), r_mean=_a(state.r_mean),
+                     r_var=_a(state.r_var), r_count=_a(state.r_count))
+
+
+def model_based_state_from_numpy(theta, device: str | torch.device
+                                 ) -> torch.Tensor:
+    """The model-based lanes' fitted theta ``[F, 5M + 8]`` (one lane's
+    ``[5M + 8]`` gains the fleet axis)."""
+    a = np.asarray(theta, np.float32)
+    return torch.tensor(a[None] if a.ndim == 1 else a, device=device)
 
 
 def env_params_from_numpy(tree, device: str | torch.device) -> EnvParams:
     """A port ``EnvParams`` from a numpy ``EnvParams``-shaped tree (dtypes
-    kept: float32 leaves, int32 ``shift_epoch``)."""
+    kept: float32 leaves, int32 ``shift_epoch``): one scenario, or a
+    lane-stacked fleet, broadcast-invariant fields single-copy as given."""
     return EnvParams(**{f: torch.tensor(np.asarray(getattr(tree, f)),
                                         device=device)
                         for f in EnvParams._fields})

@@ -2,8 +2,9 @@
 
 ε is the probability of perturbing the proto-action with uniform noise
 I ~ U[0,1]^{N·M}; it decays with the decision epoch so later epochs act
-greedily.  Port of ``repro/core/exploration.py`` with the coin flip and
-the noise passed in, one per lane."""
+greedily.  The DQN baseline uses the standard ε-greedy over its move
+space.  Port of ``repro/core/exploration.py`` with the coin flip, the
+noise and the random move passed in, one per lane."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,3 +37,19 @@ def perturb_proto(proto: torch.Tensor, eps: torch.Tensor,
         noise = torch.rand(proto.shape, generator=gen, device=proto.device)
     add = add.reshape(F, *(1,) * (proto.dim() - 1))
     return torch.where(add, proto + noise, proto)
+
+
+def epsilon_greedy(q_values: torch.Tensor, eps: torch.Tensor,
+                   explore: torch.Tensor | None = None,
+                   rand_a: torch.Tensor | None = None,
+                   gen: torch.Generator | None = None) -> torch.Tensor:
+    """DQN move selection over flat action values ``q_values [F, A]``: lane
+    f takes the random move ``rand_a[f]`` when ``explore[f]`` (the ε coin,
+    with probability ``eps [F]``), else its greedy move (the first maximum,
+    as ``jnp.argmax``).  Draws not passed in come from ``gen``."""
+    F, A = q_values.shape
+    if explore is None:
+        explore = torch.rand(F, generator=gen, device=q_values.device) < eps
+    if rand_a is None:
+        rand_a = torch.randint(0, A, (F,), generator=gen, device=q_values.device)
+    return torch.where(explore, rand_a.long(), q_values.argmax(-1))

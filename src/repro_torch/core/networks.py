@@ -1,4 +1,5 @@
-"""Actor / critic networks — the paper's §3.2.1 shapes, one per lane.
+"""Actor / critic networks — the paper's §3.2.1 shapes, one per lane —
+and the DQN baseline's Q-network.
 
 Both are 2-layer fully-connected feedforward nets with 64 and 32 neurons
 and tanh activations.  The actor maps a state to a proto-action in
@@ -92,6 +93,18 @@ def apply_critic(critic: FleetMLP, state: torch.Tensor,
     x = torch.cat([state.expand(*lead, state.shape[-1]),
                    action.expand(*lead, action.shape[-1])], dim=-1)
     return critic(x)[..., 0]
+
+
+def init_qnet(state_dim: int, num_actions: int, fleet: int,
+              gen: torch.Generator | None = None,
+              device: str | torch.device | None = None) -> FleetMLP:
+    """DQN baseline: Q(s, ·) head over the restricted N×M move space."""
+    return init_mlp((state_dim, *HIDDEN, num_actions), fleet, gen, device)
+
+
+def apply_qnet(qnet: FleetMLP, state: torch.Tensor) -> torch.Tensor:
+    """Q values ``[F, ..., num_actions]`` of states ``[F, ..., S]``."""
+    return qnet(state)
 
 
 @torch.no_grad()

@@ -5,7 +5,9 @@ Action  a ∈ {0,1}^{N×M}, row one-hot — new assignment
 Reward  r = −(measured average tuple processing time, ms)
 
 Port of ``repro/dsdps/env.py``.  Every EnvState leaf carries the fleet
-axis ``[F]``; one EnvParams (the scenario) is shared by every lane.
+axis ``[F]``.  ``params`` is one EnvParams shared by every lane, or a
+lane-stacked scenario fleet (``simulator.stack_env_params``,
+``dsdps.scenarios``) whose stacked fields lane ``f`` reads at ``[f]``.
 ``step`` takes its random draws — the measurement noise ``meas_z [F, 5]``
 and the rate-walk noise ``rate_z [F, S]``, both standard normal — as
 arguments, or draws them from a ``torch.Generator``."""
@@ -113,7 +115,8 @@ class SchedulingEnv:
     # -- core API ----------------------------------------------------------
     def reset(self, fleet: int, params: EnvParams | None = None,
               X0: torch.Tensor | None = None) -> EnvState:
-        """``fleet`` lanes in the initial state (round-robin unless ``X0``)."""
+        """``fleet`` lanes in the initial state (round-robin unless ``X0``),
+        each lane's rates and speeds from its own scenario."""
         p = self.default_params() if params is None else params
         X = self.round_robin_assignment() if X0 is None else X0
         return EnvState(

@@ -1,0 +1,127 @@
+"""Named scenario fleets — lane-stacked EnvParams for heterogeneous lanes.
+
+Port of the scheduling half of ``repro/dsdps/scenarios.py``.  Each builder
+returns one EnvParams per lane; :func:`build` stacks them on a leading
+``[fleet]`` axis, and ``core.agent.run_online_fleet(...,
+env_params=...)`` steps every lane under its own scenario:
+
+    from repro_torch.dsdps import scenarios
+    params = scenarios.build("one_slow_machine", env, fleet=8)
+    states, hist = run_online_fleet(gen, env, agent, states, T=300,
+                                    env_params=params)
+
+``broadcast_invariant=True`` keeps fields no lane perturbs (routing,
+flow_solve, tuple_bytes, ...) as a single unstacked copy, which the
+simulator broadcasts over the lanes with the same result as the full
+stack.
+
+``mixed`` takes its per-lane service-time and rate draws passed in, or
+from a ``torch.Generator`` seeded with ``seed``: torch cannot replay the
+reference's threefry draws (``fold_in(PRNGKey(seed), lane)``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.dsdps.simulator import (EnvParams, perturb_rates,
+                                         perturb_service, scale_rates,
+                                         stack_env_params, with_noise_sigma,
+                                         with_straggler)
+
+
+def _diurnal(lane: int, fleet: int, amplitude: float, like: torch.Tensor):
+    """1 + amplitude·sin(2π lane/fleet) in float32, as the reference forms it."""
+    phase = torch.tensor(2.0 * math.pi * lane / max(fleet, 1),
+                         dtype=torch.float32, device=like.device)
+    return 1.0 + amplitude * torch.sin(phase)
+
+
+def uniform(env, fleet: int) -> list[EnvParams]:
+    """Every lane runs the env's declared parameters (pure seed sweep)."""
+    p = env.default_params()
+    return [p] * fleet
+
+
+def one_slow_machine(env, fleet: int, factor: float = 0.35) -> list[EnvParams]:
+    """Lane i slows machine ``i % M`` to ``factor`` of nominal speed — the
+    straggler-mitigation stress, one straggler location per lane."""
+    p = env.default_params()
+    return [with_straggler(p, i % env.M, factor) for i in range(fleet)]
+
+
+def diurnal_rate(env, fleet: int, amplitude: float = 0.4) -> list[EnvParams]:
+    """Lane i's base rates scaled to a point on a daily load curve:
+    1 + amplitude·sin(2π i/fleet)."""
+    p = env.default_params()
+    return [scale_rates(p, _diurnal(i, fleet, amplitude, p.base_rates))
+            for i in range(fleet)]
+
+
+def high_noise(env, fleet: int, sigma: float = 0.12) -> list[EnvParams]:
+    """Every lane measures rewards through ``sigma`` lognormal noise —
+    4× the paper's telemetry noise; stresses learning robustness."""
+    p = env.default_params()
+    return [with_noise_sigma(p, sigma)] * fleet
+
+
+def mixed(env, fleet: int, seed: int = 0,
+          service_z: torch.Tensor | None = None,
+          rate_z: torch.Tensor | None = None) -> list[EnvParams]:
+    """Round-robin over the named regimes plus per-lane service-time and
+    rate jitter (σ 0.10 each).  ``service_z [fleet, N]`` and ``rate_z
+    [fleet, S]`` are the standard-normal draws; those not passed in come
+    from a generator on the env's device seeded with ``seed``."""
+    p = env.default_params()
+    gen = torch.Generator(device=env.device).manual_seed(seed)
+    if service_z is None:
+        service_z = torch.randn(fleet, env.N, generator=gen, device=env.device)
+    if rate_z is None:
+        rate_z = torch.randn(fleet, env.workload.num_spouts, generator=gen,
+                             device=env.device)
+    lanes = []
+    for i in range(fleet):
+        lane = perturb_rates(perturb_service(p, service_z[i], 0.10),
+                             rate_z[i], 0.10)
+        kind = i % 4
+        if kind == 1:
+            lane = with_straggler(lane, i % env.M, 0.4)
+        elif kind == 2:
+            lane = scale_rates(lane, _diurnal(i, fleet, 0.4, lane.base_rates))
+        elif kind == 3:
+            lane = with_noise_sigma(lane, 0.12)
+        lanes.append(lane)
+    return lanes
+
+
+SCENARIOS = {
+    "uniform": uniform,
+    "one_slow_machine": one_slow_machine,
+    "diurnal_rate": diurnal_rate,
+    "high_noise": high_noise,
+    "mixed": mixed,
+}
+
+
+def build(name: str, env, fleet: int, broadcast_invariant: bool = False,
+          **kwargs) -> EnvParams:
+    """Stacked EnvParams for a named scenario fleet; ``kwargs`` go to the
+    builder (``factor=``, ``amplitude=``, ``sigma=``, ``seed=``, ...)."""
+    try:
+        builder = SCENARIOS[name]
+    except KeyError:
+        raise KeyError(f"unknown scenario {name!r}; "
+                       f"known: {sorted(SCENARIOS)}") from None
+    return stack_env_params(builder(env, fleet, **kwargs),
+                            broadcast_invariant=broadcast_invariant)
+
+
+def workload_shift(env, factor: float = 1.5) -> EnvParams:
+    """The Fig-12 step change as a single-scenario EnvParams edit: every
+    spout's base rate scaled by ``factor`` against the same env spec."""
+    return scale_rates(env.default_params(), factor)
+
+
+def scenario_names(env) -> tuple[str, ...]:
+    """Names valid for ``build(name, env, ...)`` on a scheduling env."""
+    return tuple(sorted(SCENARIOS))

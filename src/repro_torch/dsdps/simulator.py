@@ -14,7 +14,10 @@ steady-state average end-to-end tuple processing time via:
 Everything is batched over a leading axis of ``X`` (``[B, N, M]``; the
 fleet axis, or any batch of candidate assignments).  ``SimParams`` is the
 structural spec built in numpy float64 as the reference builds it;
-``EnvParams`` is its numeric half as float32 tensors on a device."""
+``EnvParams`` is its numeric half as float32 tensors on a device.  A
+scenario fleet stacks EnvParams on a leading lane axis (``[F, ...]``, see
+:func:`stack_env_params`); the lane axis of every stacked field is the
+batch axis of ``X``, field by field, so single-copy fields broadcast."""
 from __future__ import annotations
 
 import dataclasses
@@ -127,7 +130,7 @@ def build_sim_params(topo: Topology, seed: int = 0, acker_ms: float = 0.15,
 
 class EnvParams(NamedTuple):
     """Per-scenario numeric parameters, float32 tensors on one device
-    (``shift_epoch`` is int32)."""
+    (``shift_epoch`` is int32); a stacked field gains a leading ``[F]``."""
 
     routing: torch.Tensor             # [N, N] executor routing matrix
     flow_solve: torch.Tensor          # [N, N] (I - R^T)^-1
@@ -195,15 +198,93 @@ def scale_rates(params: EnvParams, factor) -> EnvParams:
     return params._replace(base_rates=params.base_rates * factor)
 
 
+def _lognormal(x: torch.Tensor, z, sigma: float,
+               gen: torch.Generator | None) -> torch.Tensor:
+    """``x · exp(zσ − σ²/2)``, the mean-1 lognormal; ``z`` standard normal
+    of ``x``'s shape, drawn from ``gen`` when not passed in."""
+    if z is None:
+        z = torch.randn(x.shape, generator=gen, device=x.device)
+    z = torch.as_tensor(z, dtype=torch.float32, device=x.device)
+    return x * torch.exp(z * sigma - 0.5 * sigma ** 2)
+
+
+def perturb_service(params: EnvParams, z: torch.Tensor | None = None,
+                    sigma: float = 0.15,
+                    gen: torch.Generator | None = None) -> EnvParams:
+    """Lognormal (mean-1 corrected) jitter on the TRUE per-executor service
+    costs — samples 'the many factors not captured by the model' (§1).
+    ``z [N]`` is the draw (the reference draws it from a key)."""
+    return params._replace(
+        service_ms=_lognormal(params.service_ms, z, sigma, gen))
+
+
+def perturb_rates(params: EnvParams, z: torch.Tensor | None = None,
+                  sigma: float = 0.15,
+                  gen: torch.Generator | None = None) -> EnvParams:
+    """Lognormal (mean-1 corrected) jitter on the spout base rates, from the
+    draw ``z [S]``."""
+    return params._replace(
+        base_rates=_lognormal(params.base_rates, z, sigma, gen))
+
+
+def stack_env_params(params_list, broadcast_invariant: bool = False
+                     ) -> EnvParams:
+    """Stack per-lane EnvParams on a leading ``[F]`` lane axis.
+
+    With ``broadcast_invariant=True`` a field equal in every lane (routing,
+    flow_solve, tuple_bytes, ... when no scenario perturbs them) stays ONE
+    unstacked copy; the simulator broadcasts it over the lanes, with the
+    same result as the full stack and without its F copies."""
+    def stack_field(*xs):
+        if broadcast_invariant and all(
+                x is xs[0] or (x.shape == xs[0].shape and torch.equal(x, xs[0]))
+                for x in xs[1:]):
+            return xs[0]
+        return torch.stack(xs)
+
+    return EnvParams(*(stack_field(*xs) for xs in zip(*params_list)))
+
+
+def params_in_axes(params: EnvParams, ref: EnvParams) -> EnvParams | None:
+    """Per field, whether ``params`` is stacked: True where the field has one
+    more axis than in the single-scenario reference ``ref``.  None when no
+    field is stacked (a plain single scenario)."""
+    stacked = EnvParams(*(p.dim() == r.dim() + 1 for p, r in zip(params, ref)))
+    return stacked if any(stacked) else None
+
+
+def params_stacked(params: EnvParams, ref: EnvParams) -> bool:
+    """True when any field of ``params`` carries the lane axis (a
+    broadcast-invariant stack counts as stacked)."""
+    return params_in_axes(params, ref) is not None
+
+
+def lane_params(params: EnvParams, ref: EnvParams, lane: int) -> EnvParams:
+    """Lane ``lane`` of a (possibly broadcast-invariant) stack as a single
+    scenario; a single scenario passes through unchanged."""
+    return EnvParams(*(p[lane] if p.dim() == r.dim() + 1 else p
+                       for p, r in zip(params, ref)))
+
+
+def params_lanes(params: EnvParams, ref: EnvParams) -> int | None:
+    """The number of lanes of a stacked ``params`` (None for a single
+    scenario); raises if its stacked fields disagree."""
+    lanes = {p.shape[0] for p, r in zip(params, ref) if p.dim() == r.dim() + 1}
+    if len(lanes) > 1:
+        raise ValueError(f"stacked EnvParams fields disagree on the lane "
+                         f"count: {sorted(lanes)}")
+    return lanes.pop() if lanes else None
+
+
 def _latency_core(
     X: torch.Tensor,             # [B, N, M]
     w: torch.Tensor,             # [B, S]
     *,
-    routing: torch.Tensor,
-    flow_solve: torch.Tensor,
-    service_ms: torch.Tensor,
-    tuple_bytes: torch.Tensor,
-    acker_ms: torch.Tensor,
+    routing: torch.Tensor,       # [N, N] or [B, N, N]
+    flow_solve: torch.Tensor,    # [N, N] or [B, N, N]
+    service_ms: torch.Tensor,    # [N] or [B, N]
+    tuple_bytes: torch.Tensor,   # [N] or [B, N]
+    acker_ms: torch.Tensor,      # scalar or [B]
     structure: Structure,
     cluster: ClusterSpec,
     speed: torch.Tensor,         # [M] or [B, M]
@@ -211,9 +292,12 @@ def _latency_core(
     n_procs: torch.Tensor | None,     # [M] or [B, M]
 ) -> torch.Tensor:
     """The queueing-model body, batched over the leading axis of ``X``;
-    returns ``[B]`` latencies in ms.  Every product over executors is an
-    elementwise product and a sum per batch row, so a row's value does not
-    depend on the batch it rides in."""
+    returns ``[B]`` latencies in ms.  Every numeric field is either one
+    copy or one per batch row (a lane-stacked EnvParams); executor-indexed
+    fields are read through ``[..., None]`` and ``[..., ids, :]`` so both
+    forms broadcast alike.  Every product over executors is an elementwise
+    product and a sum per batch row, so a row's value does not depend on
+    the batch it rides in."""
     R = routing
     B, n, m = X.shape
 
@@ -235,10 +319,10 @@ def _latency_core(
     # inter-process tuple, on both ends
     c_ms = service_ms
     ser_ms = cluster.ser_base_ms + \
-        tuple_bytes * cluster.ser_ms_per_kb / 1024.0                  # [N]
+        tuple_bytes * cluster.ser_ms_per_kb / 1024.0                  # [(B,) N]
     base_demand = (X * (lam * c_ms / 1e3)[:, :, None]).sum(1)         # [B, M]
     ser_out = (X * (cross_proc.sum(2) * ser_ms / 1e3)[:, :, None]).sum(1)
-    ser_in = (X * ((cross_proc * ser_ms[:, None]).sum(1) / 1e3)[:, :, None]).sum(1)
+    ser_in = (X * ((cross_proc * ser_ms[..., None]).sum(1) / 1e3)[:, :, None]).sum(1)
     if n_procs is None:
         # paper's schedulers: one worker process per (used) machine
         n_procs = (X.sum(1) > 0).to(torch.float32)
@@ -258,7 +342,7 @@ def _latency_core(
     sojourn = s_eff * _congestion(rho_exec)                           # [B, N]
 
     # 4. transfer delays: in-process queue < IPC < network (NIC contention)
-    bytes_per_s = cross_mach * tuple_bytes[:, None]
+    bytes_per_s = cross_mach * tuple_bytes[..., None]
     out_load = (X * bytes_per_s.sum(2)[:, :, None]).sum(1)            # [B, M]
     in_load = (X * bytes_per_s.sum(1)[:, :, None]).sum(1)             # [B, M]
     nic_cap = cluster.nic_bytes_per_ms * 1e3                          # B/s
@@ -266,9 +350,9 @@ def _latency_core(
     nic_g = _congestion(rho_nic)                                      # [B, M]
     x_nic = (X * nic_g[:, None, :]).sum(2)                            # [B, N]
     nic_factor = 0.5 * x_nic[:, :, None] + 0.5 * x_nic[:, None, :]
-    wire_ms = tuple_bytes[:, None] / cluster.nic_bytes_per_ms
+    wire_ms = tuple_bytes[..., None] / cluster.nic_bytes_per_ms
     # ser/deser is on the tuple's own path when crossing processes
-    ser_path = 2.0 * ser_ms[:, None]
+    ser_path = 2.0 * ser_ms[..., None]
     d_edge = torch.where(
         same_proc > 0.5,
         cluster.local_base_ms,
@@ -284,8 +368,8 @@ def _latency_core(
     for src_ids, dst_groups in structure.rev_schedule:
         branch_costs = []
         for dst_ids in dst_groups:
-            p = R[src_ids][:, dst_ids]                                # [s, d]
-            p = p / torch.clamp(p.sum(1, keepdim=True), min=1e-12)
+            p = R[..., src_ids, :][..., dst_ids]                      # [(B,) s, d]
+            p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-12)
             hop = d_edge[:, src_ids][:, :, dst_ids] + completion[:, dst_ids][:, None, :]
             branch_costs.append((p * hop).sum(2))                     # [B, s]
         downstream = functools.reduce(torch.maximum, branch_costs)
@@ -367,8 +451,9 @@ def measured_latency_from_params(
 ) -> torch.Tensor:
     """Noisy measurement: mean of ``z.shape[-1]`` lognormal-perturbed
     readings, ``z`` standard normal (``[n]``, or ``[B, n]`` for a batch)
-    scaled by ``env_params.noise_sigma``."""
+    scaled by ``env_params.noise_sigma`` (a scalar, or ``[B]`` stacked)."""
     base = average_tuple_time_from_params(X, w, env_params, sim, cluster,
                                           speed=speed, same_proc=same_proc,
                                           n_procs=n_procs)
-    return (base[..., None] * torch.exp(z * env_params.noise_sigma)).mean(-1)
+    sigma = env_params.noise_sigma[..., None]
+    return (base[..., None] * torch.exp(z * sigma)).mean(-1)

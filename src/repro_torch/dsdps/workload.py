@@ -18,18 +18,20 @@ NEVER_SHIFT: int = 2 ** 30
 def step_rates(
     w: torch.Tensor,             # [F, S]
     epoch: torch.Tensor,         # [F] int
-    base_rates: torch.Tensor,    # [S]
-    jitter: torch.Tensor,
+    base_rates: torch.Tensor,    # [S], or [F, S] per lane
+    jitter: torch.Tensor,        # scalar, or [F] per lane (so the rest)
     revert: torch.Tensor,
     shift_epoch: torch.Tensor,
     shift_factor: torch.Tensor,
     z: torch.Tensor,             # [F, S] standard normal
 ) -> torch.Tensor:
-    """One epoch of the mean-reverting multiplicative random walk."""
+    """One epoch of the mean-reverting multiplicative random walk.  Each
+    rate parameter is one value for every lane or one per lane."""
     shifted = (epoch >= shift_epoch)[:, None]
-    base = torch.where(shifted, base_rates * shift_factor, base_rates)
-    target = base * torch.exp(z * jitter)
-    return w + revert * (target - w)
+    base = torch.where(shifted, base_rates * shift_factor[..., None],
+                       base_rates)
+    target = base * torch.exp(z * jitter[..., None])
+    return w + revert[..., None] * (target - w)
 
 
 @dataclasses.dataclass(frozen=True)

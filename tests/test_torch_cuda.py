@@ -287,3 +287,92 @@ def test_wkv6_kernel_reads_strided_views(cuda_device, dtype):
     u = randn(H, hd, dt=torch.float32) * 0.5
     S0 = randn(B, H, hd, hd, dt=torch.float32)
     _check_wkv((w, r, k, v, u, S0))
+
+
+# -- the baselines on the card: one epoch of each under a lane-stacked
+# scenario equals the same epoch on the CPU, from the same state (made on
+# the CPU and carried across) and the same draws
+def _epoch_draws(rng, F, N, M, S, B):
+    from repro_torch.core import EpochDraws
+    return [EpochDraws(
+        explore_add=torch.as_tensor(rng.uniform(size=F) < 0.6),
+        explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
+        explore_move=torch.as_tensor(rng.integers(0, N * M, F)),
+        meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
+        rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
+        replay_idx=torch.as_tensor(rng.integers(0, 1, (F, 1, B))))]
+
+
+@pytest.mark.parametrize("name", ["dqn", "round_robin", "model_based"])
+def test_baseline_epoch_on_the_card_equals_the_cpu(cuda_device, name):
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.core.convert import dqn_state_from_numpy, dqn_state_to_numpy
+    from repro_torch.dsdps import EnvParams, SchedulingEnv, apps, scenarios
+
+    topo = apps.continuous_queries("small")
+    F = 3
+    cpu_env = SchedulingEnv(topo, apps.default_workload(topo), device="cpu")
+    params = scenarios.build("mixed", cpu_env, F, broadcast_invariant=True)
+    agent = make_agent(name, cpu_env, **({"fit_samples": 60}
+                                         if name == "model_based" else {}))
+    init = agent.init_fleet(torch.Generator().manual_seed(0), F, "cpu",
+                            env_params=params)
+    if name == "dqn":
+        init = dqn_state_to_numpy(init)
+    draws = _epoch_draws(np.random.default_rng(0), F, cpu_env.N, cpu_env.M,
+                         cpu_env.workload.num_spouts,
+                         getattr(agent.cfg, "batch", 1))
+    hists = []
+    for dev in ("cpu", cuda_device):
+        env = SchedulingEnv(topo, apps.default_workload(topo), device=dev)
+        ag = make_agent(name, env, **({"fit_samples": 60}
+                                      if name == "model_based" else {}))
+        states = (dqn_state_from_numpy(init, dev) if name == "dqn"
+                  else init.clone().to(dev))
+        _, h = run_online_fleet(0, env, ag, states, 1,
+                                env_params=EnvParams(*(x.to(dev) for x in params)),
+                                draws=[d.to(dev) for d in draws])
+        hists.append(h)
+    np.testing.assert_array_equal(hists[1].moved, hists[0].moved)
+    np.testing.assert_array_equal(hists[1].final_assignment,
+                                  hists[0].final_assignment)
+    np.testing.assert_allclose(hists[1].latencies, hists[0].latencies, rtol=1e-5)
+
+
+def test_model_based_select_at_cq_large_within_memory(cuda_device):
+    """One select of 8 model-based lanes at cq_large (N·M = 1000 moves a
+    lane) peaks at two [8, 1000, 100, 100] float32 temporaries (640 MB)
+    and the [8, 1000, 100, 10] candidates (32 MB): held under 1 GiB.  The
+    move it takes is the model's best on the CPU too, to float32
+    tolerance (cq_large has moves the model ties exactly in theory)."""
+    from repro_torch.core import make_agent
+    from repro_torch.core import model_based as mb
+    from repro_torch.dsdps import EnvParams, SchedulingEnv, apps, scenarios
+
+    topo = apps.continuous_queries("large")
+    env = SchedulingEnv(topo, apps.default_workload(topo), device=cuda_device)
+    F = 8
+    params = scenarios.build("one_slow_machine", env, F, broadcast_invariant=True)
+    agent = make_agent("model_based", env, fit_samples=400)
+    thetas = agent.init_fleet(torch.Generator(device=cuda_device).manual_seed(0),
+                              F, cuda_device, env_params=params)
+    state = env.reset(F, params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    X, _ = agent.select_fn(agent.cfg, thetas, None, state, params, True, None,
+                           None)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= 2 ** 30, f"select peaked at {peak / 2**20:.1f} MiB"
+    assert torch.equal(X.sum(-1), torch.ones(F, env.N, device=cuda_device))
+    assert ((X != state.X).any(-1).sum(-1) <= 1).all()
+    # the CPU's predictions of every candidate: the card's move is a best
+    cpu_env = SchedulingEnv(topo, apps.default_workload(topo), device="cpu")
+    cpu_params = EnvParams(*(x.cpu() for x in params))
+    cand = mb._candidate_moves(state.X.cpu())
+    preds = mb.predict_latency(cpu_env, thetas.cpu(), cand, state.w.cpu()[:, None],
+                               cpu_params)
+    chosen = (cand == X.cpu()[:, None]).flatten(2).all(-1)
+    got = torch.where(chosen, preds, torch.inf).amin(-1)
+    torch.testing.assert_close(got, preds.amin(-1), rtol=1e-5, atol=0)

@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 
 from test_torch_parity import (assert_exact, assert_f32, carried_fleet,
-                               cfg_pair, env_pair, jax_epoch_draws, torch)
+                               cfg_pair, env_pair, jax_epoch_draws,
+                               numpy_epoch_draws, torch)
 
 from repro.core import make_agent as jax_make_agent
 from repro.core.agent import History as JaxHistory
@@ -56,16 +57,6 @@ def test_online_fleet_matches_reference_run_online_fleet():
     assert_f32(got.rewards, want.rewards, rtol=1e-4, atol=1e-6)
 
 
-def _numpy_draws(rng, F, T, U, B, N, M, S):
-    return [EpochDraws(
-        explore_add=torch.as_tensor(rng.uniform(size=F) < 0.6),
-        explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
-        meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
-        rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
-        replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, B))))
-        for t in range(T)]
-
-
 def _lane_draws(draws, f):
     return [EpochDraws(*(x[f:f + 1] for x in d)) for d in draws]
 
@@ -76,7 +67,7 @@ def test_a_lane_of_a_fleet_equals_the_single_run_exactly():
     agent = make_agent("ddpg", env, k_nn=8, batch=16)
     F, T, U = 3, 5, 2
     init = ddpg_state_to_numpy(agent.init_fleet(torch.Generator().manual_seed(1), F, "cpu"))
-    draws = _numpy_draws(np.random.default_rng(2), F, T, U, 16, env.N, env.M,
+    draws = numpy_epoch_draws(np.random.default_rng(2), F, T, U, 16, env.N, env.M,
                          env.workload.num_spouts)
     fleet_states, fleet = run_online_fleet(
         0, env, agent, ddpg_state_from_numpy(init, "cpu"), T,
@@ -173,14 +164,16 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted(pkg.rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    # the LM serving slice is among the files checked
+    # the LM serving slice and the baselines are among the files checked
     names = {p.relative_to(pkg).as_posix() for p in files[:-1]}
     assert {"models/config.py", "models/nn.py", "models/attention.py",
             "models/ffn.py", "models/ssm.py", "models/lm.py",
             "models/convert.py", "configs/__init__.py", "configs/llama3_8b.py",
             "configs/rwkv6_7b.py", "serve/engine.py", "kernels/_build.py",
             "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
-            "kernels/rwkv6_scan/ops.py", "kernels/rwkv6_scan/ref.py"} <= names
+            "kernels/rwkv6_scan/ops.py", "kernels/rwkv6_scan/ref.py",
+            "core/dqn.py", "core/round_robin.py", "core/model_based.py",
+            "dsdps/scenarios.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -9,7 +9,8 @@ resulting numbers to the port as ``EpochDraws`` / ``OfflineDraws``:
   * ``run_online_fleet``: each lane key splits into (reset key, loop key)
     (core/agent.py prepare_fleet); every epoch
     ``key, k_act, k_step, k_upd = split(key, 4)`` (core/api.py);
-  * ``split(k_act)`` → ε coin (bernoulli), uniform noise
+  * ``split(k_act)`` → ε coin (bernoulli), and from the second key DDPG's
+    uniform noise or DQN's random move ``randint(·, (), 0, N·M)``
     (core/exploration.py);
   * ``split(k_step)`` → measurement noise ``normal(·, (5,))``, rate walk
     ``normal(·, (S,))`` (dsdps/env.py, simulator.py, workload.py);
@@ -129,11 +130,13 @@ def jax_epoch_draws(keys, T: int, U: int, B: int, N: int, M: int, S: int,
             add = jax.random.bernoulli(
                 k_bern, eps(jnp.asarray(epoch0 + t, jnp.int32)))
             noise = jax.random.uniform(k_noise, (N, M))
+            move = jax.random.randint(k_noise, (), 0, N * M)
             k_meas, k_w = jax.random.split(k_step)
             size = min(size0 + t + 1, cap)
             idx = [jax.random.randint(k, (B,), 0, max(size, 1))
                    for k in jax.random.split(k_upd, U)]
-            per_epoch.append((add, noise, jax.random.normal(k_meas, (N_MEAS,)),
+            per_epoch.append((add, noise, move,
+                              jax.random.normal(k_meas, (N_MEAS,)),
                               jax.random.normal(k_w, (S,)), jnp.stack(idx)))
         lanes.append(per_epoch)
     out = []
@@ -163,6 +166,19 @@ def jax_offline_draws(keys, n: int, n_updates: int, B: int, N: int, M: int,
         lanes.append([np.stack([np.asarray(x) for x in xs])
                       for xs in (assign, meas, rate, idx)])
     return OfflineDraws(*(to_torch(np.stack(c)) for c in zip(*lanes)))
+
+
+def numpy_epoch_draws(rng, F, T, U, B, N, M, S):
+    """``T`` epochs of draws from a numpy generator (the port against
+    itself: lanes, devices, stack forms); replay rows ``< t + 1``."""
+    return [EpochDraws(
+        explore_add=torch.as_tensor(rng.uniform(size=F) < 0.6),
+        explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
+        meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
+        rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
+        replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, B))),
+        explore_move=torch.as_tensor(rng.integers(0, N * M, F)))
+        for t in range(T)]
 
 
 # --------------------------------------------------------------------------
