@@ -8,8 +8,9 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 PyTorch version on the card: the K-NN reduction (NaN, ±inf and views off
 the 16-byte grid among its cases; its times beside a launch floor, its
 eager call's host time step by step), both flash-attention routes
-(bfloat16 on the tensor cores, float32 on the CUDA cores) and the WKV6
-recurrence.  Then it drives the port's main paths:
+(bfloat16 on the tensor cores, float32 on the CUDA cores; every head_dim
+up to 128, some zero-padded, and layouts TMA cannot load, staged) and the
+WKV6 recurrence.  Then it drives the port's main paths:
 
 * the DSDPS control loop: the K-NN beam and a short loop on the card
   against the CPU, then ``repro_torch.launch.drl_control.run`` on
@@ -32,7 +33,12 @@ recurrence.  Then it drives the port's main paths:
   against the CPU, then each through ``drl_control.run`` at ``cq_large``
   with 8 lanes, each lane slowing its own machine (the model-based lanes
   fit their own cluster), and DDPG at the main path's budget under a mixed
-  fleet, every select and update through the K-NN kernel.
+  fleet, every select and update through the K-NN kernel;
+* control serving: ``repro_torch.launch.serve_control`` at ``cq_large``
+  with placement, rate_control and auto_tune planes of 8 slots for 16
+  perturbed clusters and 256 requests, the card's decisions held to the
+  CPU's, every placement step through one K-NN launch and every plane step
+  waiting on the device once.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -72,6 +78,9 @@ BASELINES = dict(app="cq_large", fleet=8, epochs=50)
 LM = dict(batch=4, prefill_len=2048, prompt_len=64, new_tokens=32, max_seq=128)
 # decode throughput: serve_step timed over 4 windows of 64 steps
 DECODE = dict(windows=4, steps=64)
+# the control-serving path: three decision kinds, 8 slots a plane, 16
+# perturbed clusters, 256 requests, at the paper's large-scale setup
+SERVE = dict(app="cq_large", clusters=16, requests=256, slots=8, seed=0)
 
 
 def log(msg: str) -> None:
@@ -536,6 +545,169 @@ def run_ddpg_mixed(dev, card: str):
     return launches
 
 
+def run_serving(dev, card: str) -> int:
+    """Phase 17: ``launch/serve_control`` at cq_large — placement (DDPG,
+    K = 8), rate_control and auto_tune planes of 8 slots, 16 clusters from
+    ``sample_perturbed``, 256 requests — on the card and on the CPU with
+    the same weights, clusters and requests.  The card's decisions must be
+    the CPU's; the placement plane must launch the K-NN kernel once a step;
+    one plane step must wait on the device once (the actions' pull).
+    Returns the K-NN launches of the card's run."""
+    import warnings
+
+    from repro_torch.core import spaces
+    from repro_torch.kernels.knn_topk import ops
+    from repro_torch.launch import serve_control as sc
+    from repro_torch.launch.drl_control import build_env
+
+    runs = {}
+    for where in ("cpu", dev):
+        env = build_env(SERVE["app"], where)
+        svc = sc.build_service(env, n_slots=SERVE["slots"], seed=SERVE["seed"])
+        sc.register_perturbed(svc, env, SERVE["clusters"], seed=SERVE["seed"])
+        reqs = sc.synthetic_requests(env, svc, SERVE["requests"], seed=SERVE["seed"])
+        if where == dev:
+            ops.LAUNCHES = 0
+        runs[str(where)] = (env, svc, sc.serve(svc, reqs))
+        if where == dev:
+            torch.cuda.synchronize()
+            launches = ops.LAUNCHES
+    cpu_env, cpu_svc, cpu = runs["cpu"]
+    env, svc, res = runs[str(dev)]
+    steps = {where: {k: p.steps for k, p in s.planes.items()}
+             for where, (_, s, _) in runs.items()}
+    placement_steps = steps[str(dev)]["placement"]
+    if launches != placement_steps or launches == 0:
+        raise AssertionError(f"the placement plane took {placement_steps} steps and "
+                             f"launched the K-NN kernel {launches} times")
+    if len(res["served"]) != SERVE["requests"]:
+        raise AssertionError(f"served {len(res['served'])} of {SERVE['requests']}")
+    # card == CPU, request by request; auto_tune and placement may differ
+    # only where the CPU's own scores of the two choices tie to 1e-5
+    want = {r.rid: r for r in cpu["served"]}
+    exact = near = 0
+    for r in res["served"]:
+        w = want[r.rid]
+        if (r.action.shape != spaces.action_space(r.kind).shape_fn(env)
+                or not np.isfinite(r.action).all()):
+            raise AssertionError(f"request {r.rid}: bad action shape {r.action.shape}")
+        if np.array_equal(r.action, w.action):
+            exact += 1
+            continue
+        near_tie(cpu_env, cpu_svc, r, w)
+        near += 1
+    # one more request a plane, under the sync debug mode: a plane step's
+    # only wait on the device is the pull of its actions
+    extra = sc.synthetic_requests(env, svc, len(svc.kinds), seed=SERVE["seed"] + 1)
+    for r in extra:
+        r.rid += SERVE["requests"]
+        svc.submit(r)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            svc.step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in caught)
+    if syncs != len(svc.kinds):
+        raise AssertionError(f"{syncs} synchronizing calls in one step of "
+                             f"{len(svc.kinds)} planes, expected one a plane: "
+                             + "; ".join(str(w.message)[:120] for w in caught))
+    log(f"phase 17 serve_control {SERVE['app']} N={env.N} M={env.M}: "
+        f"{len(svc.kinds)} kinds x {SERVE['slots']} slots, {SERVE['clusters']} "
+        f"clusters, {SERVE['requests']} requests ({card}); card == CPU on "
+        f"{exact} decisions exactly, {near} near-ties; K-NN launches "
+        f"{launches} over {placement_steps} placement steps "
+        f"({launches / placement_steps:.0f} a step, [{SERVE['slots']}x{env.N}, "
+        f"{env.M}] rows); {syncs} waits on the device in one service step "
+        f"({len(svc.kinds)} planes)")
+    for name, where in (("card", str(dev)), ("cpu", "cpu")):
+        e, s, r = runs[where]
+        log(f"  {name}: {r['decisions_per_s']:.1f} decisions/s after warm-up "
+            f"({len(r['served']) - len(r['warm'])} in {r['wall_s']:.4f} s; plane "
+            f"steps {steps[where]}); " + "; ".join(
+                f"{k} n={st['n']} p50 {st['p50_ms']:.4f} ms p99 {st['p99_ms']:.4f} ms"
+                for k, st in r["stats"].items()))
+        for kind, t in time_plane_steps(s, e, on_card=name == "card").items():
+            log(f"    {kind} plane step ({SERVE['slots']} slots): median "
+                f"{t['ms']:.4f} ms wall" + (
+                    f", device busy {t['busy_ms']:.4f} ms in {t['kernels']:.0f} "
+                    f"kernels ({t['busy_ms'] / t['ms']:.1%})" if "busy_ms" in t
+                    else ""))
+    return launches
+
+
+def time_plane_steps(svc, env, on_card: bool, steps: int = 7) -> dict:
+    """Phase 17: each plane's full step (every slot busy) timed alone, the
+    median of ``steps``; on the card also the device's busy time and
+    kernels per step from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve_control as sc
+
+    out = {}
+    for kind, plane in svc.planes.items():
+        def fill(plane=plane, kind=kind):
+            for r in sc.synthetic_requests(env, svc, plane.n_slots * len(svc.kinds),
+                                           seed=SERVE["seed"] + 2):
+                if r.kind == kind:
+                    plane.submit(r)
+
+        walls = []
+        for _ in range(steps):
+            fill()
+            t0 = time.perf_counter()
+            plane.step()
+            walls.append(time.perf_counter() - t0)
+        out[kind] = dict(ms=float(np.median(walls)) * 1e3)
+        if on_card:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    fill()
+                    plane.step()
+            kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+            out[kind].update(
+                busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / steps / 1e3,
+                kernels=len(kernels) / steps)
+    return out
+
+
+def near_tie(cpu_env, cpu_svc, card_req, cpu_req) -> None:
+    """A card decision that is not the CPU's must tie with it under the
+    CPU's own scores to 1e-5: auto_tune's latencies, or the DDPG critic's
+    Q values."""
+    from repro_torch.core import networks as nets
+    from repro_torch.serve.control import single_select
+
+    plane = cpu_svc.planes[card_req.kind]
+    params = plane._params_list[plane._clusters[card_req.cluster]]
+    s = torch.as_tensor(card_req.s_vec)[None, None]
+    if card_req.kind == "auto_tune":
+        _, lats = plane.agent.select_fn(plane.agent.cfg, plane.state, s, None,
+                                        params, False, None, None)
+        a, b = (float(lats[0, 0, int(np.argmax(x))])
+                for x in (card_req.action, cpu_req.action))
+    elif card_req.kind == "placement":
+        if not np.array_equal(cpu_req.action,
+                              single_select(plane.agent, plane.state,
+                                            card_req.s_vec, params).numpy()):
+            raise AssertionError(f"request {card_req.rid}: the CPU's batched and "
+                                 "single selects differ")
+        a, b = (float(nets.apply_critic(plane.state.critic, s[0],
+                                        torch.as_tensor(x).reshape(1, 1, -1))[0, 0])
+                for x in (card_req.action, cpu_req.action))
+    else:
+        raise AssertionError(f"request {card_req.rid} ({card_req.kind}): card and "
+                             "CPU decisions differ")
+    if abs(a - b) > 1e-5 * max(abs(a), abs(b)):
+        raise AssertionError(f"request {card_req.rid} ({card_req.kind}): card and "
+                             f"CPU decisions differ, scores {a} vs {b}")
+
+
 def profile_online(res, epochs: int = 5) -> None:
     """Phase 7: where an online epoch's time goes, on the trained fleet.
 
@@ -637,6 +809,14 @@ def check_flash(dev) -> dict:
              (2, 384, 8, 2, 128, False, torch.bfloat16),
              (2, 200, 4, 2, 128, True, torch.bfloat16),
              (3, 37, 4, 2, 32, True, torch.bfloat16),
+             # hd 96 native on both routes; hd 8 and 40 zero-padded to 16, 64
+             (2, 256, 8, 2, 96, True, torch.float32),
+             (2, 200, 4, 2, 8, True, torch.float32),
+             (2, 128, 4, 1, 40, False, torch.float32),
+             (2, 256, 8, 2, 96, True, torch.bfloat16),
+             (2, 200, 4, 1, 96, False, torch.bfloat16),
+             (2, 200, 4, 2, 8, True, torch.bfloat16),
+             (2, 128, 4, 2, 40, False, torch.bfloat16),
              (B, S, H, Hkv, hd, True, torch.bfloat16)]
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -667,7 +847,19 @@ def check_flash(dev) -> dict:
     if ops.LAUNCHES_BF16 != before + 1:
         raise AssertionError("the strided bf16 view did not go through the bf16 kernel")
     max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
-    log(f"phase 9 flash kernels vs plain version: {len(cases) + 1} cases agree "
+    # a layout TMA cannot load (k's base 2 bytes off the grid, v's h stride
+    # 40 bytes): staged into fresh allocations, then the bf16 kernel
+    flat = torch.randn(1 + 2 * 256 * 4 * 64, generator=gen, device=dev).bfloat16()
+    wide = torch.randn(2, 256, 2, 20, generator=gen, device=dev).bfloat16()
+    q = torch.randn(2, 256, 4, 16, generator=gen, device=dev).bfloat16()
+    before = (ops.LAUNCHES_BF16, ops.STAGED_COPIES)
+    err = check(q, flat[1:].view(2, 256, 4, 64)[:, :, :2, :16], wide[..., 4:], True,
+                "a staged layout")
+    if (ops.LAUNCHES_BF16, ops.STAGED_COPIES) != (before[0] + 1, before[1] + 2):
+        raise AssertionError("the misaligned bf16 layout was not staged once per "
+                             "tensor and run by the bf16 kernel")
+    max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
+    log(f"phase 9 flash kernels vs plain version: {len(cases) + 2} cases agree "
         f"(max |err| float32 route {max_err[torch.float32]:.3g}, bfloat16 route "
         f"{max_err[torch.bfloat16]:.3g}; |err| <= 2e-5 |x| + 2e-5 f32, "
         f"1e-2 |x| + 2e-3 bf16)")
@@ -710,7 +902,43 @@ def check_flash(dev) -> dict:
         f"{t['bound_ms']:.6f} ({t['bound_by']}: {flops / 1e9:.1f} GFLOP, "
         f"{bytes_moved / 1e6:.1f} MB); {flops / t['ms'] / 1e9:.1f} TFLOP/s; "
         f"|kernel - SDPA| max {lib_err:.3g}")
-    return dict(max_abs_err=max_err[torch.bfloat16], timings=t)
+    del q, k, v, inputs
+    phi3 = time_phi3_prefill(dev, gen, sdpa)
+    f32["bound_by"] = "operations"
+    return dict(max_abs_err=max_err[torch.bfloat16], timings=t,
+                f32=dict(max_abs_err=max_err[torch.float32], timings=f32),
+                phi3=phi3)
+
+
+def time_phi3_prefill(dev, gen, sdpa) -> dict:
+    """Phase 9, last part: the bf16 route at phi-3-vision's head dim (96,
+    native since it has its own instantiation) on the prefill shape q and
+    k/v [4, 2048, 32, 96], causal: kernel, plain, SDPA and bound."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref, ops
+
+    B, S, H, hd = LM["batch"], LM["prefill_len"], 32, 96
+    q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+               for _ in range(3))
+    padded = ops.LAUNCHES_PADDED
+    err = float((ops.flash_attention(q, k, v).float()
+                 - flash_attention_ref(q, k, v).float()).abs().max())
+    if ops.LAUNCHES_PADDED != padded:
+        raise AssertionError("hd 96 was padded: it has its own instantiation")
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    bytes_moved = 2 * 4 * B * S * H * hd                  # q, k, v, o in bf16
+    t = dict(ms=eager_ms(lambda: ops.flash_attention(q, k, v), iters=20, warmup=3),
+             plain_ms=eager_ms(lambda: flash_attention_ref(q, k, v), iters=3,
+                               warmup=1),
+             library_ms=eager_ms(lambda: sdpa(q, k, v), iters=20, warmup=3))
+    t_ops, t_bytes = flops / BF16_TC_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
+    t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"  [{B},{S},{H},{hd}] q, k, v bf16 causal (phi-3-vision heads), bfloat16 "
+        f"route, ms per call: kernel {t['ms']:.6f}  plain {t['plain_ms']:.6f}  "
+        f"library (SDPA) {t['library_ms']:.6f}  bound {t['bound_ms']:.6f} "
+        f"({t['bound_by']}: {flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); "
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}")
+    return dict(max_abs_err=err, timings=t)
 
 
 def check_wkv(dev) -> dict:
@@ -882,6 +1110,7 @@ def run_lm_path(dev, arch: str) -> dict:
     torch.cuda.synchronize()
     fa_ops.LAUNCHES = wkv_ops.LAUNCHES = knn_ops.LAUNCHES = 0
     fa_ops.LAUNCHES_BF16 = fa_ops.LAUNCHES_F32 = 0
+    fa_ops.LAUNCHES_PADDED = fa_ops.STAGED_COPIES = 0
     t0 = time.perf_counter()
     logits, kv = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
@@ -894,6 +1123,13 @@ def run_lm_path(dev, arch: str) -> dict:
         raise AssertionError(f"{arch} prefill_forward: {fa_ops.LAUNCHES_BF16} bf16 and "
                              f"{fa_ops.LAUNCHES_F32} float32 flash launches, expected "
                              f"{want} and 0")
+    launches_f32 = fa_ops.LAUNCHES_F32
+    if cfg.family == "dense":
+        log(f"  prefill_forward flash: {fa_ops.LAUNCHES_PADDED} padded launches, "
+            f"{fa_ops.STAGED_COPIES} staged copies (head_dim {cfg.head_dim}, "
+            "fused-projection views)")
+        if fa_ops.LAUNCHES_PADDED or fa_ops.STAGED_COPIES:
+            raise AssertionError(f"{arch} prefill padded or staged its flash inputs")
     if logits.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch} prefill logits: shape {tuple(logits.shape)} "
                              "or non-finite values")
@@ -937,8 +1173,8 @@ def run_lm_path(dev, arch: str) -> dict:
     drift = check_prefills_agree(cfg, params, prompts, step_logits, full_logits)
     del params
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefill_tok_s=B * S / t_prefill,
-                decode=decode, drift=drift)
+    return dict(launches=launches, launches_f32=launches_f32,
+                prefill_tok_s=B * S / t_prefill, decode=decode, drift=drift)
 
 
 def time_decode(cfg, params, tok) -> dict:
@@ -1039,6 +1275,28 @@ def check_prefills_agree(cfg, params, prompts, step16, full16) -> dict:
     return r
 
 
+def log_instantiations(source: str, text: str) -> None:
+    """Phase 2: registers and spill stores of every kernel instantiation in
+    ``source``'s ``-Xptxas -v`` log, by demangled name."""
+    found = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        found.append((name, int(regs.group(1)) if regs else -1,
+                      int(spill.group(1)) if spill else 0))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(n for n, _, _ in found),
+                               capture_output=True, text=True, timeout=30,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        names = [n for n, _, _ in found]
+    for (_, regs, spill), name in zip(found, names):
+        short = re.sub(r"\(.*", "", name.replace("(anonymous namespace)::", ""))
+        short = short.removeprefix("void ")
+        log(f"    {short}: {regs} registers, {spill} B spill stores")
+
+
 def _tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
@@ -1083,6 +1341,8 @@ def main() -> int:
         for line in text.splitlines():
             if "warning" in line.lower():
                 log(f"  {source}: {line.strip()}")
+        if "flash_attention" in source or any(spills):
+            log_instantiations(source, text)
 
     kernel = check_kernel(dev)
     check_beam(dev)
@@ -1101,6 +1361,9 @@ def main() -> int:
     run_baselines(dev, card)
     run_ddpg_mixed(dev, card)
     log(f"phases 14-16 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_serving(dev, card)
+    log(f"phase 17 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -1109,6 +1372,8 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
 
+    # launches: the K-NN kernel's on the training path (phase 6; phase 17
+    # logs the serving path's), each flash route's in the llama3-8b prefill
     print(json.dumps({"kernels": [
         row("row_top2_regret", "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
             "src/repro/kernels/knn_topk/kernel.py:37", launches, kernel,
@@ -1117,6 +1382,10 @@ def main() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
             "src/repro/kernels/flash_attention/kernel.py:74", llama["launches"],
             flash, flash["timings"]),
+        row("flash_attention_f32",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:74", llama["launches_f32"],
+            flash["f32"], flash["f32"]["timings"]),
         row("wkv6", "src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
             "src/repro/kernels/rwkv6_scan/kernel.py:49", rwkv["launches"], wkv,
             wkv["timings"]["prefill"]),

@@ -15,7 +15,12 @@ Every tensor carries the fleet axis ``[F]``.  ``draws`` is one epoch's
 ``env_params`` is one EnvParams shared by every lane or a lane-stacked
 scenario fleet (``dsdps.scenarios``); learning agents ignore it, the
 model-based baseline profiles and searches each lane's own cluster with
-it.  Registered: ``ddpg``, ``dqn``, ``round_robin`` and ``model_based``."""
+it.  Registered: ``ddpg``, ``dqn``, ``round_robin`` and ``model_based``,
+which step an env, and the serving-only decision policies ``rate_control``
+and ``auto_tune`` (``core/control_policies.py``), whose actions are not
+placements and never reach ``env.step``: :func:`agent_names` and the fleet
+runner leave those out, and the serving control plane
+(``serve/control.py``) runs them."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
@@ -65,6 +70,10 @@ def make_epoch_step(env, agent: Agent, env_params=None,
 
     Returns ``epoch_step(state, env_state, gen=None, draws=None) ->
     (state, env_state, (reward [F], latency_ms [F], moved [F]))``."""
+    if agent.name in _SERVING_ONLY:
+        raise ValueError(f"{agent.name} is a serving-only decision policy: its "
+                         f"actions are not placements and never step an env "
+                         f"(serve it through repro_torch.serve.control)")
     params = env.default_params() if env_params is None else env_params
 
     def epoch_step(state, env_state, gen: torch.Generator | None = None,
@@ -92,15 +101,26 @@ def make_epoch_step(env, agent: Agent, env_params=None,
 # Registry
 # --------------------------------------------------------------------------
 _REGISTRY: dict[str, Callable[..., Agent]] = {}
+_SERVING_ONLY: set[str] = set()
 
 
-def register_agent(name: str, factory: Callable[..., Agent]) -> None:
-    """Register ``factory(env, **overrides) -> Agent`` under ``name``."""
+def register_agent(name: str, factory: Callable[..., Agent],
+                   serving_only: bool = False) -> None:
+    """Register ``factory(env, **overrides) -> Agent`` under ``name``.
+
+    ``serving_only`` marks a policy whose actions never reach ``env.step``
+    (the reference's ``families=()``): :func:`make_agent` builds it, but
+    :func:`agent_names` and the fleet runner do not offer it."""
     _REGISTRY[name] = factory
+    if serving_only:
+        _SERVING_ONLY.add(name)
+    else:
+        _SERVING_ONLY.discard(name)
 
 
 def _load_builtins() -> None:
     # built-in agents register themselves on import
+    import repro_torch.core.control_policies  # noqa: F401
     import repro_torch.core.ddpg         # noqa: F401
     import repro_torch.core.dqn          # noqa: F401
     import repro_torch.core.model_based  # noqa: F401
@@ -108,8 +128,10 @@ def _load_builtins() -> None:
 
 
 def agent_names() -> tuple[str, ...]:
+    """Registered agents that step an env (the launcher's ``--agent``
+    choices)."""
     _load_builtins()
-    return tuple(sorted(_REGISTRY))
+    return tuple(sorted(n for n in _REGISTRY if n not in _SERVING_ONLY))
 
 
 def make_agent(name: str, env, **overrides) -> Agent:

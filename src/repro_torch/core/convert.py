@@ -134,6 +134,15 @@ def _replay_arrays(rp: Replay) -> ReplayArrays:
                         _a(rp.next_states), _a(rp.ptr), _a(rp.size))
 
 
+def lane_arrays(tree, lane: int):
+    """Lane ``lane`` of a numpy state tree stacked on [F] (what
+    ``*_state_to_numpy`` returns) as a fleet of one: every leaf ``[1, ...]``."""
+    if isinstance(tree, tuple):
+        parts = (lane_arrays(x, lane) for x in tree)
+        return type(tree)(*parts) if hasattr(tree, "_fields") else tuple(parts)
+    return tree[lane:lane + 1]
+
+
 def ddpg_state_from_numpy(tree, device: str | torch.device) -> DDPGState:
     """A port ``DDPGState`` from a numpy ``DDPGState``-shaped tree."""
     c = _FromNumpy(tree, device)

@@ -19,12 +19,13 @@ import copy
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import api
 from repro_torch.core import networks as nets
 from repro_torch.core.exploration import EpsilonSchedule, perturb_proto
-from repro_torch.core.knn_projection import knn_actions
+from repro_torch.core.knn_projection import knn_actions, knn_actions_exact
 from repro_torch.core.replay import (Replay, replay_add, replay_init,
                                      replay_sample, sample_indices)
 from repro_torch.device import resolve_device
@@ -124,22 +125,38 @@ def select_action(
     add: torch.Tensor | None = None,
     noise: torch.Tensor | None = None,
     gen: torch.Generator | None = None,
+    exact_host_knn: bool = False,
+    k_override: int | None = None,
 ) -> torch.Tensor:
-    """One-hot assignments ``[F, N, M]`` for states ``s_vec [F, S]``.
+    """One-hot assignments ``[F, ..., N, M]`` for states ``s_vec [F, ...,
+    S]``: lane f's nets decide every row ``s_vec[f, ...]``, so a serving
+    plane (F = 1) selects for all its slots in one pass, weights shared.
 
-    With ``explore``, lane f's proto-action gets ``noise[f]`` when
-    ``add[f]`` (the ε coin); draws not passed in come from ``gen``."""
-    F = s_vec.shape[0]
+    With ``explore``, lane f's proto-actions get ``noise[f]`` when
+    ``add[f]`` (the ε coin); draws not passed in come from ``gen``.
+    ``k_override`` widens the K-NN set (deploy time uses a larger K than the
+    per-epoch loop), and ``exact_host_knn`` takes it from the exact k-best
+    enumeration on the host (``knn_actions_exact``, numpy) instead of the
+    device beam — a copy to the host and back."""
+    lead = s_vec.shape[:-1]
+    k = k_override or cfg.k_nn
     proto = nets.apply_actor(state.actor, s_vec).reshape(
-        F, cfg.n_executors, cfg.n_machines)
+        *lead, cfg.n_executors, cfg.n_machines)
     if explore:
         proto = perturb_proto(proto, cfg.eps(state.epoch), add=add,
                               noise=noise, gen=gen)
-    cands = knn_actions(proto, cfg.k_nn)                          # [F, K, N, M]
-    q = nets.apply_critic(state.critic, s_vec[:, None, :],
-                          cands.reshape(F, cfg.k_nn, -1))         # [F, K]
-    lanes = torch.arange(F, device=s_vec.device)
-    return cands[lanes, q.argmax(-1)]
+    if exact_host_knn:
+        rows = proto.reshape(-1, cfg.n_executors, cfg.n_machines).cpu().numpy()
+        cands = torch.as_tensor(
+            np.stack([knn_actions_exact(p, k) for p in rows]),
+            device=proto.device).reshape(*lead, k, cfg.n_executors,
+                                         cfg.n_machines)
+    else:
+        cands = knn_actions(proto, k)                             # [F, ..., K, N, M]
+    q = nets.apply_critic(state.critic, s_vec[..., None, :],
+                          cands.reshape(*lead, k, -1))            # [F, ..., K]
+    best = q.argmax(-1)[..., None, None, None]
+    return torch.take_along_dim(cands, best, dim=-3).squeeze(-3)
 
 
 # --------------------------------------------------------------------------

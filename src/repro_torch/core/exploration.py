@@ -27,15 +27,18 @@ def perturb_proto(proto: torch.Tensor, eps: torch.Tensor,
                   add: torch.Tensor | None = None,
                   noise: torch.Tensor | None = None,
                   gen: torch.Generator | None = None) -> torch.Tensor:
-    """With probability ``eps [F]`` add uniform noise in [0, 1) to the lane's
-    proto-action ``[F, N, M]``.  ``add [F]`` (bool) and ``noise [F, N, M]``
-    are the draws; those not passed in come from ``gen``."""
-    F = proto.shape[0]
+    """With probability ``eps [F]`` add uniform noise in [0, 1) to each of
+    lane f's proto-actions ``[F, ..., N, M]`` (one per row of a serving
+    plane's ``[1, n_slots]``).  ``add [F, ...]`` (bool, one coin a
+    proto-action) and ``noise [F, ..., N, M]`` are the draws; those not
+    passed in come from ``gen``."""
+    lead = proto.shape[:-2]
     if add is None:
-        add = torch.rand(F, generator=gen, device=proto.device) < eps
+        add = torch.rand(lead, generator=gen, device=proto.device) < eps.reshape(
+            -1, *(1,) * (len(lead) - 1))
     if noise is None:
         noise = torch.rand(proto.shape, generator=gen, device=proto.device)
-    add = add.reshape(F, *(1,) * (proto.dim() - 1))
+    add = add.reshape(*lead, 1, 1)
     return torch.where(add, proto + noise, proto)
 
 

@@ -44,10 +44,12 @@ def _agent_init(gen, cfg: RoundRobinConfig, fleet: int, device,
 
 def _agent_select(cfg: RoundRobinConfig, state, s_vec, env_state, env_params,
                   explore, draws, gen):
+    # one assignment per state vector: [F] lanes, or a serving plane's
+    # [1, n_slots] rows
+    lead = state.shape if s_vec is None else s_vec.shape[:-1]
     idx = torch.arange(cfg.n_executors, device=state.device) % cfg.n_machines
     X = torch.nn.functional.one_hot(idx, cfg.n_machines).to(torch.float32)
-    F = state.shape[0]
-    return X.expand(F, *X.shape).clone(), torch.zeros(F, device=state.device)
+    return X.expand(*lead, *X.shape).clone(), torch.zeros(lead, device=state.device)
 
 
 def _agent_observe(cfg, state, s_vec, aux, reward, s_next):

@@ -17,7 +17,10 @@ stack.
 
 ``mixed`` takes its per-lane service-time and rate draws passed in, or
 from a ``torch.Generator`` seeded with ``seed``: torch cannot replay the
-reference's threefry draws (``fold_in(PRNGKey(seed), lane)``)."""
+reference's threefry draws (``fold_in(PRNGKey(seed), lane)``).  So does
+:func:`sample_perturbed`, the one-scenario sampler the serving launcher
+registers its clusters with (the scheduling half of the reference's; the
+placement half waits for the placement env)."""
 from __future__ import annotations
 
 import math
@@ -120,6 +123,53 @@ def workload_shift(env, factor: float = 1.5) -> EnvParams:
     """The Fig-12 step change as a single-scenario EnvParams edit: every
     spout's base rate scaled by ``factor`` against the same env spec."""
     return scale_rates(env.default_params(), factor)
+
+
+def sample_perturbed(env, base: EnvParams | None = None,
+                     service_sigma: float = 0.12, rate_sigma: float = 0.12,
+                     straggler_prob: float = 0.25,
+                     straggler_factor: float = 0.4,
+                     service_z: torch.Tensor | None = None,
+                     rate_z: torch.Tensor | None = None,
+                     straggler: bool | None = None,
+                     machine: int | None = None,
+                     gen: torch.Generator | None = None) -> EnvParams:
+    """ONE perturbed scenario around ``base`` (default: the env's declared
+    parameters): lognormal jitter on the true service costs and arrival
+    rates, plus, with probability ``straggler_prob``, one machine slowed to
+    ``straggler_factor``.
+
+    The draws are ``service_z [N]`` and ``rate_z [S]`` (standard normal),
+    the straggler coin ``straggler`` and the straggler's ``machine`` in
+    ``[0, M)``; those not passed in come from ``gen`` in that order, on the
+    generator's device (the reference draws them from four keys split off
+    one).  So a CPU generator gives the same scenario on any device."""
+    p = env.default_params() if base is None else base
+    dev = p.base_rates.device if gen is None else gen.device
+    if service_z is None:
+        service_z = torch.randn(env.N, generator=gen, device=dev)
+    if rate_z is None:
+        rate_z = torch.randn(env.workload.num_spouts, generator=gen, device=dev)
+    if straggler is None:
+        straggler = bool(torch.rand((), generator=gen, device=dev)
+                         < straggler_prob)
+    lane = perturb_rates(perturb_service(p, service_z, service_sigma),
+                         rate_z, rate_sigma)
+    if straggler:
+        if machine is None:
+            machine = int(torch.randint(0, env.M, (), generator=gen,
+                                        device=dev))
+        lane = with_straggler(lane, machine, straggler_factor)
+    return lane
+
+
+def perturb_sampler(env, base: EnvParams | None = None, **kwargs):
+    """Curry :func:`sample_perturbed` into a ``sample(gen=None, **draws) ->
+    EnvParams`` callable (``draws``: ``service_z``, ``rate_z``,
+    ``straggler``, ``machine``)."""
+    def sample(gen: torch.Generator | None = None, **draws) -> EnvParams:
+        return sample_perturbed(env, base=base, gen=gen, **kwargs, **draws)
+    return sample
 
 
 def scenario_names(env) -> tuple[str, ...]:

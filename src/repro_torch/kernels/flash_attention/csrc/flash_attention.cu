@@ -6,9 +6,10 @@
 // inputs; bfloat16 inputs go to flash_attention_sm90.cu.  For q [B, S, H, hd]
 // and k, v [B, S, Hkv, hd] in float32 (any strides over b, s and h, the
 // last axis contiguous), query head h reads kv head h / (H / Hkv) and
-//   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(hd),
+//   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(scale_hd),
 // over j <= i when causal and over all j otherwise, written into a
-// contiguous o [B, S, H, hd].  The math is full float32, with the
+// contiguous o [B, S, H, hd].  hd is one of the instantiations (16, 32, 64,
+// 96, 128); scale_hd is the head dim before the wrapper zero-padded it.  The math is full float32, with the
 // reference's online softmax: per tile of keys
 //   m_cur = max(m, max_j s_j); alpha = exp(m - m_cur); p_j = exp(s_j - m_cur)
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j;  m = m_cur
@@ -187,7 +188,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Strides* st, int B, int S, int H, int Hkv,
+                   const Strides* st, int B, int S, int H, int Hkv, int scale_hd,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_floats<HD>() * sizeof(float);
   auto kernel = flash_attention_kernel<T, HD, CAUSAL>;
@@ -200,7 +201,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   const int BH = B * H;
   const int n_qtiles = (S + kQTile - 1) / kQTile;
-  const float scale = 1.0f / sqrtf(static_cast<float>(HD));
+  const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), st[0], st[1], st[2], st[3], S, H, H / Hkv, BH, scale);
@@ -210,12 +211,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         const Strides* st, int B, int S, int H, int Hkv, int hd,
-                        cudaStream_t stream) {
+                        int scale_hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
-    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
-    case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
-    case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
+    case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 96: return launch<T, 96, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -223,19 +225,22 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // Launches the float32 kernel on `stream` and returns cudaGetLastError()
-// (0 on success).  strides: 12 element strides, (b, s, h) of q, k, v and o
-// in that order.  S == 0 launches nothing.
+// (0 on success).  hd is an instantiated head dim, scale_hd in [1, hd] the
+// one whose 1/sqrt scales the scores (the head dim before the wrapper
+// zero-padded it).  strides: 12 element strides, (b, s, h) of q, k, v and
+// o in that order.  S == 0 launches nothing.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
                                        void* o, int causal, int B, int S, int H,
-                                       int Hkv, int hd, const int64_t* strides,
-                                       cudaStream_t stream) {
+                                       int Hkv, int hd, int scale_hd,
+                                       const int64_t* strides, cudaStream_t stream) {
   if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
-  if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 || scale_hd > hd)
+    return static_cast<int>(cudaErrorInvalidValue);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaError_t err =
-      causal ? dispatch_hd<float, true>(q, k, v, o, st, B, S, H, Hkv, hd, stream)
-             : dispatch_hd<float, false>(q, k, v, o, st, B, S, H, Hkv, hd, stream);
+      causal ? dispatch_hd<float, true>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream)
+             : dispatch_hd<float, false>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
   return static_cast<int>(err);
 }

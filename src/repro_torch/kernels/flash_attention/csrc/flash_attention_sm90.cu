@@ -8,7 +8,7 @@
 // k, v [B, S, Hkv, hd] in bfloat16 (any strides over b, s and h that are
 // multiples of 16 bytes, the last axis contiguous, 16-byte-aligned bases),
 // query head h reads kv head h / (H / Hkv) and
-//   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(hd),
+//   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(scale_hd),
 // over j <= i when causal and over all j otherwise, written as bfloat16
 // into o [B, S, H, hd] (strides given).  Online softmax in float32, in the
 // base-2 domain with log2(e) * scale folded into one factor:
@@ -16,7 +16,9 @@
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j (big_j + small_j) v_j
 // with big_j = bf16(p_j) and small_j = bf16(p_j - big_j), and
 // o = acc / max(l, 1e-30).  Masked scores are -1e30 (the Pallas kernel's
-// value).  Every row is computed: a ragged S is masked, not dropped.  The
+// value).  Every row is computed: a ragged S is masked, not dropped.
+// scale_hd is the head dim before the wrapper zero-padded it to one of the
+// instantiated HD (16, 32, 64, 96, 128); zero columns leave q . k as it is.  The
 // row sums come from the float32 p.  P enters the bf16 tensor cores as two
 // parts because one bf16 rounding (up to 2^-9 of p) is too coarse: an early
 // row averages a few v rows whose sum cancels, and its error scales with
@@ -39,9 +41,11 @@
 //   blockIdx, so their K/V tiles come from L2.
 // * TMA moves every tile.  q, k and v are each described as a 4-D tensor
 //   (hd, H, S, B) with the caller's strides, so strided views such as
-//   slices of a fused projection need no copy; the box is (min(hd, 64), 1,
-//   128, 1), written with the swizzle whose width is the box's row
-//   (32, 64 or 128 bytes); hd = 128 arrives as two 64-column boxes.  The Q
+//   slices of a fused projection need no copy; the box is (chunk, 1, 128,
+//   1) with chunk = hd below 64, 64 for hd = 128 and 32 for hd = 96,
+//   written with the swizzle whose width is the box's row (32, 64 or 128
+//   bytes); hd = 128 arrives as two 64-column boxes and hd = 96 as three
+//   32-column ones.  The Q
 //   tile is loaded once; K and V tiles of 128 keys go through a ring of two
 //   stages, each completed on its own mbarrier, so S = Q K^T of a tile can
 //   start before its V has landed, and the next tile's loads fly while this
@@ -93,10 +97,11 @@ struct Strides {
 
 // Shared-memory geometry for head dim HD: tiles are stored as TMA writes
 // them, in column chunks of kChunk (the swizzle width), each chunk
-// [128 rows][kChunk] with rows of kRowBytes.
+// [128 rows][kChunk] with rows of kRowBytes.  96 is no multiple of 64, so
+// it takes three chunks of 32 (64-byte swizzle), as hd 32 takes one.
 template <int HD>
 struct Geometry {
-  static constexpr int kChunk = HD < 64 ? HD : 64;
+  static constexpr int kChunk = HD < 64 ? HD : HD % 64 == 0 ? 64 : 32;
   static constexpr int kChunks = HD / kChunk;
   static constexpr int kRowBytes = kChunk * 2;
   static constexpr int kKPerChunk = kChunk / 16;    // k16 steps within one chunk
@@ -372,7 +377,7 @@ bool encode(CUtensorMap* map, const void* ptr, const Strides& st, int B, int S, 
 
 template <int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                   int B, int S, int H, int Hkv, cudaStream_t stream) {
+                   int B, int S, int H, int Hkv, int scale_hd, cudaStream_t stream) {
   using G = Geometry<HD>;
   CUtensorMap tq, tk, tv;
   if (!encode<HD>(&tq, q, st[0], B, S, H) || !encode<HD>(&tk, k, st[1], B, S, Hkv) ||
@@ -388,7 +393,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const S
   }
   const int BH = B * H;
   const int n_qtiles = (S + kQTile - 1) / kQTile;
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kThreads, G::kSmemBytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], S, H, H / Hkv, BH, scale_log2);
   return cudaGetLastError();
@@ -397,12 +402,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const S
 template <bool CAUSAL>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         const Strides* st, int B, int S, int H, int Hkv, int hd,
-                        cudaStream_t stream) {
+                        int scale_hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
-    case 32: return launch<32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
-    case 64: return launch<64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
-    case 128: return launch<128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, stream);
+    case 16: return launch<16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 32: return launch<32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 64: return launch<64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 96: return launch<96, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 128: return launch<128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -411,18 +417,21 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 
 // Launches the bfloat16 kernel on `stream` and returns cudaGetLastError()
 // (0 on success; cudaErrorInvalidValue when a tensor map cannot be
-// encoded).  strides: 12 element strides, (b, s, h) of q, k, v and o in
-// that order.  S == 0 launches nothing.
+// encoded).  hd is an instantiated head dim, scale_hd in [1, hd] the one
+// whose 1/sqrt scales the scores.  strides: 12 element strides, (b, s, h)
+// of q, k, v and o in that order.  S == 0 launches nothing.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         int causal, int B, int S, int H, int Hkv, int hd,
-                                        const int64_t* strides, cudaStream_t stream) {
+                                        int scale_hd, const int64_t* strides,
+                                        cudaStream_t stream) {
   if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
-  if (Hkv <= 0 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 || scale_hd > hd)
+    return static_cast<int>(cudaErrorInvalidValue);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaError_t err =
-      causal ? dispatch_hd<true>(q, k, v, o, st, B, S, H, Hkv, hd, stream)
-             : dispatch_hd<false>(q, k, v, o, st, B, S, H, Hkv, hd, stream);
+      causal ? dispatch_hd<true>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream)
+             : dispatch_hd<false>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
   return static_cast<int>(err);
 }

@@ -6,9 +6,16 @@ stream, chosen by dtype and by nothing else:
 * bfloat16 -> ``csrc/flash_attention_sm90.cu``: Hopper tensor cores
   (``wgmma``), tiles moved by TMA.  TMA needs 16-byte-aligned bases and
   strides that are multiples of 16 bytes; a tensor that breaks either rule
-  is refused, not copied.
+  is copied into a fresh contiguous allocation first (``STAGED_COPIES``).
 * float32 -> ``csrc/flash_attention.cu``: full float32 on the CUDA cores,
   as the port's float32 paths require.
+
+Both kernels are built for the head dims in ``HEAD_DIMS``.  Any other
+head_dim up to 128 is zero-padded to the next of them (zero columns add
+nothing to q·kᵀ and give zero output columns, sliced off), with the scores
+still scaled by ``1/sqrt(true hd)`` (``LAUNCHES_PADDED``); above 128 the
+wrapper raises.  Padding and staging are copies in front of the same
+kernel, not another route.
 
 On CPU tensors it runs the plain version (``ref.py``).  There is no
 fallback from one route to another."""
@@ -22,12 +29,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention"
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+# (q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd, strides, stream): hd is
+# the kernel's head dim, scale_hd the one whose 1/sqrt scales the scores
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
          + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
 ENTRY = {torch.float32: "flash_attention_fwd_f32",
          torch.bfloat16: "flash_attention_fwd_bf16"}
 SIGNATURES = {fn: (_ARGS, ctypes.c_int) for fn in ENTRY.values()}
-HEAD_DIMS = (16, 32, 64, 128)              # both kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 96, 128)          # both kernels' instantiations
 TMA_ALIGN = 16                             # bytes, for bases and strides
 
 # kernel launches since the last reset (the plain CPU path does not count):
@@ -35,6 +44,10 @@ TMA_ALIGN = 16                             # bytes, for bases and strides
 LAUNCHES = 0
 LAUNCHES_F32 = 0
 LAUNCHES_BF16 = 0
+# launches whose head_dim was zero-padded to a native one, and bf16 tensors
+# copied because TMA could not load them where they lay
+LAUNCHES_PADDED = 0
+STAGED_COPIES = 0
 
 
 def _check_tma_layout(**tensors: torch.Tensor) -> None:
@@ -50,13 +63,35 @@ def _check_tma_layout(**tensors: torch.Tensor) -> None:
                              "which the bfloat16 kernel's TMA loads need")
 
 
+def _stage_for_tma(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can load it where it lies, else a copy in a
+    fresh contiguous allocation (a native head_dim's rows are 32-byte
+    multiples, and the allocator's bases 512-byte aligned)."""
+    global STAGED_COPIES
+    size = t.element_size()
+    if t.data_ptr() % TMA_ALIGN == 0 and not any(
+            st * size % TMA_ALIGN for st in t.stride()[:3]):
+        return t
+    STAGED_COPIES += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _padded_head_dim(hd: int) -> int:
+    """The smallest native head dim that holds ``hd``."""
+    if hd > HEAD_DIMS[-1]:
+        raise ValueError(f"flash_attention kernel takes head_dim up to "
+                         f"{HEAD_DIMS[-1]}, got {hd}")
+    return next(d for d in HEAD_DIMS if d >= hd)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q ``[B, S, H, hd]``; k, v ``[B, S, Hkv, hd]``, one dtype (float32 or
     bfloat16), H a multiple of Hkv, the last axis contiguous →
     ``[B, S, H, hd]`` in q's dtype.  Query head h reads kv head
-    ``h // (H // Hkv)``; scores are scaled by ``1/sqrt(hd)``."""
-    global LAUNCHES, LAUNCHES_F32, LAUNCHES_BF16
+    ``h // (H // Hkv)``; scores are scaled by ``1/sqrt(hd)``.  On the card
+    hd may be anything from 1 to 128."""
+    global LAUNCHES, LAUNCHES_F32, LAUNCHES_BF16, LAUNCHES_PADDED
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q, k, v of rank 4 [B, S, H, hd]")
     B, S, H, hd = q.shape
@@ -73,16 +108,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes head_dim in {HEAD_DIMS}, "
-                         f"got {hd}")
+    kd = _padded_head_dim(hd)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs the head_dim axis contiguous")
+    if q.numel() == 0:
+        return torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if kd != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, kd - hd)) for t in (q, k, v))
     if q.dtype == torch.bfloat16:
+        q, k, v = (_stage_for_tma(t) for t in (q, k, v))
         _check_tma_layout(q=q, k=k, v=v)
-    o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
-    if o.numel() == 0:
-        return o
+    o = torch.empty((B, S, H, kd), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, o)
                                       for st in t.stride()[:3]))
     lib = _build.load(NAME, SIGNATURES)
@@ -91,7 +127,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(causal), B, S, H, Hkv, hd, strides, stream)
+            int(causal), B, S, H, Hkv, kd, hd, strides, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
@@ -99,4 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES_F32 += 1
+    if kd != hd:
+        LAUNCHES_PADDED += 1
+        o = o[..., :hd].contiguous()
     return o

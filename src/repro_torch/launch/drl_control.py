@@ -9,7 +9,10 @@ env, initialize ``--fleet`` lanes of ``--agent`` (``ddpg``, ``dqn``,
 model-based baseline profiles and fits the lane's cluster), pretrain DDPG
 lanes offline on random transitions, run ``--epochs`` online decision
 epochs, and score every lane's final assignment against round-robin under
-that lane's scenario.
+that lane's scenario.  ``--serve N`` then serves N synthetic decision
+requests from the best lane's trained policy through the batched serving
+control plane (``serve/control.py``, ``launch/serve_control.py``), every
+training lane's scenario registered as a cluster.
 
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
       --fleet 8 --offline 2000 --epochs 300
@@ -17,6 +20,8 @@ that lane's scenario.
       --agent model_based --scenario one_slow_machine --fleet 8
   PYTHONPATH=src python -m repro_torch.launch.drl_control --device cpu \\
       --app cq_small --fleet 2 --offline 50 --offline-updates 5 --epochs 5
+  PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
+      --fleet 8 --scenario mixed --serve 256
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises."""
@@ -28,10 +33,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import agent_names, make_agent, run_online_fleet
+from repro_torch.core import (agent_names, convert, make_agent,
+                              run_online_fleet)
 from repro_torch.core import ddpg as ddpg_lib
 from repro_torch.device import resolve_device
-from repro_torch.dsdps import SchedulingEnv, apps, scenarios
+from repro_torch.dsdps import SchedulingEnv, apps, lane_params, scenarios
 from repro_torch.dsdps.apps import default_workload
 
 
@@ -102,6 +108,38 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
                 lane_epochs_per_s=fleet * epochs / seconds["online"])
 
 
+def serve_trained(res: dict, n_requests: int, seed: int = 0) -> dict:
+    """Serve ``n_requests`` synthetic decisions from ``run``'s result: the
+    best lane's trained policy answers placement requests, each training
+    lane's scenario is a registered cluster, and the rate_control /
+    auto_tune planes ride along.  Returns the service, the served requests
+    and the per-kind latency stats."""
+    from repro_torch.launch.serve_control import (build_service,
+                                                  synthetic_requests)
+    env, agent, states, best = (res["env"], res["agent"], res["states"],
+                                res["best"])
+    env_params = res["env_params"]
+    if isinstance(states, torch.Tensor):
+        best_state = states[best:best + 1].clone()
+    else:
+        best_state = convert.ddpg_state_from_numpy(
+            convert.lane_arrays(convert.ddpg_state_to_numpy(states), best),
+            env.device)
+    svc = build_service(env, seed=seed, n_slots=min(8, n_requests),
+                        placement_agent=agent, placement_state=best_state)
+    for f in range(len(res["finals"])):
+        svc.register_cluster(
+            f"lane-{f}",
+            lane_params(env_params, env.default_params(), f)
+            if env_params is not None else None)
+    for r in synthetic_requests(env, svc, n_requests, seed=seed):
+        svc.submit(r)
+    served = svc.run()
+    if len(served) != n_requests:
+        raise RuntimeError(f"served {len(served)} of {n_requests} requests")
+    return dict(service=svc, served=served, stats=svc.decision_stats())
+
+
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--app", default="cq_small", choices=list(apps.ALL_APPS))
@@ -126,9 +164,21 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch path)")
+    ap.add_argument("--serve", type=int, default=0, metavar="N",
+                    help="after training, serve N synthetic decision "
+                         "requests from the best lane's trained policy "
+                         "through the batched serving control plane — "
+                         "every training lane's scenario becomes a "
+                         "registered cluster (repro_torch.serve.control)")
     args = ap.parse_args(argv)
     if args.fleet < 1:
         ap.error("--fleet must be >= 1")
+    if args.serve < 0:
+        ap.error("--serve must be >= 0")
+    if args.serve and args.agent not in ("ddpg", "round_robin"):
+        ap.error(f"--serve needs an agent that decides from (s_vec, "
+                 f"cluster params) alone; {args.agent}'s select reads the "
+                 f"live EnvState (see docs/serving.md)")
     scen = f" ({args.scenario} scenario fleet)" if args.scenario else ""
     pre = (f"{args.offline} offline samples, {args.offline_updates} offline "
            f"updates, " if args.agent == "ddpg" else "")
@@ -148,6 +198,14 @@ def main(argv: list[str] | None = None) -> dict:
           f"{1 - finals[best] / rrs[best]:.1%} best")
     print("best assignment (executor -> machine):",
           res["history"].final_assignment[best].argmax(-1).tolist())
+    if args.serve:
+        print(f"\nserving {args.serve} decision requests from the trained "
+              f"policy across {args.fleet} cluster(s) ...")
+        res["serve"] = serve_trained(res, args.serve, seed=args.seed)
+        for kind, stats in res["serve"]["stats"].items():
+            print(f"  {kind:13s} n={stats['n']:4d}  "
+                  f"p50 {stats['p50_ms']:8.3f} ms  "
+                  f"p99 {stats['p99_ms']:8.3f} ms")
     return res
 
 

@@ -1,5 +1,12 @@
-"""LM token serving: the static-batch :class:`~repro_torch.serve.engine.Engine`.
-The continuous batcher waits (ROADMAP A8)."""
+"""Serving: the scheduling-decision control plane
+(:mod:`repro_torch.serve.control`) and LM token serving, the static-batch
+:class:`~repro_torch.serve.engine.Engine`.  The continuous batcher waits
+(ROADMAP A8)."""
+from repro_torch.serve.control import (ControlPlane, ControlService,
+                                       DecisionRequest, latency_stats,
+                                       nearest_rank_percentile)
 from repro_torch.serve.engine import Engine, SamplingParams, sample_token
 
-__all__ = ["Engine", "SamplingParams", "sample_token"]
+__all__ = ["ControlPlane", "ControlService", "DecisionRequest", "Engine",
+           "SamplingParams", "latency_stats", "nearest_rank_percentile",
+           "sample_token"]

@@ -145,6 +145,18 @@ FLASH_CASES = [
     (3, 37, 4, 2, 128, False, torch.bfloat16),
     (1, 1, 4, 2, 128, True, torch.bfloat16),      # one row
     (1, 1, 4, 2, 16, False, torch.bfloat16),
+    # hd 96 on both routes (phi-3-vision's 3072/32), and hd 8 and 40, which
+    # the wrapper zero-pads to 16 and 64
+    (2, 256, 8, 2, 96, True, torch.float32),
+    (2, 200, 4, 2, 96, False, torch.float32),
+    (2, 200, 4, 2, 8, True, torch.float32),
+    (2, 128, 4, 1, 40, False, torch.float32),
+    (2, 256, 8, 2, 96, True, torch.bfloat16),
+    (2, 200, 4, 1, 96, False, torch.bfloat16),
+    (3, 37, 4, 2, 96, True, torch.bfloat16),
+    (2, 200, 4, 2, 8, True, torch.bfloat16),
+    (2, 128, 4, 2, 40, False, torch.bfloat16),
+    (1, 1, 4, 2, 40, True, torch.bfloat16),
 ]
 
 
@@ -189,17 +201,27 @@ def test_flash_bf16_kernel_reads_strided_views(cuda_device):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
-def test_flash_bf16_wrapper_refuses_what_tma_cannot_load(cuda_device):
-    flat = torch.zeros(1 + 2 * 64 * 4 * 64, device=cuda_device, dtype=torch.bfloat16)
+def test_flash_bf16_wrapper_stages_what_tma_cannot_load(cuda_device):
+    """TMA is never handed a layout it cannot load: a base 2 bytes past
+    alignment, or an h stride of 20 elements (40 bytes), is copied into a
+    fresh contiguous allocation, and the bf16 kernel runs on the copy."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    flat = torch.randn(1 + 2 * 64 * 4 * 64, generator=g,
+                       device=cuda_device).bfloat16()
     shifted = flat[1:].view(2, 64, 4, 64)             # base 2 bytes past alignment
-    ok = torch.zeros(2, 64, 4, 64, device=cuda_device, dtype=torch.bfloat16)
-    before = fa_ops.LAUNCHES
-    with pytest.raises(ValueError, match="k starts at an address"):
-        fa_ops.flash_attention(ok, shifted, ok)
-    padded = torch.zeros(2, 64, 4, 20, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="v has strides"):
-        fa_ops.flash_attention(ok[..., :16], ok[..., :16], padded[..., :16])
-    assert fa_ops.LAUNCHES == before
+    ok = torch.randn(2, 64, 4, 64, generator=g, device=cuda_device).bfloat16()
+    wide = torch.randn(2, 64, 4, 20, generator=g, device=cuda_device).bfloat16()
+    rtol, atol = FLASH_TOLS[torch.bfloat16]
+    for q, k, v, staged in ((ok, shifted, ok, 1),
+                            (ok[..., :16], ok[..., :16], wide[..., :16], 1),
+                            (shifted[..., :16], shifted[..., :16], wide[..., 4:], 3)):
+        before = (fa_ops.LAUNCHES_BF16, fa_ops.STAGED_COPIES)
+        got = fa_ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (fa_ops.LAUNCHES_BF16, fa_ops.STAGED_COPIES) == (
+            before[0] + 1, before[1] + staged)
+        want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 def test_flash_routes_count_their_own_launches(cuda_device):
@@ -216,9 +238,34 @@ def test_flash_routes_count_their_own_launches(cuda_device):
 
 
 def test_flash_wrapper_refuses_head_dims_the_kernel_lacks(cuda_device):
-    q = torch.zeros(1, 8, 2, 48, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim"):
+    """Up to 128 every head_dim runs (padded where not native); above, no
+    config of either package goes, and the wrapper raises."""
+    q = torch.zeros(1, 8, 2, 136, device=cuda_device)
+    before = fa_ops.LAUNCHES
+    with pytest.raises(ValueError, match="head_dim up to 128"):
         fa_ops.flash_attention(q, q, q)
+    assert fa_ops.LAUNCHES == before
+
+
+@pytest.mark.parametrize("hd,native", [(1, 16), (8, 16), (40, 64), (48, 64),
+                                       (80, 96), (96, 96), (100, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_pads_head_dims_between_native_ones(cuda_device, hd, native, dtype):
+    """One launch a call; a head_dim that is not native is zero-padded to
+    the next one (counted), scaled by 1/sqrt of the true head_dim, and
+    sliced back to a contiguous [B, S, H, hd]."""
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+    q, k, v = (torch.randn(2, 130, h, hd, generator=g, device=cuda_device).to(dtype)
+               for h in (4, 2, 2))
+    before = (fa_ops.LAUNCHES, fa_ops.LAUNCHES_PADDED, fa_ops.STAGED_COPIES)
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_PADDED, fa_ops.STAGED_COPIES) == (
+        before[0] + 1, before[1] + (hd != native), before[2])
+    assert got.shape == q.shape and got.is_contiguous() and got.dtype == dtype
+    rtol, atol = FLASH_TOLS[dtype]
+    torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v).float(),
+                               atol=atol, rtol=rtol)
 
 
 # -- wkv6: tests/test_kernels.py's cases, a carried state, one step, bf16,
@@ -376,3 +423,27 @@ def test_model_based_select_at_cq_large_within_memory(cuda_device):
     chosen = (cand == X.cpu()[:, None]).flatten(2).all(-1)
     got = torch.where(chosen, preds, torch.inf).amin(-1)
     torch.testing.assert_close(got, preds.amin(-1), rtol=1e-5, atol=0)
+
+
+# -- the serving control plane on the card: the same weights, clusters and
+# requests as on the CPU give the same decisions, and every placement step
+# is one K-NN launch over all its slots
+def test_serving_plane_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch.launch import serve_control as sc
+    from repro_torch.launch.drl_control import build_env
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        env = build_env("cq_small", dev)
+        svc = sc.build_service(env, n_slots=4, seed=0)
+        sc.register_perturbed(svc, env, 5, seed=0)
+        before = ops.LAUNCHES
+        res = sc.serve(svc, sc.synthetic_requests(env, svc, 48, seed=0))
+        torch.cuda.synchronize()
+        out[str(dev)] = (res, ops.LAUNCHES - before, svc)
+    (cpu, _, _), (card, launches, svc) = out["cpu"], out[str(cuda_device)]
+    assert launches == svc.planes["placement"].steps == 4
+    want = {r.rid: r.action for r in cpu["served"]}
+    assert len(card["served"]) == 48
+    for r in card["served"]:
+        np.testing.assert_array_equal(r.action, want[r.rid])

@@ -53,6 +53,13 @@ def _qkv(seed, B, S, H, Hkv, hd, dtype):
     (128, 4, 1, 64, True, "float32"),      # MQA
     (128, 4, 2, 64, False, "float32"),     # bidirectional (encoder)
     (128, 4, 2, 64, True, "bfloat16"),     # bf16 inputs
+    # head dims the card pads (8 -> 16, 40 -> 64) or runs natively (96,
+    # phi-3-vision's 3072/32): the function at the true head dim
+    (128, 4, 2, 8, True, "float32"),
+    (128, 4, 1, 40, False, "float32"),
+    (128, 4, 2, 96, True, "float32"),
+    (128, 4, 2, 40, True, "bfloat16"),
+    (128, 4, 2, 96, False, "bfloat16"),
 ])
 def test_flash_plain_version_matches_pallas_kernel_and_oracle(S, H, Hkv, hd,
                                                               causal, dtype):
