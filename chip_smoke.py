@@ -9,8 +9,8 @@ PyTorch version on the card: the K-NN reduction (NaN, ±inf and views off
 the 16-byte grid among its cases; its times beside a launch floor, its
 eager call's host time step by step), both flash-attention routes
 (bfloat16 on the tensor cores, float32 on the CUDA cores; every head_dim
-up to 128, some zero-padded, and layouts TMA cannot load, staged) and the
-WKV6 recurrence.  Then it drives the port's main paths:
+up to 256, some zero-padded, bf16 above 128 on the CUDA-core kernel, and
+layouts TMA cannot load, staged) and the WKV6 recurrence.  Then it drives the port's main paths:
 
 * the DSDPS control loop: the K-NN beam and a short loop on the card
   against the CPU, then ``repro_torch.launch.drl_control.run`` on
@@ -39,6 +39,15 @@ WKV6 recurrence.  Then it drives the port's main paths:
   perturbed clusters and 256 requests, the card's decisions held to the
   CPU's, every placement step through one K-NN launch and every plane step
   waiting on the device once.
+* the replay-free streaming agents (Stream Q(λ), Stream AC(λ)) and the
+  graph policy: card against CPU on the same draws, then each through
+  ``drl_control.run`` at ``cq_large`` with 8 lanes under
+  ``one_slow_machine`` (the graph policy on the topology's static
+  2,475-edge graph), profiled;
+* structural fleets: the graph policy under ``dag_shapes`` (a DAG per
+  lane) card against CPU and lane against single run, each padded
+  topology's latency against its plain env, then an envelope over the
+  paper's three applications (N=100, E=2475) with 6 lanes, profiled.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -81,6 +90,12 @@ DECODE = dict(windows=4, steps=64)
 # the control-serving path: three decision kinds, 8 slots a plane, 16
 # perturbed clusters, 256 requests, at the paper's large-scale setup
 SERVE = dict(app="cq_large", clusters=16, requests=256, slots=8, seed=0)
+# the streaming agents at the paper's large-scale setup, each lane slowing
+# its own machine; structural fleets over the paper's three applications,
+# two lanes a DAG
+STREAMING = dict(app="cq_large", fleet=8, epochs=50, scenario="one_slow_machine")
+STREAMING_AGENTS = ("stream_q", "stream_ac", "graph_policy")
+STRUCTURAL = dict(apps=("cq_large", "log_stream", "word_count"), fleet=6, epochs=50)
 
 
 def log(msg: str) -> None:
@@ -323,7 +338,7 @@ def numpy_draws(rng, F: int, T: int, env, batch: int) -> list:
     from repro_torch.core import EpochDraws
 
     N, M, S = env.N, env.M, env.workload.num_spouts
-    return [EpochDraws(
+    draws = [dict(
         explore_add=torch.as_tensor(rng.uniform(size=F) < 0.7),
         explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
         meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
@@ -331,6 +346,9 @@ def numpy_draws(rng, F: int, T: int, env, batch: int) -> list:
         replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, batch))),
         explore_move=torch.as_tensor(rng.integers(0, N * M, F)),
     ) for t in range(T)]
+    # the Gumbel draws (Stream AC(λ), graph_policy) after all the others
+    return [EpochDraws(**d, explore_gumbel=torch.as_tensor(
+        rng.gumbel(size=(F, N, M)).astype(np.float32))) for d in draws]
 
 
 def check_loop_vs_cpu(dev) -> None:
@@ -640,6 +658,248 @@ def run_serving(dev, card: str) -> int:
     return launches
 
 
+def streaming_io(name: str):
+    """(state to numpy, numpy to state) of a streaming agent or the graph
+    policy: a fleet made once is carried to the card and to the CPU."""
+    from repro_torch.core import convert
+
+    return {"stream_q": (convert.stream_q_state_to_numpy,
+                         convert.stream_q_state_from_numpy),
+            "stream_ac": (convert.stream_ac_state_to_numpy,
+                          convert.stream_ac_state_from_numpy),
+            "graph_policy": (convert.graph_policy_state_to_numpy,
+                             convert.graph_policy_state_from_numpy)}[name]
+
+
+def profile_fleet(env, agent, states, params, epochs: int = 5) -> dict:
+    """Wall ms per online epoch without and with ``torch.profiler`` (after
+    two warm epochs), and from the trace the device's busy ms, kernels per
+    epoch and the six kernels that take the most device time (phases 7,
+    18, 19)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import run_online_fleet
+
+    gen = torch.Generator(device=env.device).manual_seed(3)
+    run_online_fleet(gen, env, agent, states, 2, env_params=params)      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_online_fleet(gen, env, agent, states, epochs, env_params=params)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / epochs
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_online_fleet(gen, env, agent, states, epochs, env_params=params)
+        torch.cuda.synchronize()
+        wall_prof = (time.perf_counter() - t0) / epochs
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels) / epochs
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return dict(wall_ms=wall * 1e3, wall_prof_ms=wall_prof * 1e3,
+                busy_ms=busy_us / 1e3, kernels=len(kernels) / epochs,
+                busy_share=busy_us / (wall * 1e6),
+                top=sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+
+
+def log_fleet_run(what: str, res: dict, prof: dict) -> None:
+    finals, rrs = res["finals"], res["rrs"]
+    log(f"  {what}: wall s " + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+        + f"; online {res['lane_epochs_per_s']:.1f} lane-epochs/s; epoch "
+        f"{prof['wall_ms']:.3f} ms unprofiled ({prof['wall_prof_ms']:.3f} profiled), "
+        f"{prof['kernels']:.0f} kernels/epoch, device busy {prof['busy_ms']:.3f} "
+        f"ms/epoch = {prof['busy_share']:.1%}")
+    log(f"    final latency {finals.mean():.4f} ± {finals.std():.4f} ms vs each "
+        f"lane's round-robin {rrs.mean():.4f} ms (improvement "
+        f"{1 - finals.mean() / rrs.mean():.2%} mean, "
+        f"{1 - finals[res['best']] / rrs[res['best']]:.2%} best lane); per lane "
+        "final/round-robin ms: " + ", ".join(f"{a:.4f}/{b:.4f}"
+                                             for a, b in zip(finals, rrs)))
+
+
+def check_fleet_result(what: str, res: dict, F: int, T: int) -> None:
+    """Finite traces of the expected shape, one-hot final assignments on the
+    real executors, every lane scored under its own params."""
+    from repro_torch.dsdps import lane_params
+
+    hist, env, params = res["history"], res["env"], res["env_params"]
+    if not (np.isfinite(hist.rewards).all() and np.isfinite(hist.latencies).all()
+            and hist.rewards.shape == (F, T) and (hist.latencies > 0).all()):
+        raise AssertionError(f"{what}: bad traces")
+    if not (np.isfinite(res["finals"]).all() and (res["finals"] > 0).all()):
+        raise AssertionError(f"{what}: non-finite final latencies")
+    rr = env.round_robin_assignment()
+    for f in range(F):
+        lane_p = lane_params(params, env.default_params(), f)
+        rows = hist.final_assignment[f].sum(-1)
+        want = lane_p.node_mask.cpu().numpy() if hasattr(lane_p, "node_mask") \
+            else np.ones(env.N)
+        if not np.array_equal(rows, want):
+            raise AssertionError(f"{what}: lane {f}'s final assignment is not "
+                                 "one-hot on its real executors")
+        own = float(env.evaluate(rr, lane_p.base_rates, params=lane_p))
+        if not abs(res["rrs"][f] / own - 1) <= 1e-6:
+            raise AssertionError(f"{what}: lane {f}'s round-robin score "
+                                 f"{res['rrs'][f]} is not its own {own}")
+
+
+def check_streaming_vs_cpu(dev) -> None:
+    """Phase 18, first part: Stream Q(λ), Stream AC(λ) and the graph policy
+    at cq_small, F=2, T=5, on the card and on the CPU from the same states
+    (made on the CPU) and the same numpy draws: moves exact, latencies
+    within 1e-5."""
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.dsdps import SchedulingEnv, apps
+    from repro_torch.dsdps.apps import default_workload
+
+    F, T = 2, 5
+    topo = apps.continuous_queries("small")
+    cpu_env = SchedulingEnv(topo, default_workload(topo), device="cpu")
+    rng = np.random.default_rng(18)
+    for name in STREAMING_AGENTS:
+        dump, load = streaming_io(name)
+        init = dump(make_agent(name, cpu_env).init_fleet(
+            torch.Generator().manual_seed(18), F, "cpu"))
+        draws = numpy_draws(rng, F, T, cpu_env, 1)
+        hists = {}
+        for where in ("cpu", dev):
+            env = SchedulingEnv(topo, default_workload(topo), device=where)
+            _, hists[str(where)] = run_online_fleet(
+                0, env, make_agent(name, env), load(init, where), T,
+                draws=[d.to(where) for d in draws])
+        cpu, gpu = hists["cpu"], hists[str(dev)]
+        np.testing.assert_array_equal(gpu.moved, cpu.moved)
+        np.testing.assert_array_equal(gpu.final_assignment, cpu.final_assignment)
+        np.testing.assert_allclose(gpu.latencies, cpu.latencies, rtol=1e-5)
+        np.testing.assert_allclose(gpu.rewards, cpu.rewards, rtol=1e-5)
+        log(f"phase 18 {name} cq_small F={F} T={T}: card == CPU (moved "
+            f"{cpu.moved.sum()} in all, exact; final assignments exact; latencies "
+            f"max rel diff {np.abs(gpu.latencies / cpu.latencies - 1).max():.3g}, "
+            "tol 1e-5)")
+
+
+def run_streaming(dev, card: str) -> dict:
+    """Phase 18: the launcher's ``run`` at cq_large, fleet 8, 50 epochs,
+    under one_slow_machine, for each streaming agent and the graph policy
+    (on the topology's static graph); then 5 more epochs under the
+    profiler.  No kernel of the port lies on these paths."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.knn_topk import ops as knn_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.launch import drl_control
+
+    out = {}
+    F, T = STREAMING["fleet"], STREAMING["epochs"]
+    for agent in STREAMING_AGENTS:
+        knn_ops.LAUNCHES = fa_ops.LAUNCHES = wkv_ops.LAUNCHES = 0
+        res = drl_control.run(device=dev, agent=agent, **STREAMING)
+        torch.cuda.synchronize()
+        env = res["env"]
+        check_fleet_result(f"phase 18 {agent}", res, F, T)
+        if knn_ops.LAUNCHES or fa_ops.LAUNCHES or wkv_ops.LAUNCHES:
+            raise AssertionError(f"{agent}: a kernel of the port ran on its path")
+        edges = ""
+        if agent == "graph_policy":
+            n_edges = len(res["agent"].cfg.static_edge_src)
+            if n_edges != 2475:
+                raise AssertionError(f"graph_policy's static graph has {n_edges} edges")
+            edges = f", static graph of {n_edges} edges"
+        log(f"phase 18 {agent} {STREAMING['app']} N={env.N} M={env.M} fleet={F} "
+            f"T={T} under {STREAMING['scenario']} ({card}{edges})")
+        prof = profile_fleet(env, res["agent"], res["states"], res["env_params"])
+        log_fleet_run(agent, res, prof)
+        out[agent] = dict(lane_epochs_per_s=res["lane_epochs_per_s"], **prof)
+    return out
+
+
+def check_structural_vs_cpu(dev) -> None:
+    """Phase 19, first part: the graph policy under dag_shapes on the
+    default envelope (cq_small, diamond, wide_fanout; F=3, T=5).  Card ==
+    CPU on moves; on the card lane f equals a fleet of one under its own
+    DAG (moves exact, latencies within 1e-5); each padded topology's
+    round-robin latency within 1e-5 of its plain env's."""
+    from repro_torch.core import EpochDraws, convert, make_agent, run_online_fleet
+    from repro_torch.dsdps import (SchedulingEnv, StructuralSchedulingEnv, apps,
+                                   lane_params, scenarios)
+    from repro_torch.dsdps.apps import default_workload
+
+    F, T = 3, 5
+    dump, load = streaming_io("graph_policy")
+    cpu_env = StructuralSchedulingEnv(apps.structural_topologies(), device="cpu")
+    init = dump(make_agent("graph_policy", cpu_env).init_fleet(
+        torch.Generator().manual_seed(19), F, "cpu"))
+    draws = numpy_draws(np.random.default_rng(19), F, T, cpu_env, 1)
+    hists, envs = {}, {}
+    for where in ("cpu", dev):
+        env = envs[str(where)] = StructuralSchedulingEnv(apps.structural_topologies(),
+                                                         device=where)
+        params = scenarios.build("dag_shapes", env, F)
+        _, hists[str(where)] = run_online_fleet(
+            0, env, make_agent("graph_policy", env), load(init, where), T,
+            env_params=params, draws=[d.to(where) for d in draws])
+    cpu, gpu = hists["cpu"], hists[str(dev)]
+    np.testing.assert_array_equal(gpu.moved, cpu.moved)
+    np.testing.assert_array_equal(gpu.final_assignment, cpu.final_assignment)
+    np.testing.assert_allclose(gpu.latencies, cpu.latencies, rtol=1e-5)
+    env = envs[str(dev)]
+    params = scenarios.build("dag_shapes", env, F)
+    lane_diff = 0.0
+    for f in range(F):
+        lane_p = lane_params(params, env.default_params(), f)
+        _, one = run_online_fleet(
+            0, env, make_agent("graph_policy", env),
+            load(convert.lane_arrays(init, f), dev), T, env_params=lane_p,
+            draws=[EpochDraws(*(x[f:f + 1].to(dev) for x in d)) for d in draws])
+        np.testing.assert_array_equal(one.moved[0], gpu.moved[f])
+        np.testing.assert_array_equal(one.final_assignment[0], gpu.final_assignment[f])
+        np.testing.assert_allclose(one.latencies[0], gpu.latencies[f], rtol=1e-5)
+        lane_diff = max(lane_diff, float(np.abs(one.latencies[0] / gpu.latencies[f]
+                                                - 1).max()))
+    rr_diff = 0.0
+    for t in env.topologies:
+        plain = SchedulingEnv(t, default_workload(t), device=dev)
+        p = env.params_for(t)
+        got = float(env.evaluate(env.round_robin_assignment(), p.base_rates, params=p))
+        want = float(plain.evaluate(plain.round_robin_assignment(),
+                                    plain.default_params().base_rates))
+        if not abs(got / want - 1) <= 1e-5:
+            raise AssertionError(f"{t.name}: padded round-robin {got} ms, plain {want}")
+        rr_diff = max(rr_diff, abs(got / want - 1))
+    log(f"phase 19 graph_policy dag_shapes {[t.name for t in env.topologies]} "
+        f"(N={env.N}, E={env.envelope.max_edges}) F={F} T={T}: card == CPU (moved "
+        f"{cpu.moved.sum()} in all, exact; latencies max rel diff "
+        f"{np.abs(gpu.latencies / cpu.latencies - 1).max():.3g}); on the card lane "
+        f"== single run (moves exact, latencies max rel diff {lane_diff:.3g}); padded "
+        f"round-robin vs plain env max rel diff {rr_diff:.3g}")
+
+
+def run_structural(dev, card: str) -> dict:
+    """Phase 19: the envelope over the paper's three applications
+    (cq_large, log_stream, word_count: N=100, E=2475, S=10, C=6), the graph
+    policy under dag_shapes with 6 lanes (two a DAG) for 50 epochs through
+    the launcher's ``run``; then 5 epochs under the profiler."""
+    from repro_torch.dsdps import StructuralSchedulingEnv, apps
+    from repro_torch.launch import drl_control
+
+    F, T = STRUCTURAL["fleet"], STRUCTURAL["epochs"]
+    env = StructuralSchedulingEnv([apps.ALL_APPS[a]() for a in STRUCTURAL["apps"]],
+                                  device=dev)
+    e = env.envelope
+    if (e.max_execs, e.max_edges, e.max_spouts, e.max_components) != (100, 2475, 10, 6):
+        raise AssertionError(f"unexpected envelope {e}")
+    res = drl_control.run(app="structural", env=env, agent="graph_policy", fleet=F,
+                          epochs=T, scenario="dag_shapes", device=dev)
+    torch.cuda.synchronize()
+    check_fleet_result("phase 19", res, F, T)
+    log(f"phase 19 graph_policy dag_shapes over {list(STRUCTURAL['apps'])} "
+        f"(N={e.max_execs}, E={e.max_edges}, S={e.max_spouts}, C={e.max_components}) "
+        f"fleet={F} T={T} ({card})")
+    prof = profile_fleet(env, res["agent"], res["states"], res["env_params"])
+    log_fleet_run("graph_policy", res, prof)
+    return dict(lane_epochs_per_s=res["lane_epochs_per_s"], **prof)
+
+
 def time_plane_steps(svc, env, on_card: bool, steps: int = 7) -> dict:
     """Phase 17: each plane's full step (every slot busy) timed alone, the
     median of ``steps``; on the card also the device's busy time and
@@ -709,41 +969,19 @@ def near_tie(cpu_env, cpu_svc, card_req, cpu_req) -> None:
 
 
 def profile_online(res, epochs: int = 5) -> None:
-    """Phase 7: where an online epoch's time goes, on the trained fleet.
+    """Phase 7: where an online epoch's time goes, on the trained fleet:
+    the device's busy share of the wall time, launches per epoch, and the
+    top kernels, from ``epochs`` more epochs (``profile_fleet``)."""
+    from repro_torch.core import make_agent
 
-    Times ``epochs`` more epochs without and with ``torch.profiler``, and
-    reads the kernels' device time from the trace: the device's busy share
-    of the wall time, launches per epoch, and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.core import make_agent, run_online_fleet
-
-    env, states = res["env"], res["states"]
-    agent = make_agent("ddpg", env, k_nn=MAIN["k"])
-    gen = torch.Generator(device=env.device).manual_seed(3)
-    run_online_fleet(gen, env, agent, states, 2)             # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_online_fleet(gen, env, agent, states, epochs)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / epochs
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_online_fleet(gen, env, agent, states, epochs)
-        torch.cuda.synchronize()
-        wall_prof = (time.perf_counter() - t0) / epochs
-    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels) / epochs
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    env = res["env"]
+    p = profile_fleet(env, make_agent("ddpg", env, k_nn=MAIN["k"]), res["states"],
+                      None, epochs)
     log(f"phase 7 online epoch, {MAIN['app']} fleet={MAIN['fleet']}: wall "
-        f"{wall * 1e3:.3f} ms unprofiled, {wall_prof * 1e3:.3f} ms profiled; "
-        f"device busy {busy_us / 1e3:.3f} ms/epoch in "
-        f"{len(kernels) / epochs:.0f} kernels/epoch = "
-        f"{busy_us / (wall * 1e6):.1%} of unprofiled wall")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    for name, us in top:
+        f"{p['wall_ms']:.3f} ms unprofiled, {p['wall_prof_ms']:.3f} ms profiled; "
+        f"device busy {p['busy_ms']:.3f} ms/epoch in {p['kernels']:.0f} "
+        f"kernels/epoch = {p['busy_share']:.1%} of unprofiled wall")
+    for name, us in p["top"]:
         log(f"  {us / epochs:9.1f} us/epoch  {name[:90]}")
 
 
@@ -817,6 +1055,16 @@ def check_flash(dev) -> dict:
              (2, 200, 4, 1, 96, False, torch.bfloat16),
              (2, 200, 4, 2, 8, True, torch.bfloat16),
              (2, 128, 4, 2, 40, False, torch.bfloat16),
+             # hd 192, 256 native on the CUDA-core kernel, 160 padded to
+             # 192; bf16 above 128 runs there too (bf16 in and out)
+             (2, 200, 4, 2, 160, True, torch.float32),
+             (2, 256, 8, 2, 192, False, torch.float32),
+             (2, 256, 4, 1, 256, True, torch.float32),
+             (3, 37, 4, 2, 256, False, torch.float32),
+             (2, 200, 4, 2, 160, False, torch.bfloat16),
+             (2, 256, 8, 2, 192, True, torch.bfloat16),
+             (2, 256, 4, 1, 256, False, torch.bfloat16),
+             (3, 37, 4, 2, 256, True, torch.bfloat16),
              (B, S, H, Hkv, hd, True, torch.bfloat16)]
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -834,12 +1082,17 @@ def check_flash(dev) -> dict:
 
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     inputs = None
+    cores = ops.LAUNCHES_BF16_CUDA_CORES
     for b, s, h, hkv, d, causal, dtype in cases:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dtype)
                    for n in (h, hkv, hkv))
         err = check(q, k, v, causal, f"{(b, s, h, hkv, d)} causal={causal} {dtype}")
         max_err[dtype] = max(max_err[dtype], err)
         inputs = (q, k, v)
+    wide_bf16 = sum(1 for c in cases if c[4] > 128 and c[6] == torch.bfloat16)
+    if ops.LAUNCHES_BF16_CUDA_CORES - cores != wide_bf16:
+        raise AssertionError(f"{ops.LAUNCHES_BF16_CUDA_CORES - cores} bf16 launches on "
+                             f"the CUDA-core kernel, expected {wide_bf16} (hd > 128)")
     # q, k, v as slices of one fused bf16 projection [B, S, H + 2 Hkv, hd]
     qkv = torch.randn(2, 256, 8, 128, generator=gen, device=dev).bfloat16()
     before = ops.LAUNCHES_BF16
@@ -904,10 +1157,11 @@ def check_flash(dev) -> dict:
         f"|kernel - SDPA| max {lib_err:.3g}")
     del q, k, v, inputs
     phi3 = time_phi3_prefill(dev, gen, sdpa)
+    wide = time_wide_heads(dev, gen, sdpa)
     f32["bound_by"] = "operations"
     return dict(max_abs_err=max_err[torch.bfloat16], timings=t,
                 f32=dict(max_abs_err=max_err[torch.float32], timings=f32),
-                phi3=phi3)
+                phi3=phi3, wide=wide)
 
 
 def time_phi3_prefill(dev, gen, sdpa) -> dict:
@@ -939,6 +1193,49 @@ def time_phi3_prefill(dev, gen, sdpa) -> dict:
         f"({t['bound_by']}: {flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); "
         f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}")
     return dict(max_abs_err=err, timings=t)
+
+
+def time_wide_heads(dev, gen, sdpa) -> dict:
+    """Phase 9, last part: head dim 256 at q, k, v [4, 2048, 32, 256],
+    causal, on the CUDA-core kernel in float32 and in bf16: kernel, plain,
+    SDPA and bound (float32 at the CUDA cores' 67 TFLOP/s; bf16 at the
+    tensor cores' 989, what the card could do for the same bf16 work)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref, ops
+
+    B, S, H, hd = LM["batch"], LM["prefill_len"], 32, 256
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    out = {}
+    for dtype, peak in ((torch.float32, F32_OPS_PER_S),
+                        (torch.bfloat16, BF16_TC_OPS_PER_S)):
+        q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        before = (ops.LAUNCHES_PADDED, ops.STAGED_COPIES, ops.LAUNCHES_BF16_CUDA_CORES)
+        err = float((ops.flash_attention(q, k, v).float()
+                     - flash_attention_ref(q, k, v).float()).abs().max())
+        after = (ops.LAUNCHES_PADDED, ops.STAGED_COPIES, ops.LAUNCHES_BF16_CUDA_CORES)
+        if after != (before[0], before[1], before[2] + (dtype == torch.bfloat16)):
+            raise AssertionError(f"hd 256 {dtype}: padded/staged/CUDA-core counts "
+                                 f"{before} -> {after}")
+        qkv = (q, k, v)
+        t = dict(ms=eager_ms(lambda a=qkv: ops.flash_attention(*a), iters=5, warmup=1),
+                 plain_ms=eager_ms(lambda a=qkv: flash_attention_ref(*a), iters=3,
+                                   warmup=1),
+                 library_ms=eager_ms(lambda a=qkv: sdpa(*a), iters=5, warmup=1))
+        bytes_moved = 4 * B * S * H * hd * q.element_size()
+        t_ops, t_bytes = flops / peak, bytes_moved / HBM_BYTES_PER_S
+        t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        t["max_abs_err"] = err
+        log(f"  [{B},{S},{H},{hd}] q, k, v {dtype} causal, CUDA-core kernel "
+            f"(flash_attention.cu), ms per call: kernel {t['ms']:.6f}  plain "
+            f"{t['plain_ms']:.6f}  library (SDPA) {t['library_ms']:.6f}  bound "
+            f"{t['bound_ms']:.6f} ({t['bound_by']}: {flops / 1e9:.1f} GFLOP at "
+            f"{peak / 1e12:.0f} TFLOP/s, {bytes_moved / 1e6:.1f} MB); "
+            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}")
+        out[str(dtype).removeprefix("torch.")] = t
+        del q, k, v, qkv
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_wkv(dev) -> dict:
@@ -1111,6 +1408,7 @@ def run_lm_path(dev, arch: str) -> dict:
     fa_ops.LAUNCHES = wkv_ops.LAUNCHES = knn_ops.LAUNCHES = 0
     fa_ops.LAUNCHES_BF16 = fa_ops.LAUNCHES_F32 = 0
     fa_ops.LAUNCHES_PADDED = fa_ops.STAGED_COPIES = 0
+    fa_ops.LAUNCHES_BF16_CUDA_CORES = 0
     t0 = time.perf_counter()
     logits, kv = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
@@ -1130,6 +1428,9 @@ def run_lm_path(dev, arch: str) -> dict:
             "fused-projection views)")
         if fa_ops.LAUNCHES_PADDED or fa_ops.STAGED_COPIES:
             raise AssertionError(f"{arch} prefill padded or staged its flash inputs")
+        if fa_ops.LAUNCHES_BF16_CUDA_CORES:
+            raise AssertionError(f"{arch} prefill left the wgmma route "
+                                 f"{fa_ops.LAUNCHES_BF16_CUDA_CORES} times")
     if logits.shape != (B, cfg.vocab_size) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"{arch} prefill logits: shape {tuple(logits.shape)} "
                              "or non-finite values")
@@ -1364,6 +1665,14 @@ def main() -> int:
     t0 = time.perf_counter()
     run_serving(dev, card)
     log(f"phase 17 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_streaming_vs_cpu(dev)
+    run_streaming(dev, card)
+    log(f"phase 18 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_structural_vs_cpu(dev)
+    run_structural(dev, card)
+    log(f"phase 19 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,

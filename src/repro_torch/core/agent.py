@@ -83,9 +83,11 @@ def run_online_fleet(
     Every lane starts from ``env.reset``.  ``env_params`` is one scenario
     for every lane or a lane-stacked fleet of scenarios
     (``dsdps.scenarios.build``), lane ``f`` reset and stepped under its
-    own.  ``draws`` holds one :class:`EpochDraws` per epoch; without it
-    every draw comes from the generator (or a generator on ``env.device``
-    seeded with the int).  ``states`` is updated in place.  Returns
+    own; on a ``StructuralSchedulingEnv`` a lane-stacked
+    ``GraphEnvParams`` (``dag_shapes``) gives each lane its own DAG.
+    ``draws`` holds one :class:`EpochDraws` per epoch; without it every
+    draw comes from the generator (or a generator on ``env.device`` seeded
+    with the int).  ``states`` is updated in place.  Returns
     (states, History)."""
     T = int(T)
     if T < 1:

@@ -15,8 +15,9 @@ Every tensor carries the fleet axis ``[F]``.  ``draws`` is one epoch's
 ``env_params`` is one EnvParams shared by every lane or a lane-stacked
 scenario fleet (``dsdps.scenarios``); learning agents ignore it, the
 model-based baseline profiles and searches each lane's own cluster with
-it.  Registered: ``ddpg``, ``dqn``, ``round_robin`` and ``model_based``,
-which step an env, and the serving-only decision policies ``rate_control``
+it.  Registered: ``ddpg``, ``dqn``, ``graph_policy``, ``model_based``,
+``round_robin``, ``stream_ac`` and ``stream_q``, which step an env, and
+the serving-only decision policies ``rate_control``
 and ``auto_tune`` (``core/control_policies.py``), whose actions are not
 placements and never reach ``env.step``: :func:`agent_names` and the fleet
 runner leave those out, and the serving control plane
@@ -31,12 +32,18 @@ import torch
 class EpochDraws(NamedTuple):
     """Every random draw of one decision epoch, for ``F`` lanes."""
 
-    explore_add: torch.Tensor    # [F] bool — the ε coin (DDPG and DQN)
+    explore_add: torch.Tensor    # [F] bool — the ε coin (DDPG, DQN, Stream
+                                 # Q(λ), graph_policy)
     explore_noise: torch.Tensor  # [F, N, M] uniform [0, 1) (DDPG)
-    explore_move: torch.Tensor   # [F] int in [0, N·M) — DQN's random move
+    explore_move: torch.Tensor   # [F] int in [0, N·M) — the random move (DQN,
+                                 # Stream Q(λ))
     meas_z: torch.Tensor         # [F, 5] standard normal (× noise_sigma)
     rate_z: torch.Tensor         # [F, S] standard normal (× rate jitter)
     replay_idx: torch.Tensor     # [F, U, B] int
+    # [F, N, M] standard Gumbel: a categorical draw is argmax(gumbel +
+    # logits), as jax.random.categorical computes it (Stream AC(λ)'s
+    # per-row sample; graph_policy's random valid move over the flat N·M)
+    explore_gumbel: torch.Tensor
 
     def to(self, device) -> "EpochDraws":
         return EpochDraws(*(x.to(device) for x in self))
@@ -123,8 +130,11 @@ def _load_builtins() -> None:
     import repro_torch.core.control_policies  # noqa: F401
     import repro_torch.core.ddpg         # noqa: F401
     import repro_torch.core.dqn          # noqa: F401
+    import repro_torch.core.graph_policy  # noqa: F401
     import repro_torch.core.model_based  # noqa: F401
     import repro_torch.core.round_robin  # noqa: F401
+    import repro_torch.core.stream_ac    # noqa: F401
+    import repro_torch.core.stream_q     # noqa: F401
 
 
 def agent_names() -> tuple[str, ...]:

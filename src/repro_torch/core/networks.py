@@ -67,6 +67,30 @@ def init_mlp(sizes: Sequence[int], fleet: int,
     return FleetMLP(ws, bs)
 
 
+def sparse_init(sizes: Sequence[int], fleet: int, sparsity: float = 0.9,
+                gen: torch.Generator | None = None,
+                device: str | torch.device | None = None) -> FleetMLP:
+    """Sparse LeCun-uniform init for the streaming agents (arXiv
+    2410.14606), one net per lane: each layer draws U(−1/√fan_in,
+    1/√fan_in) and zeroes exactly ``round(sparsity · fan_in)`` incoming
+    weights of every output unit (the lowest ranks of a second uniform
+    draw down each column).  Biases are zero; the hidden layers apply tanh,
+    as every ``FleetMLP`` does."""
+    if not 0.0 <= sparsity < 1.0:
+        raise ValueError(f"sparsity must be in [0, 1); got {sparsity}")
+    device = resolve_device(device)
+    ws, bs = [], []
+    for din, dout in zip(sizes[:-1], sizes[1:]):
+        lim = 1.0 / math.sqrt(din)
+        w = torch.rand(fleet, din, dout, generator=gen, device=device) * (2 * lim) - lim
+        n_zero = int(round(sparsity * din))
+        u = torch.rand(fleet, din, dout, generator=gen, device=device)
+        ranks = u.argsort(dim=1).argsort(dim=1)
+        ws.append(torch.where(ranks < n_zero, 0.0, w))
+        bs.append(torch.zeros(fleet, dout, device=device))
+    return FleetMLP(ws, bs)
+
+
 def init_actor(state_dim: int, action_dim: int, fleet: int,
                gen: torch.Generator | None = None,
                device: str | torch.device | None = None) -> FleetMLP:

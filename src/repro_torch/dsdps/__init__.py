@@ -1,4 +1,4 @@
-from repro_torch.dsdps.topology import Component, Edge, Topology
+from repro_torch.dsdps.topology import Component, Edge, GraphObs, Topology
 from repro_torch.dsdps.cluster import ClusterSpec, PAPER_CLUSTER
 from repro_torch.dsdps.simulator import (EnvParams, SimParams,
                                          average_tuple_time_from_params,
@@ -13,15 +13,21 @@ from repro_torch.dsdps.simulator import (EnvParams, SimParams,
                                          with_speed, with_straggler)
 from repro_torch.dsdps.workload import NEVER_SHIFT, WorkloadProcess, step_rates
 from repro_torch.dsdps.env import EnvState, SchedulingEnv, StepOut
+from repro_torch.dsdps.structural import (Envelope, GraphEnvParams,
+                                          StructuralSchedulingEnv,
+                                          graph_latency_ms,
+                                          measured_graph_latency_ms)
 from repro_torch.dsdps import apps, scenarios
 
 __all__ = [
-    "Component", "Edge", "Topology", "ClusterSpec", "PAPER_CLUSTER",
+    "Component", "Edge", "GraphObs", "Topology", "ClusterSpec", "PAPER_CLUSTER",
     "SimParams", "EnvParams", "average_tuple_time_ms",
     "average_tuple_time_from_params", "build_sim_params",
     "measured_latency_from_params", "to_env_params", "scale_rates",
     "with_noise_sigma", "with_speed", "with_straggler", "perturb_service",
     "perturb_rates", "stack_env_params", "params_in_axes", "params_stacked",
     "lane_params", "NEVER_SHIFT", "WorkloadProcess", "step_rates",
-    "EnvState", "SchedulingEnv", "StepOut", "apps", "scenarios",
+    "EnvState", "SchedulingEnv", "StepOut", "Envelope", "GraphEnvParams",
+    "StructuralSchedulingEnv", "graph_latency_ms",
+    "measured_graph_latency_ms", "apps", "scenarios",
 ]

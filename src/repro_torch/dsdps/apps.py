@@ -158,3 +158,13 @@ ALL_APPS = {
     "diamond": diamond,
     "wide_fanout": wide_fanout,
 }
+
+
+# the default structural-fleet topology set: chain (cq_small), diamond and
+# wide fan-out, three DAG shapes padded into one envelope
+# (dsdps/structural.py and the dag_shapes scenario)
+STRUCTURAL_APPS = ("cq_small", "diamond", "wide_fanout")
+
+
+def structural_topologies() -> list[Topology]:
+    return [ALL_APPS[name]() for name in STRUCTURAL_APPS]

@@ -3,7 +3,10 @@
 Port of the scheduling half of ``repro/dsdps/scenarios.py``.  Each builder
 returns one EnvParams per lane; :func:`build` stacks them on a leading
 ``[fleet]`` axis, and ``core.agent.run_online_fleet(...,
-env_params=...)`` steps every lane under its own scenario:
+env_params=...)`` steps every lane under its own scenario.  The numeric
+builders work on ``structural.GraphEnvParams`` alike; ``dag_shapes``
+(:data:`STRUCTURAL_SCENARIOS`) varies the topology itself per lane and
+needs a ``StructuralSchedulingEnv``:
 
     from repro_torch.dsdps import scenarios
     params = scenarios.build("one_slow_machine", env, fleet=8)
@@ -97,6 +100,20 @@ def mixed(env, fleet: int, seed: int = 0,
     return lanes
 
 
+def dag_shapes(env, fleet: int) -> list:
+    """Structural fleet: lane i runs topology ``i % len(env.topologies)``
+    padded into the env's envelope (chain, diamond, wide fan-out, ...).
+    Needs a ``StructuralSchedulingEnv``: a plain ``SchedulingEnv`` fixes one
+    topology for all its lanes."""
+    if not hasattr(env, "params_for"):
+        raise TypeError(
+            "scenario 'dag_shapes' varies topology structure per lane and "
+            "needs a StructuralSchedulingEnv (repro_torch.dsdps.structural); "
+            f"{type(env).__name__} fixes one topology per fleet")
+    topos = env.topologies
+    return [env.params_for(topos[i % len(topos)]) for i in range(fleet)]
+
+
 SCENARIOS = {
     "uniform": uniform,
     "one_slow_machine": one_slow_machine,
@@ -105,18 +122,36 @@ SCENARIOS = {
     "mixed": mixed,
 }
 
+# structure-varying scenarios: valid only on envelope-padded structural envs
+STRUCTURAL_SCENARIOS = {
+    "dag_shapes": dag_shapes,
+}
+
 
 def build(name: str, env, fleet: int, broadcast_invariant: bool = False,
           **kwargs) -> EnvParams:
-    """Stacked EnvParams for a named scenario fleet; ``kwargs`` go to the
-    builder (``factor=``, ``amplitude=``, ``sigma=``, ``seed=``, ...)."""
-    try:
-        builder = SCENARIOS[name]
-    except KeyError:
-        raise KeyError(f"unknown scenario {name!r}; "
-                       f"known: {sorted(SCENARIOS)}") from None
+    """Stacked EnvParams (GraphEnvParams on a structural env) for a named
+    scenario fleet; ``kwargs`` go to the builder (``factor=``,
+    ``amplitude=``, ``sigma=``, ``seed=``, ...)."""
+    builder = {**SCENARIOS, **STRUCTURAL_SCENARIOS}.get(name)
+    if builder is None:
+        raise KeyError(f"unknown scenario {name!r}; known: "
+                       f"{sorted(SCENARIOS) + sorted(STRUCTURAL_SCENARIOS)}")
     return stack_env_params(builder(env, fleet, **kwargs),
                             broadcast_invariant=broadcast_invariant)
+
+
+def build_for(env, name: str, fleet: int, broadcast_invariant: bool = False,
+              **kwargs):
+    """:func:`build` for any DSDPS env, plain or structural.  A topology
+    that does not fit a structural env's envelope raises ``ValueError``
+    from ``params_for``.  (The reference also dispatches the placement
+    env's scenarios here; that env is not ported yet.)"""
+    if not hasattr(env, "topo"):
+        raise TypeError(f"no scenarios for {type(env).__name__}: the port "
+                        "has the DSDPS scheduling envs only")
+    return build(name, env, fleet, broadcast_invariant=broadcast_invariant,
+                 **kwargs)
 
 
 def workload_shift(env, factor: float = 1.5) -> EnvParams:
@@ -173,5 +208,9 @@ def perturb_sampler(env, base: EnvParams | None = None, **kwargs):
 
 
 def scenario_names(env) -> tuple[str, ...]:
-    """Names valid for ``build(name, env, ...)`` on a scheduling env."""
-    return tuple(sorted(SCENARIOS))
+    """Names valid for ``build(name, env, ...)``: the structural ones only
+    for an env with a padding envelope."""
+    names = list(SCENARIOS)
+    if hasattr(env, "params_for"):
+        names += list(STRUCTURAL_SCENARIOS)
+    return tuple(sorted(names))

@@ -229,7 +229,8 @@ def perturb_rates(params: EnvParams, z: torch.Tensor | None = None,
 
 def stack_env_params(params_list, broadcast_invariant: bool = False
                      ) -> EnvParams:
-    """Stack per-lane EnvParams on a leading ``[F]`` lane axis.
+    """Stack per-lane EnvParams (or ``structural.GraphEnvParams``, of one
+    type throughout) on a leading ``[F]`` lane axis.
 
     With ``broadcast_invariant=True`` a field equal in every lane (routing,
     flow_solve, tuple_bytes, ... when no scenario perturbs them) stays ONE
@@ -242,14 +243,15 @@ def stack_env_params(params_list, broadcast_invariant: bool = False
             return xs[0]
         return torch.stack(xs)
 
-    return EnvParams(*(stack_field(*xs) for xs in zip(*params_list)))
+    return type(params_list[0])(*(stack_field(*xs)
+                                  for xs in zip(*params_list)))
 
 
 def params_in_axes(params: EnvParams, ref: EnvParams) -> EnvParams | None:
     """Per field, whether ``params`` is stacked: True where the field has one
     more axis than in the single-scenario reference ``ref``.  None when no
     field is stacked (a plain single scenario)."""
-    stacked = EnvParams(*(p.dim() == r.dim() + 1 for p, r in zip(params, ref)))
+    stacked = type(ref)(*(p.dim() == r.dim() + 1 for p, r in zip(params, ref)))
     return stacked if any(stacked) else None
 
 
@@ -262,7 +264,7 @@ def params_stacked(params: EnvParams, ref: EnvParams) -> bool:
 def lane_params(params: EnvParams, ref: EnvParams, lane: int) -> EnvParams:
     """Lane ``lane`` of a (possibly broadcast-invariant) stack as a single
     scenario; a single scenario passes through unchanged."""
-    return EnvParams(*(p[lane] if p.dim() == r.dim() + 1 else p
+    return type(ref)(*(p[lane] if p.dim() == r.dim() + 1 else p
                        for p, r in zip(params, ref)))
 
 

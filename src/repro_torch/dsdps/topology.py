@@ -14,7 +14,7 @@ per tuple processed at executor ``i`` (selectivity folded in)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 
@@ -22,6 +22,28 @@ SHUFFLE = "shuffle"
 FIELDS = "fields"
 GLOBAL = "global"
 ALL = "all"
+
+
+class GraphObs(NamedTuple):
+    """Padded/masked executor-graph observation of one topology (numpy).
+
+    Node arrays have length ``max_execs``, edge arrays ``max_edges``.
+    Padded edges point at the sacrificial node index ``max_execs`` (one past
+    the last real slot) with weight 0: a gather reads a zero row there, and a
+    scatter over ``max_execs + 1`` segments drops what lands in the last one."""
+
+    service_ms: np.ndarray    # [max_execs] CPU demand per tuple (0 on padding)
+    tuple_bytes: np.ndarray   # [max_execs] emitted tuple size (0 on padding)
+    is_spout: np.ndarray      # [max_execs] 1.0 on spout executors
+    out_mass: np.ndarray      # [max_execs] row sum of R (selectivity x fan-out)
+    in_mass: np.ndarray       # [max_execs] column sum of R
+    node_mask: np.ndarray     # [max_execs] 1.0 on real executors
+    edge_src: np.ndarray      # [max_edges] int32; padded entries = max_execs
+    edge_dst: np.ndarray      # [max_edges] int32; padded entries = max_execs
+    edge_w: np.ndarray        # [max_edges] R[src, dst]; 0.0 on padding
+    edge_mask: np.ndarray     # [max_edges] 1.0 on real edges
+    num_executors: int        # real executor count (<= max_execs)
+    num_edges: int            # real edge count (<= max_edges)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,3 +178,45 @@ class Topology:
         for c in self.components:
             out[list(self.executor_slice(c.name))] = c.tuple_bytes
         return out
+
+    def to_graph_obs(self, max_execs: int, max_edges: int,
+                     seed: int = 0) -> GraphObs:
+        """Executor-graph observation padded to a ``(max_execs, max_edges)``
+        envelope.  Edges are the nonzero entries of ``routing_matrix(seed)``
+        in row-major order (the real-edge prefix is the same at every
+        envelope).  Raises ``ValueError`` naming the topology when it does
+        not fit: padding never truncates structure."""
+        n = self.num_executors
+        R = self.routing_matrix(seed)
+        src, dst = np.nonzero(R)
+        e = len(src)
+        if n > max_execs or e > max_edges:
+            raise ValueError(
+                f"topology {self.name} exceeds graph envelope: "
+                f"{n} executors / {e} edges vs max_execs={max_execs} / "
+                f"max_edges={max_edges}")
+
+        def pad_nodes(x: np.ndarray) -> np.ndarray:
+            out = np.zeros(max_execs, dtype=np.float32)
+            out[:n] = x
+            return out
+
+        is_spout = np.zeros(n, dtype=np.float32)
+        is_spout[self.spout_executors] = 1.0
+        edge_src = np.full(max_edges, max_execs, dtype=np.int32)
+        edge_dst = np.full(max_edges, max_execs, dtype=np.int32)
+        edge_w = np.zeros(max_edges, dtype=np.float32)
+        edge_mask = np.zeros(max_edges, dtype=np.float32)
+        edge_src[:e] = src
+        edge_dst[:e] = dst
+        edge_w[:e] = R[src, dst]
+        edge_mask[:e] = 1.0
+        return GraphObs(
+            service_ms=pad_nodes(self.service_demand_ms()),
+            tuple_bytes=pad_nodes(self.tuple_bytes()),
+            is_spout=pad_nodes(is_spout),
+            out_mass=pad_nodes(R.sum(axis=1)),
+            in_mass=pad_nodes(R.sum(axis=0)),
+            node_mask=pad_nodes(np.ones(n, dtype=np.float32)),
+            edge_src=edge_src, edge_dst=edge_dst, edge_w=edge_w,
+            edge_mask=edge_mask, num_executors=n, num_edges=e)

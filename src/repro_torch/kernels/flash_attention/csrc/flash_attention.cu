@@ -3,13 +3,17 @@
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:74 flash_attention_kernel
 // (Pallas body _fa_kernel, layout wrapper ops.flash_attention) for float32
-// inputs; bfloat16 inputs go to flash_attention_sm90.cu.  For q [B, S, H, hd]
-// and k, v [B, S, Hkv, hd] in float32 (any strides over b, s and h, the
+// inputs; bfloat16 inputs go to flash_attention_sm90.cu, which hands the
+// head dims its tensor-core kernel lacks (above 128) to this kernel's
+// bfloat16 instantiation (flash_attention_fwd_cc_bf16: bfloat16 loads and
+// stores, float32 math).  For q [B, S, H, hd]
+// and k, v [B, S, Hkv, hd] (any strides over b, s and h, the
 // last axis contiguous), query head h reads kv head h / (H / Hkv) and
 //   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(scale_hd),
 // over j <= i when causal and over all j otherwise, written into a
 // contiguous o [B, S, H, hd].  hd is one of the instantiations (16, 32, 64,
-// 96, 128); scale_hd is the head dim before the wrapper zero-padded it.  The math is full float32, with the
+// 96, 128, 192, 256 in float32; 192, 256 in bfloat16); scale_hd is the head
+// dim before the wrapper zero-padded it.  The math is full float32, with the
 // reference's online softmax: per tile of keys
 //   m_cur = max(m, max_j s_j); alpha = exp(m - m_cur); p_j = exp(s_j - m_cur)
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j;  m = m_cur
@@ -32,8 +36,12 @@
 // with 5 shuffles; P.V broadcasts p_j by shuffle while each lane owns hd/32
 // output columns.  Causal tiles above the diagonal are not visited, a warp
 // skips a tile that its rows cannot see, and the CTAs with the most causal
-// work are launched first.
+// work are launched first.  At hd 256 the tiles take (64*256 + 32*260 +
+// 32*256) * 4 B = 131.6 kB of shared memory (one CTA an SM) and a lane
+// holds 8 rows x 8 output columns of accumulator.
 #include <cstdint>
+#include <type_traits>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,8 +58,12 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);               // round to nearest even
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -208,18 +220,44 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// float32 takes every instantiated head dim; bfloat16 only those above the
+// tensor-core kernel's 128.
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         const Strides* st, int B, int S, int H, int Hkv, int hd,
                         int scale_hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 96: return launch<T, 96, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    default: return cudaErrorInvalidValue;
+    case 192: return launch<T, 192, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 256: return launch<T, 256, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    default: break;
   }
+  if constexpr (std::is_same_v<T, float>) {
+    switch (hd) {
+      case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+      case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+      case 96: return launch<T, 96, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+      case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+      default: break;
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+int entry(const void* q, const void* k, const void* v, void* o, int causal, int B,
+          int S, int H, int Hkv, int hd, int scale_hd, const int64_t* strides,
+          cudaStream_t stream) {
+  if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
+  if (Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 || scale_hd > hd)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Strides st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  const cudaError_t err =
+      causal ? dispatch_hd<T, true>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream)
+             : dispatch_hd<T, false>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -233,14 +271,17 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
                                        void* o, int causal, int B, int S, int H,
                                        int Hkv, int hd, int scale_hd,
                                        const int64_t* strides, cudaStream_t stream) {
-  if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
-  if (Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 || scale_hd > hd)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Strides st[4];
-  for (int i = 0; i < 4; ++i)
-    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const cudaError_t err =
-      causal ? dispatch_hd<float, true>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream)
-             : dispatch_hd<float, false>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
-  return static_cast<int>(err);
+  return entry<float>(q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd, strides, stream);
+}
+
+// The same kernel on bfloat16 q, k, v and o, for hd 192 and 256 (the head
+// dims above flash_attention_sm90.cu's 128): loads and stores in bfloat16,
+// the math in float32.  flash_attention_fwd_bf16 calls it; it reads plain
+// strided memory, so no TMA alignment applies.
+extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const void* v,
+                                           void* o, int causal, int B, int S, int H,
+                                           int Hkv, int hd, int scale_hd,
+                                           const int64_t* strides, cudaStream_t stream) {
+  return entry<__nv_bfloat16>(q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd, strides,
+                              stream);
 }

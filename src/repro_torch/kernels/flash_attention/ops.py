@@ -10,12 +10,16 @@ stream, chosen by dtype and by nothing else:
 * float32 -> ``csrc/flash_attention.cu``: full float32 on the CUDA cores,
   as the port's float32 paths require.
 
-Both kernels are built for the head dims in ``HEAD_DIMS``.  Any other
-head_dim up to 128 is zero-padded to the next of them (zero columns add
-nothing to q·kᵀ and give zero output columns, sliced off), with the scores
-still scaled by ``1/sqrt(true hd)`` (``LAUNCHES_PADDED``); above 128 the
-wrapper raises.  Padding and staging are copies in front of the same
-kernel, not another route.
+Both kernels are built for the head dims in ``HEAD_DIMS`` up to 128; the
+float32 kernel also for 192 and 256.  A bfloat16 head dim above 128 goes
+through the same C entry point to the float32 kernel's bfloat16
+instantiation (bfloat16 loads and stores, float32 math on the CUDA cores,
+plain strided loads, so no TMA staging; ``LAUNCHES_BF16_CUDA_CORES``).
+Any other head_dim up to 256 is zero-padded to the next native one (zero
+columns add nothing to q·kᵀ and give zero output columns, sliced off),
+with the scores still scaled by ``1/sqrt(true hd)`` (``LAUNCHES_PADDED``);
+above 256 the wrapper raises.  Padding and staging are copies in front of
+the same kernel, not another route.
 
 On CPU tensors it runs the plain version (``ref.py``).  There is no
 fallback from one route to another."""
@@ -36,7 +40,8 @@ _ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 ENTRY = {torch.float32: "flash_attention_fwd_f32",
          torch.bfloat16: "flash_attention_fwd_bf16"}
 SIGNATURES = {fn: (_ARGS, ctypes.c_int) for fn in ENTRY.values()}
-HEAD_DIMS = (16, 32, 64, 96, 128)          # both kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 96, 128, 192, 256)   # native head dims
+TMA_HEAD_DIM = 128        # the bfloat16 wgmma kernel's largest; above, CUDA cores
 TMA_ALIGN = 16                             # bytes, for bases and strides
 
 # kernel launches since the last reset (the plain CPU path does not count):
@@ -44,10 +49,12 @@ TMA_ALIGN = 16                             # bytes, for bases and strides
 LAUNCHES = 0
 LAUNCHES_F32 = 0
 LAUNCHES_BF16 = 0
-# launches whose head_dim was zero-padded to a native one, and bf16 tensors
-# copied because TMA could not load them where they lay
+# launches whose head_dim was zero-padded to a native one, bf16 tensors
+# copied because TMA could not load them where they lay, and bf16 launches
+# above TMA_HEAD_DIM (the CUDA-core kernel's bfloat16 instantiation)
 LAUNCHES_PADDED = 0
 STAGED_COPIES = 0
+LAUNCHES_BF16_CUDA_CORES = 0
 
 
 def _check_tma_layout(**tensors: torch.Tensor) -> None:
@@ -90,8 +97,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16), H a multiple of Hkv, the last axis contiguous →
     ``[B, S, H, hd]`` in q's dtype.  Query head h reads kv head
     ``h // (H // Hkv)``; scores are scaled by ``1/sqrt(hd)``.  On the card
-    hd may be anything from 1 to 128."""
+    hd may be anything from 1 to 256."""
     global LAUNCHES, LAUNCHES_F32, LAUNCHES_BF16, LAUNCHES_PADDED
+    global LAUNCHES_BF16_CUDA_CORES
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q, k, v of rank 4 [B, S, H, hd]")
     B, S, H, hd = q.shape
@@ -115,7 +123,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if kd != hd:
         q, k, v = (torch.nn.functional.pad(t, (0, kd - hd)) for t in (q, k, v))
-    if q.dtype == torch.bfloat16:
+    tma = q.dtype == torch.bfloat16 and kd <= TMA_HEAD_DIM
+    if tma:
         q, k, v = (_stage_for_tma(t) for t in (q, k, v))
         _check_tma_layout(q=q, k=k, v=v)
     o = torch.empty((B, S, H, kd), dtype=q.dtype, device=q.device)
@@ -133,6 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES += 1
     if q.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
+        LAUNCHES_BF16_CUDA_CORES += not tma
     else:
         LAUNCHES_F32 += 1
     if kd != hd:

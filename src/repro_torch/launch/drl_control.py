@@ -2,11 +2,14 @@
 on a DSDPS topology on the GPU and report the schedule.
 
 Port of the DSDPS-app path of ``repro/launch/drl_control.py``: build the
-env, initialize ``--fleet`` lanes of ``--agent`` (``ddpg``, ``dqn``,
-``round_robin``, ``model_based``), each under its own scenario when
-``--scenario`` names a heterogeneous fleet (``uniform``,
-``one_slow_machine``, ``diurnal_rate``, ``high_noise``, ``mixed``; the
-model-based baseline profiles and fits the lane's cluster), pretrain DDPG
+env (one topology, or ``--app structural``: the chain, diamond and wide
+fan-out DAGs padded into one envelope), initialize ``--fleet`` lanes of
+``--agent`` (``ddpg``, ``dqn``, ``graph_policy``, ``model_based``,
+``round_robin``, ``stream_ac``, ``stream_q``), each under its own scenario
+when ``--scenario`` names a heterogeneous fleet (``uniform``,
+``one_slow_machine``, ``diurnal_rate``, ``high_noise``, ``mixed``, and on
+``structural`` ``dag_shapes``, a DAG per lane; the model-based baseline
+profiles and fits the lane's cluster), pretrain DDPG
 lanes offline on random transitions, run ``--epochs`` online decision
 epochs, and score every lane's final assignment against round-robin under
 that lane's scenario.  ``--serve N`` then serves N synthetic decision
@@ -22,6 +25,8 @@ training lane's scenario registered as a cluster.
       --app cq_small --fleet 2 --offline 50 --offline-updates 5 --epochs 5
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
       --fleet 8 --scenario mixed --serve 256
+  PYTHONPATH=src python -m repro_torch.launch.drl_control --app structural \\
+      --agent graph_policy --scenario dag_shapes --fleet 6
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises."""
@@ -37,11 +42,19 @@ from repro_torch.core import (agent_names, convert, make_agent,
                               run_online_fleet)
 from repro_torch.core import ddpg as ddpg_lib
 from repro_torch.device import resolve_device
-from repro_torch.dsdps import SchedulingEnv, apps, lane_params, scenarios
+from repro_torch.dsdps import (SchedulingEnv, StructuralSchedulingEnv, apps,
+                               lane_params, scenarios)
 from repro_torch.dsdps.apps import default_workload
 
+APPS = (*apps.ALL_APPS, "structural")
 
-def build_env(app: str, device) -> SchedulingEnv:
+
+def build_env(app: str, device) -> SchedulingEnv | StructuralSchedulingEnv:
+    if app == "structural":
+        # chain / diamond / wide fan-out padded into one envelope: the
+        # DAG-shape fleet (--scenario dag_shapes gives each lane its own)
+        return StructuralSchedulingEnv(apps.structural_topologies(),
+                                       device=device)
     topo = apps.ALL_APPS[app]()
     return SchedulingEnv(topo, default_workload(topo), device=device)
 
@@ -51,8 +64,9 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
         k: int = 12, seed: int = 0,
         device: str | torch.device | None = None,
         scenario: str | None = None,
-        broadcast_invariant: bool = False) -> dict:
-    """Run the loop; returns a dict with the env, the scenario fleet (None
+        broadcast_invariant: bool = False, env=None) -> dict:
+    """Run the loop on ``env`` (default ``build_env(app, device)``); returns
+    a dict with the env, the scenario fleet (None
     without ``scenario``), the agent, the trained states, the History,
     per-lane final and round-robin latencies (ms, each under the lane's
     scenario), the index of the best lane (lowest final/round-robin), the
@@ -68,9 +82,9 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
 
     seconds = {}
     t0 = now()
-    env = build_env(app, dev)
-    env_params = (scenarios.build(scenario, env, fleet,
-                                  broadcast_invariant=broadcast_invariant)
+    env = build_env(app, dev) if env is None else env
+    env_params = (scenarios.build_for(env, scenario, fleet,
+                                      broadcast_invariant=broadcast_invariant)
                   if scenario else None)
     ag = make_agent(agent, env, **({"k_nn": k} if agent == "ddpg" else {}))
     # lanes initialize under their own scenario: the model-based baseline
@@ -142,13 +156,19 @@ def serve_trained(res: dict, n_requests: int, seed: int = 0) -> dict:
 
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--app", default="cq_small", choices=list(apps.ALL_APPS))
+    ap.add_argument("--app", default="cq_small", choices=list(APPS),
+                    help="one Storm topology, or 'structural': the "
+                         "envelope-padded DAG-shape env over "
+                         "apps.STRUCTURAL_APPS (pairs with --agent "
+                         "graph_policy and --scenario dag_shapes)")
     ap.add_argument("--agent", default="ddpg", choices=list(agent_names()),
                     help="registered control policy (core.api.make_agent)")
     ap.add_argument("--scenario", default=None,
-                    choices=sorted(scenarios.SCENARIOS),
+                    choices=sorted({**scenarios.SCENARIOS,
+                                    **scenarios.STRUCTURAL_SCENARIOS}),
                     help="heterogeneous params fleet, one scenario per lane, "
-                         "instead of a pure seed sweep")
+                         "instead of a pure seed sweep (dag_shapes, a DAG "
+                         "per lane, needs --app structural)")
     ap.add_argument("--broadcast-invariant", action="store_true",
                     help="keep scenario-invariant params fields single-copy")
     ap.add_argument("--offline", type=int, default=2000,
@@ -179,6 +199,13 @@ def main(argv: list[str] | None = None) -> dict:
         ap.error(f"--serve needs an agent that decides from (s_vec, "
                  f"cluster params) alone; {args.agent}'s select reads the "
                  f"live EnvState (see docs/serving.md)")
+    if args.serve and args.app == "structural":
+        ap.error("--serve registers plain EnvParams clusters of one "
+                 "topology; use it with a Storm app, not --app structural")
+    env = build_env(args.app, resolve_device(args.device))
+    if args.scenario and args.scenario not in scenarios.scenario_names(env):
+        ap.error(f"scenario {args.scenario!r} is not defined for "
+                 f"--app {args.app}; known: {scenarios.scenario_names(env)}")
     scen = f" ({args.scenario} scenario fleet)" if args.scenario else ""
     pre = (f"{args.offline} offline samples, {args.offline_updates} offline "
            f"updates, " if args.agent == "ddpg" else "")
@@ -188,7 +215,7 @@ def main(argv: list[str] | None = None) -> dict:
               offline=args.offline, offline_updates=args.offline_updates,
               epochs=args.epochs, k=args.k, seed=args.seed, device=args.device,
               scenario=args.scenario,
-              broadcast_invariant=args.broadcast_invariant)
+              broadcast_invariant=args.broadcast_invariant, env=env)
     finals, rrs, best = res["finals"], res["rrs"], res["best"]
     print(f"\nfinal latency {finals.mean():.3f} ± {finals.std():.3f} ms "
           f"over {args.fleet} lanes "

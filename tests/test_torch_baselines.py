@@ -437,7 +437,8 @@ def test_registry_agent_runs_five_epochs(envs, name):
 
 def test_registry_lists_builtins_and_rejects_unknown(envs):
     _, env = envs
-    assert agent_names() == ("ddpg", "dqn", "model_based", "round_robin")
+    assert agent_names() == ("ddpg", "dqn", "graph_policy", "model_based",
+                             "round_robin", "stream_ac", "stream_q")
     with pytest.raises(KeyError, match="unknown agent"):
         make_agent("nope", env)
     with pytest.raises(ValueError, match="lanes"):

@@ -157,6 +157,16 @@ FLASH_CASES = [
     (2, 200, 4, 2, 8, True, torch.bfloat16),
     (2, 128, 4, 2, 40, False, torch.bfloat16),
     (1, 1, 4, 2, 40, True, torch.bfloat16),
+    # hd 192 and 256 native on the CUDA-core kernel (float32, and bf16
+    # above the tensor-core kernel's 128); hd 160 zero-padded to 192
+    (2, 200, 4, 2, 160, True, torch.float32),
+    (2, 128, 4, 1, 192, False, torch.float32),
+    (2, 256, 8, 2, 256, True, torch.float32),
+    (3, 37, 4, 2, 256, False, torch.float32),
+    (2, 200, 4, 2, 160, False, torch.bfloat16),
+    (2, 256, 4, 1, 192, True, torch.bfloat16),
+    (2, 200, 8, 2, 256, True, torch.bfloat16),
+    (3, 37, 4, 2, 256, False, torch.bfloat16),
 ]
 
 
@@ -238,17 +248,42 @@ def test_flash_routes_count_their_own_launches(cuda_device):
 
 
 def test_flash_wrapper_refuses_head_dims_the_kernel_lacks(cuda_device):
-    """Up to 128 every head_dim runs (padded where not native); above, no
+    """Up to 256 every head_dim runs (padded where not native); above, no
     config of either package goes, and the wrapper raises."""
-    q = torch.zeros(1, 8, 2, 136, device=cuda_device)
+    q = torch.zeros(1, 8, 2, 264, device=cuda_device)
     before = fa_ops.LAUNCHES
-    with pytest.raises(ValueError, match="head_dim up to 128"):
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         fa_ops.flash_attention(q, q, q)
     assert fa_ops.LAUNCHES == before
 
 
+@pytest.mark.parametrize("hd", [136, 192, 256])
+def test_flash_bf16_above_128_runs_on_the_cuda_cores(cuda_device, hd):
+    """A bf16 head dim above 128 takes the CUDA-core kernel's bf16
+    instantiation through the bf16 entry point (counted on its own), reads
+    strided views as they lie (nothing staged), and equals the plain
+    version; hd 128 stays on the tensor-core route."""
+    g = torch.Generator(device=cuda_device).manual_seed(hd)
+    qkv = torch.randn(2, 96, 8, hd, generator=g, device=cuda_device).bfloat16()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    before = (fa_ops.LAUNCHES_BF16, fa_ops.LAUNCHES_BF16_CUDA_CORES,
+              fa_ops.STAGED_COPIES)
+    got = fa_ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES_BF16, fa_ops.LAUNCHES_BF16_CUDA_CORES,
+            fa_ops.STAGED_COPIES) == (before[0] + 1, before[1] + 1, before[2])
+    rtol, atol = FLASH_TOLS[torch.bfloat16]
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    small = torch.randn(1, 64, 2, 128, generator=g, device=cuda_device).bfloat16()
+    cores = fa_ops.LAUNCHES_BF16_CUDA_CORES
+    fa_ops.flash_attention(small, small, small)
+    assert fa_ops.LAUNCHES_BF16_CUDA_CORES == cores
+
+
 @pytest.mark.parametrize("hd,native", [(1, 16), (8, 16), (40, 64), (48, 64),
-                                       (80, 96), (96, 96), (100, 128)])
+                                       (80, 96), (96, 96), (100, 128),
+                                       (136, 192), (200, 256), (256, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_pads_head_dims_between_native_ones(cuda_device, hd, native, dtype):
     """One launch a call; a head_dim that is not native is zero-padded to
@@ -339,7 +374,7 @@ def test_wkv6_kernel_reads_strided_views(cuda_device, dtype):
 # -- the baselines on the card: one epoch of each under a lane-stacked
 # scenario equals the same epoch on the CPU, from the same state (made on
 # the CPU and carried across) and the same draws
-def _epoch_draws(rng, F, N, M, S, B):
+def _epoch_draws(rng, F, N, M, S, B, T=1):
     from repro_torch.core import EpochDraws
     return [EpochDraws(
         explore_add=torch.as_tensor(rng.uniform(size=F) < 0.6),
@@ -347,7 +382,9 @@ def _epoch_draws(rng, F, N, M, S, B):
         explore_move=torch.as_tensor(rng.integers(0, N * M, F)),
         meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
         rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
-        replay_idx=torch.as_tensor(rng.integers(0, 1, (F, 1, B))))]
+        replay_idx=torch.as_tensor(rng.integers(0, 1, (F, 1, B))),
+        explore_gumbel=torch.as_tensor(rng.gumbel(size=(F, N, M)).astype(np.float32)))
+        for _ in range(T)]
 
 
 @pytest.mark.parametrize("name", ["dqn", "round_robin", "model_based"])
@@ -447,3 +484,74 @@ def test_serving_plane_on_the_card_equals_the_cpu(cuda_device):
     assert len(card["served"]) == 48
     for r in card["served"]:
         np.testing.assert_array_equal(r.action, want[r.rid])
+
+
+# -- the streaming agents and the structural fleets on the card: the same
+# states (made on the CPU and carried across), scenarios and draws as on
+# the CPU give the same moves
+def _streaming_run(name, env, params, init, draws, dev, T):
+    from repro_torch.core import convert, make_agent, run_online_fleet
+    load = {"stream_q": convert.stream_q_state_from_numpy,
+            "stream_ac": convert.stream_ac_state_from_numpy,
+            "graph_policy": convert.graph_policy_state_from_numpy}[name]
+    p = type(params)(*(x.to(dev) for x in params))
+    return run_online_fleet(0, env, make_agent(name, env), load(init, dev), T,
+                            env_params=p, draws=[d.to(dev) for d in draws])[1]
+
+
+@pytest.mark.parametrize("name", ["stream_q", "stream_ac", "graph_policy"])
+def test_streaming_fleet_on_the_card_equals_the_cpu(cuda_device, name):
+    from repro_torch.core import convert, make_agent
+    from repro_torch.dsdps import SchedulingEnv, apps, scenarios
+
+    topo = apps.continuous_queries("small")
+    F, T = 2, 5
+    cpu_env = SchedulingEnv(topo, apps.default_workload(topo), device="cpu")
+    params = scenarios.build("mixed", cpu_env, F, broadcast_invariant=True)
+    dump = {"stream_q": convert.stream_q_state_to_numpy,
+            "stream_ac": convert.stream_ac_state_to_numpy,
+            "graph_policy": convert.graph_policy_state_to_numpy}[name]
+    init = dump(make_agent(name, cpu_env).init_fleet(
+        torch.Generator().manual_seed(0), F, "cpu"))
+    draws = _epoch_draws(np.random.default_rng(1), F, cpu_env.N, cpu_env.M,
+                         cpu_env.workload.num_spouts, 1, T)
+    hists = [_streaming_run(name, SchedulingEnv(topo, apps.default_workload(topo),
+                                                device=dev),
+                            params, init, draws, dev, T)
+             for dev in ("cpu", cuda_device)]
+    np.testing.assert_array_equal(hists[1].moved, hists[0].moved)
+    np.testing.assert_array_equal(hists[1].final_assignment,
+                                  hists[0].final_assignment)
+    np.testing.assert_allclose(hists[1].latencies, hists[0].latencies, rtol=1e-5)
+
+
+def test_structural_graph_policy_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch.core import convert, make_agent
+    from repro_torch.dsdps import StructuralSchedulingEnv, apps, scenarios
+
+    F, T = 3, 5
+    cpu_env = StructuralSchedulingEnv(apps.structural_topologies(), device="cpu")
+    params = scenarios.build("dag_shapes", cpu_env, F)
+    init = convert.graph_policy_state_to_numpy(make_agent(
+        "graph_policy", cpu_env).init_fleet(torch.Generator().manual_seed(0), F,
+                                            "cpu"))
+    draws = _epoch_draws(np.random.default_rng(2), F, cpu_env.N, cpu_env.M,
+                         cpu_env.envelope.max_spouts, 1, T)
+    hists = [_streaming_run("graph_policy", StructuralSchedulingEnv(
+        apps.structural_topologies(), device=dev), params, init, draws, dev, T)
+        for dev in ("cpu", cuda_device)]
+    np.testing.assert_array_equal(hists[1].moved, hists[0].moved)
+    np.testing.assert_array_equal(hists[1].final_assignment,
+                                  hists[0].final_assignment)
+    np.testing.assert_allclose(hists[1].latencies, hists[0].latencies, rtol=1e-5)
+    # each padded topology's round-robin score equals its plain env's
+    from repro_torch.dsdps import SchedulingEnv
+    card = StructuralSchedulingEnv(apps.structural_topologies(), device=cuda_device)
+    for t in card.topologies:
+        plain = SchedulingEnv(t, apps.default_workload(t), device=cuda_device)
+        p = card.params_for(t)
+        got = card.evaluate(card.round_robin_assignment(), p.base_rates, params=p)
+        want = plain.evaluate(plain.round_robin_assignment(),
+                              plain.default_params().base_rates)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+

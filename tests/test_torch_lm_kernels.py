@@ -135,6 +135,20 @@ def test_flash_cpu_path_runs_the_plain_version_and_counts_no_launch():
     assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_BF16) == before
 
 
+def test_flash_wrapper_pads_head_dims_up_to_256_and_refuses_above():
+    """On the card a head_dim between native ones is zero-padded to the
+    next: 136 to 192 and 200 to 256 (above the bf16 tensor-core kernel's
+    128, on the CUDA-core kernel); above 256 the wrapper raises.  The
+    choice reads the head dim alone, so it runs here."""
+    assert fa_ops.HEAD_DIMS[-3:] == (128, 192, 256)
+    assert fa_ops._padded_head_dim(136) == 192
+    assert fa_ops._padded_head_dim(200) == 256
+    assert fa_ops._padded_head_dim(256) == 256
+    assert fa_ops._padded_head_dim(100) == 128
+    with pytest.raises(ValueError, match="head_dim up to 256"):
+        fa_ops._padded_head_dim(264)
+
+
 def test_flash_routes_are_chosen_by_dtype_alone():
     assert fa_ops.ENTRY == {torch.float32: "flash_attention_fwd_f32",
                             torch.bfloat16: "flash_attention_fwd_bf16"}

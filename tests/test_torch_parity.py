@@ -12,6 +12,11 @@ resulting numbers to the port as ``EpochDraws`` / ``OfflineDraws``:
   * ``split(k_act)`` → ε coin (bernoulli), and from the second key DDPG's
     uniform noise or DQN's random move ``randint(·, (), 0, N·M)``
     (core/exploration.py);
+  * the Gumbel draw of a ``jax.random.categorical``: Stream AC(λ)'s
+    ``categorical(k_act, logits [N, M])`` draws ``gumbel(k_act, (N, M))``,
+    graph_policy's random valid move ``categorical(k_rand, [N·M])`` draws
+    ``gumbel(k_rand, (N·M,))`` from the second key of ``split(k_act)``
+    (core/stream_ac.py, core/graph_policy.py);
   * ``split(k_step)`` → measurement noise ``normal(·, (5,))``, rate walk
     ``normal(·, (S,))`` (dsdps/env.py, simulator.py, workload.py);
   * ``split(k_upd, U)`` → ``randint(k, (B,), 0, max(size, 1))``
@@ -84,6 +89,19 @@ def assert_tree_f32(got, want, rtol=1e-5, atol=0.0):
                                    atol=atol)
 
 
+def assert_tree_scaled(got, want, rtol=1e-5, scale_atol=1e-6):
+    """Every leaf at ``rtol``, with an absolute slack of ``scale_atol`` times
+    the leaf's largest magnitude (at least 1): a trace or a weight element
+    is a float32 sum of terms as large as the leaf's largest, so its
+    rounding error scales with the leaf, not with the element."""
+    g, w = jax.tree.leaves(got), jax.tree.leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        b = np.asarray(b)
+        atol = scale_atol * max(1.0, float(np.abs(b).max(initial=0.0)))
+        np.testing.assert_allclose(np.asarray(a), b, rtol=rtol, atol=atol)
+
+
 # --------------------------------------------------------------------------
 # environments and agent states on both sides
 # --------------------------------------------------------------------------
@@ -114,11 +132,13 @@ def carried_fleet(jcfg, fleet: int, seed: int = 0):
 # --------------------------------------------------------------------------
 def jax_epoch_draws(keys, T: int, U: int, B: int, N: int, M: int, S: int,
                     eps=None, epoch0: int = 0, size0: int = 0,
-                    cap: int = 1000):
+                    cap: int = 1000, gumbel: str = "act"):
     """The per-epoch draws ``run_online_fleet(keys, ...)`` makes for every
     lane, as ``T`` port ``EpochDraws``.  ``eps`` is the reference's
     EpsilonSchedule; the replay size before epoch t's update is
-    ``min(size0 + t + 1, cap)`` (one store per epoch)."""
+    ``min(size0 + t + 1, cap)`` (one store per epoch).  ``gumbel`` names
+    the key of the categorical draw: ``"act"`` (Stream AC(λ)) or
+    ``"rand"`` (graph_policy's random move, reshaped to ``[N, M]``)."""
     eps = jexpl.EpsilonSchedule() if eps is None else eps
     lanes = []
     for lane_key in jnp.asarray(keys):
@@ -135,9 +155,11 @@ def jax_epoch_draws(keys, T: int, U: int, B: int, N: int, M: int, S: int,
             size = min(size0 + t + 1, cap)
             idx = [jax.random.randint(k, (B,), 0, max(size, 1))
                    for k in jax.random.split(k_upd, U)]
+            g = (jax.random.gumbel(k_act, (N, M)) if gumbel == "act" else
+                 jax.random.gumbel(k_noise, (N * M,)).reshape(N, M))
             per_epoch.append((add, noise, move,
                               jax.random.normal(k_meas, (N_MEAS,)),
-                              jax.random.normal(k_w, (S,)), jnp.stack(idx)))
+                              jax.random.normal(k_w, (S,)), jnp.stack(idx), g))
         lanes.append(per_epoch)
     out = []
     for t in range(T):
@@ -170,8 +192,9 @@ def jax_offline_draws(keys, n: int, n_updates: int, B: int, N: int, M: int,
 
 def numpy_epoch_draws(rng, F, T, U, B, N, M, S):
     """``T`` epochs of draws from a numpy generator (the port against
-    itself: lanes, devices, stack forms); replay rows ``< t + 1``."""
-    return [EpochDraws(
+    itself: lanes, devices, stack forms); replay rows ``< t + 1``.  The
+    Gumbel draws come last, after every epoch's other draws."""
+    draws = [dict(
         explore_add=torch.as_tensor(rng.uniform(size=F) < 0.6),
         explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
         meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
@@ -179,6 +202,8 @@ def numpy_epoch_draws(rng, F, T, U, B, N, M, S):
         replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, B))),
         explore_move=torch.as_tensor(rng.integers(0, N * M, F)))
         for t in range(T)]
+    return [EpochDraws(**d, explore_gumbel=torch.as_tensor(
+        rng.gumbel(size=(F, N, M)).astype(np.float32))) for d in draws]
 
 
 # --------------------------------------------------------------------------

@@ -102,7 +102,8 @@ def test_space_helpers_match_reference():
 
 def test_serving_only_agents_stay_off_the_env_paths(small):
     _, tenv = small
-    assert agent_names() == ("ddpg", "dqn", "model_based", "round_robin")
+    assert agent_names() == ("ddpg", "dqn", "graph_policy", "model_based",
+                             "round_robin", "stream_ac", "stream_q")
     for name in ("rate_control", "auto_tune"):
         agent = make_agent(name, tenv)
         assert agent.name == name
