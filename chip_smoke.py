@@ -9,8 +9,9 @@ PyTorch version on the card: the K-NN reduction (NaN, ±inf and views off
 the 16-byte grid among its cases; its times beside a launch floor, its
 eager call's host time step by step), both flash-attention routes
 (bfloat16 on the tensor cores, float32 on the CUDA cores; every head_dim
-up to 256, some zero-padded, bf16 above 128 on the CUDA-core kernel, and
-layouts TMA cannot load, staged) and the WKV6 recurrence.  Then it drives the port's main paths:
+up to 256, some zero-padded, bf16 above 128 on the CUDA-core kernel, head
+dims 320 and 512 on its wide form, and layouts TMA cannot load, staged)
+and the WKV6 recurrence.  Then it drives the port's main paths:
 
 * the DSDPS control loop: the K-NN beam and a short loop on the card
   against the CPU, then ``repro_torch.launch.drl_control.run`` on
@@ -47,7 +48,12 @@ layouts TMA cannot load, staged) and the WKV6 recurrence.  Then it drives the po
 * structural fleets: the graph policy under ``dag_shapes`` (a DAG per
   lane) card against CPU and lane against single run, each padded
   topology's latency against its plain env, then an envelope over the
-  paper's three applications (N=100, E=2475) with 6 lanes, profiled.
+  paper's three applications (N=100, E=2475) with 6 lanes, profiled;
+* the expert-placement env (Jamba-1.5-large's 16 experts on 16 devices):
+  DDPG, DQN, round-robin, Stream Q(λ) and Stream AC(λ) card against CPU on
+  the same draws under a mixed fleet, then each through
+  ``drl_control.run`` with 8 lanes under ``mixed`` and ``one_slow_device``,
+  profiled, DDPG's selects and updates through the K-NN kernel at m = 16.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -96,6 +102,12 @@ SERVE = dict(app="cq_large", clusters=16, requests=256, slots=8, seed=0)
 STREAMING = dict(app="cq_large", fleet=8, epochs=50, scenario="one_slow_machine")
 STREAMING_AGENTS = ("stream_q", "stream_ac", "graph_policy")
 STRUCTURAL = dict(apps=("cq_large", "log_stream", "word_count"), fleet=6, epochs=50)
+# the expert-placement env at the reference's full size (16 experts on 16
+# devices), 8 lanes, DDPG at the main path's budget
+PLACEMENT = dict(app="placement", fleet=8, epochs=50, offline=1000,
+                 offline_updates=100)
+PLACEMENT_AGENTS = ("ddpg", "dqn", "round_robin", "stream_q", "stream_ac")
+PLACEMENT_RUN_SCENARIOS = ("mixed", "one_slow_device")
 
 
 def log(msg: str) -> None:
@@ -226,8 +238,12 @@ def check_kernel(dev) -> dict:
     from repro_torch.kernels.knn_topk.ref import edge_rows
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the cq_large update and select shapes, then DDPG's on the placement
+    # env at F = 8: select [128, 16] and the update's target rows
+    # [8, 32, 16, 16]
+    placement_shapes = [(128, 16), (8, 32, 16, 16)]
     shapes = [(800, 10), (25600, 10), (3200, 10), (7, 3), (1, 2), (513, 16),
-              (300, 33)]
+              (300, 33)] + placement_shapes
     cases = [(str(s), torch.rand(s, generator=gen, device=dev)) for s in shapes]
     # quantized rows: ties everywhere, incl. a best value held by several
     # columns and rows that are constant
@@ -253,7 +269,7 @@ def check_kernel(dev) -> dict:
             k = min(n, len(names))
             p[-k:] = rows[:k].to(dev)
             cases.append((f"[{n},{m}] at offset {off}", p))
-    max_err = 0.0
+    max_err = placement_err = 0.0
     for what, proto in cases:
         b, s, r = row_top2_regret(proto)
         rb, rs, rr = row_top2_regret_ref(proto)
@@ -264,17 +280,22 @@ def check_kernel(dev) -> dict:
         if err > 1e-6:
             raise AssertionError(f"kernel regret off by {err} at {what}")
         max_err = max(max_err, err)
+        if what in map(str, placement_shapes):
+            placement_err = max(placement_err, err)
     log(f"phase 3 kernel vs plain version: {len(cases)} cases agree, edge rows "
         f"and offsets 1-3 among them (indices exact, NaN and inf at the same "
-        f"places, max |regret err| {max_err})")
+        f"places, max |regret err| {max_err}; at the placement shapes "
+        f"{placement_shapes} {placement_err})")
 
     one = torch.zeros(1, device=dev)
     floor = graph_ms(lambda: one.fill_(1.0))
     log(f"  launch floor: a 1-element fill_ in the same CUDA graph harness "
         f"{floor:.6f} ms per call; eager {eager_ms(lambda: one.fill_(1.0)):.6f}")
     timings = {}
-    for rows in (25600, 800):
-        proto = torch.rand(rows, 10, generator=gen, device=dev)
+    # the cq_large update and select shapes, and the placement select shape
+    # (8 lanes x 16 experts, m = 16 devices)
+    for rows, width in ((25600, 10), (800, 10), (128, 16)):
+        proto = torch.rand(rows, width, generator=gen, device=dev)
         m = proto.shape[1]
 
         def library(p=proto):
@@ -312,7 +333,8 @@ def check_kernel(dev) -> dict:
     us = host_breakdown(torch.rand(25600, 10, generator=gen, device=dev))
     log("  eager host us per call at [25600,10] (perf_counter, 3000 calls a "
         "step): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
-    return dict(max_abs_err=max_err, timings=timings, host_us=us)
+    return dict(max_abs_err=max_err, placement_max_abs_err=placement_err,
+                timings=timings, host_us=us)
 
 
 def check_beam(dev) -> None:
@@ -337,11 +359,16 @@ def numpy_draws(rng, F: int, T: int, env, batch: int) -> list:
     run on the card and on the CPU alike."""
     from repro_torch.core import EpochDraws
 
-    N, M, S = env.N, env.M, env.workload.num_spouts
+    # a DSDPS env measures 5 readings and walks S spout rates; the
+    # placement env one step time and E expert loads
+    dsdps = hasattr(env, "workload")
+    N, M = env.N, env.M
+    S = env.workload.num_spouts if dsdps else env.N
+    meas = (F, 5) if dsdps else (F,)
     draws = [dict(
         explore_add=torch.as_tensor(rng.uniform(size=F) < 0.7),
         explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
-        meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
+        meas_z=torch.as_tensor(rng.normal(size=meas).astype(np.float32)),
         rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
         replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, batch))),
         explore_move=torch.as_tensor(rng.integers(0, N * M, F)),
@@ -722,6 +749,7 @@ def check_fleet_result(what: str, res: dict, F: int, T: int) -> None:
     """Finite traces of the expected shape, one-hot final assignments on the
     real executors, every lane scored under its own params."""
     from repro_torch.dsdps import lane_params
+    from repro_torch.launch.drl_control import nominal_load
 
     hist, env, params = res["history"], res["env"], res["env_params"]
     if not (np.isfinite(hist.rewards).all() and np.isfinite(hist.latencies).all()
@@ -738,7 +766,7 @@ def check_fleet_result(what: str, res: dict, F: int, T: int) -> None:
         if not np.array_equal(rows, want):
             raise AssertionError(f"{what}: lane {f}'s final assignment is not "
                                  "one-hot on its real executors")
-        own = float(env.evaluate(rr, lane_p.base_rates, params=lane_p))
+        own = float(env.evaluate(rr, nominal_load(lane_p), params=lane_p))
         if not abs(res["rrs"][f] / own - 1) <= 1e-6:
             raise AssertionError(f"{what}: lane {f}'s round-robin score "
                                  f"{res['rrs'][f]} is not its own {own}")
@@ -898,6 +926,97 @@ def run_structural(dev, card: str) -> dict:
     prof = profile_fleet(env, res["agent"], res["states"], res["env_params"])
     log_fleet_run("graph_policy", res, prof)
     return dict(lane_epochs_per_s=res["lane_epochs_per_s"], **prof)
+
+
+def agent_io(name: str):
+    """(state to numpy, numpy to state) of any agent the placement env
+    runs: a fleet made once is carried to the card and to the CPU."""
+    from repro_torch.core import convert
+
+    if name == "round_robin":                 # its state is a bare [F] tensor
+        return (lambda st: st.clone(), lambda x, where: x.clone().to(where))
+    if name == "ddpg":
+        return convert.ddpg_state_to_numpy, convert.ddpg_state_from_numpy
+    if name == "dqn":
+        return convert.dqn_state_to_numpy, convert.dqn_state_from_numpy
+    return streaming_io(name)
+
+
+def check_placement_vs_cpu(dev) -> None:
+    """Phase 20, first part: the five agents on the expert-placement env at
+    the reference's full size (16 experts, 16 devices), F=2, T=8, under a
+    mixed fleet, on the card and on the CPU from the same states (made on
+    the CPU), skew draws and epoch draws: moves exact, step times within
+    1e-5."""
+    from repro_torch.core import jamba_placement_env, make_agent, run_online_fleet
+    from repro_torch.dsdps import scenarios
+
+    F, T = 2, 8
+    cpu_env = jamba_placement_env(device="cpu")
+    rng = np.random.default_rng(20)
+    skew_z = torch.as_tensor(rng.normal(size=(F, cpu_env.N)).astype(np.float32))
+    for name in PLACEMENT_AGENTS:
+        dump, load = agent_io(name)
+        agent = make_agent(name, cpu_env)
+        init = dump(agent.init_fleet(torch.Generator().manual_seed(20), F, "cpu"))
+        draws = numpy_draws(rng, F, T, cpu_env, getattr(agent.cfg, "batch", 1))
+        hists = {}
+        for where in ("cpu", dev):
+            env = jamba_placement_env(device=where)
+            params = scenarios.build_for(env, "mixed", F, skew_z=skew_z.to(where))
+            _, hists[str(where)] = run_online_fleet(
+                0, env, make_agent(name, env), load(init, where), T,
+                updates_per_epoch=U, env_params=params,
+                draws=[d.to(where) for d in draws])
+        cpu, gpu = hists["cpu"], hists[str(dev)]
+        np.testing.assert_array_equal(gpu.moved, cpu.moved)
+        np.testing.assert_array_equal(gpu.final_assignment, cpu.final_assignment)
+        np.testing.assert_allclose(gpu.latencies, cpu.latencies, rtol=1e-5)
+        np.testing.assert_allclose(gpu.rewards, cpu.rewards, rtol=1e-5)
+        log(f"phase 20 {name} placement E={cpu_env.N} D={cpu_env.M} F={F} T={T} "
+            f"under mixed: card == CPU (moved {cpu.moved.sum()} in all, exact; "
+            f"final assignments exact; step times max rel diff "
+            f"{np.abs(gpu.latencies / cpu.latencies - 1).max():.3g}, tol 1e-5)")
+
+
+def run_placement(dev, card: str) -> dict:
+    """Phase 20: the launcher's ``run`` on the expert-placement env, fleet
+    8, 50 epochs, for each of the five agents under mixed and
+    one_slow_device (DDPG pretrained at the main path's budget, its selects
+    and updates through the K-NN kernel at m = 16); then 5 more epochs
+    under the profiler.  Returns the K-NN launches of DDPG's mixed run and
+    each run's numbers."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.knn_topk import ops as knn_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.launch import drl_control
+
+    F, T = PLACEMENT["fleet"], PLACEMENT["epochs"]
+    out, knn = {}, None
+    for scenario in PLACEMENT_RUN_SCENARIOS:
+        for agent in PLACEMENT_AGENTS:
+            knn_ops.LAUNCHES = fa_ops.LAUNCHES = wkv_ops.LAUNCHES = 0
+            res = drl_control.run(device=dev, agent=agent, scenario=scenario,
+                                  **PLACEMENT)
+            torch.cuda.synchronize()
+            launches = knn_ops.LAUNCHES
+            env = res["env"]
+            check_fleet_result(f"phase 20 {agent} {scenario}", res, F, T)
+            if fa_ops.LAUNCHES or wkv_ops.LAUNCHES:
+                raise AssertionError(f"{agent}: an LM kernel ran on the placement path")
+            want = PLACEMENT["offline_updates"] + T * (1 + U) if agent == "ddpg" else 0
+            if launches != want:
+                raise AssertionError(f"{agent} {scenario}: row_top2_regret launched "
+                                     f"{launches} times, expected {want}")
+            if agent == "ddpg" and scenario == "mixed":
+                knn = launches
+            log(f"phase 20 {agent} placement E={env.N} D={env.M} fleet={F} T={T} "
+                f"under {scenario} ({card}): {launches} K-NN launches at m = {env.M}")
+            prof = profile_fleet(env, res["agent"], res["states"], res["env_params"])
+            log_fleet_run(agent, res, prof)
+            out[(agent, scenario)] = dict(lane_epochs_per_s=res["lane_epochs_per_s"],
+                                          launches=launches, **prof)
+    return dict(knn_launches=knn, runs=out)
 
 
 def time_plane_steps(svc, env, on_card: bool, steps: int = 7) -> dict:
@@ -1065,6 +1184,16 @@ def check_flash(dev) -> dict:
              (2, 256, 8, 2, 192, True, torch.bfloat16),
              (2, 256, 4, 1, 256, False, torch.bfloat16),
              (3, 37, 4, 2, 256, True, torch.bfloat16),
+             # above 256: the CUDA-core kernel's wide form, both dtypes,
+             # both maskings, ragged S
+             (2, 256, 4, 2, 320, True, torch.float32),
+             (2, 200, 4, 1, 320, False, torch.float32),
+             (2, 256, 4, 2, 512, False, torch.float32),
+             (3, 37, 4, 2, 512, True, torch.float32),
+             (2, 256, 4, 2, 320, False, torch.bfloat16),
+             (2, 200, 4, 1, 320, True, torch.bfloat16),
+             (2, 256, 4, 2, 512, True, torch.bfloat16),
+             (3, 37, 4, 2, 512, False, torch.bfloat16),
              (B, S, H, Hkv, hd, True, torch.bfloat16)]
     gen = torch.Generator(device=dev).manual_seed(9)
 
@@ -1082,7 +1211,7 @@ def check_flash(dev) -> dict:
 
     max_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
     inputs = None
-    cores = ops.LAUNCHES_BF16_CUDA_CORES
+    cores, wide_before = ops.LAUNCHES_BF16_CUDA_CORES, ops.LAUNCHES_WIDE
     for b, s, h, hkv, d, causal, dtype in cases:
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device=dev).to(dtype)
                    for n in (h, hkv, hkv))
@@ -1093,6 +1222,10 @@ def check_flash(dev) -> dict:
     if ops.LAUNCHES_BF16_CUDA_CORES - cores != wide_bf16:
         raise AssertionError(f"{ops.LAUNCHES_BF16_CUDA_CORES - cores} bf16 launches on "
                              f"the CUDA-core kernel, expected {wide_bf16} (hd > 128)")
+    wide_cases = sum(1 for c in cases if c[4] > ops.HEAD_DIMS[-1])
+    if ops.LAUNCHES_WIDE - wide_before != wide_cases:
+        raise AssertionError(f"{ops.LAUNCHES_WIDE - wide_before} launches of the wide "
+                             f"form, expected {wide_cases} (hd > 256)")
     # q, k, v as slices of one fused bf16 projection [B, S, H + 2 Hkv, hd]
     qkv = torch.randn(2, 256, 8, 128, generator=gen, device=dev).bfloat16()
     before = ops.LAUNCHES_BF16
@@ -1196,45 +1329,53 @@ def time_phi3_prefill(dev, gen, sdpa) -> dict:
 
 
 def time_wide_heads(dev, gen, sdpa) -> dict:
-    """Phase 9, last part: head dim 256 at q, k, v [4, 2048, 32, 256],
-    causal, on the CUDA-core kernel in float32 and in bf16: kernel, plain,
-    SDPA and bound (float32 at the CUDA cores' 67 TFLOP/s; bf16 at the
-    tensor cores' 989, what the card could do for the same bf16 work)."""
+    """Phase 9, last part: head dims 256 (the CUDA-core kernel's widest
+    instantiation) and 512 (its wide form) at q, k, v [4, 2048, 32, hd],
+    causal, in float32 and in bf16: kernel, plain, SDPA and bound (float32
+    at the CUDA cores' 67 TFLOP/s; bf16 at the tensor cores' 989, what the
+    card could do for the same bf16 work)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref, ops
 
-    B, S, H, hd = LM["batch"], LM["prefill_len"], 32, 256
-    flops = 4 * B * H * hd * S * (S + 1) // 2
+    B, S, H = LM["batch"], LM["prefill_len"], 32
     out = {}
-    for dtype, peak in ((torch.float32, F32_OPS_PER_S),
-                        (torch.bfloat16, BF16_TC_OPS_PER_S)):
-        q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
-                   for _ in range(3))
-        before = (ops.LAUNCHES_PADDED, ops.STAGED_COPIES, ops.LAUNCHES_BF16_CUDA_CORES)
-        err = float((ops.flash_attention(q, k, v).float()
-                     - flash_attention_ref(q, k, v).float()).abs().max())
-        after = (ops.LAUNCHES_PADDED, ops.STAGED_COPIES, ops.LAUNCHES_BF16_CUDA_CORES)
-        if after != (before[0], before[1], before[2] + (dtype == torch.bfloat16)):
-            raise AssertionError(f"hd 256 {dtype}: padded/staged/CUDA-core counts "
-                                 f"{before} -> {after}")
-        qkv = (q, k, v)
-        t = dict(ms=eager_ms(lambda a=qkv: ops.flash_attention(*a), iters=5, warmup=1),
-                 plain_ms=eager_ms(lambda a=qkv: flash_attention_ref(*a), iters=3,
-                                   warmup=1),
-                 library_ms=eager_ms(lambda a=qkv: sdpa(*a), iters=5, warmup=1))
-        bytes_moved = 4 * B * S * H * hd * q.element_size()
-        t_ops, t_bytes = flops / peak, bytes_moved / HBM_BYTES_PER_S
-        t["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        t["max_abs_err"] = err
-        log(f"  [{B},{S},{H},{hd}] q, k, v {dtype} causal, CUDA-core kernel "
-            f"(flash_attention.cu), ms per call: kernel {t['ms']:.6f}  plain "
-            f"{t['plain_ms']:.6f}  library (SDPA) {t['library_ms']:.6f}  bound "
-            f"{t['bound_ms']:.6f} ({t['bound_by']}: {flops / 1e9:.1f} GFLOP at "
-            f"{peak / 1e12:.0f} TFLOP/s, {bytes_moved / 1e6:.1f} MB); "
-            f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}")
-        out[str(dtype).removeprefix("torch.")] = t
-        del q, k, v, qkv
-    torch.cuda.empty_cache()
+    for hd in (256, 512):
+        flops = 4 * B * H * hd * S * (S + 1) // 2
+        wide = hd > ops.HEAD_DIMS[-1]
+        for dtype, peak in ((torch.float32, F32_OPS_PER_S),
+                            (torch.bfloat16, BF16_TC_OPS_PER_S)):
+            q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+                       for _ in range(3))
+            counts = lambda: (ops.LAUNCHES_PADDED, ops.STAGED_COPIES,  # noqa: E731
+                              ops.LAUNCHES_BF16_CUDA_CORES, ops.LAUNCHES_WIDE)
+            before = counts()
+            err = float((ops.flash_attention(q, k, v).float()
+                         - flash_attention_ref(q, k, v).float()).abs().max())
+            want = (before[0], before[1], before[2] + (dtype == torch.bfloat16),
+                    before[3] + wide)
+            if counts() != want:
+                raise AssertionError(f"hd {hd} {dtype}: padded/staged/CUDA-core/wide "
+                                     f"counts {before} -> {counts()}, expected {want}")
+            qkv = (q, k, v)
+            t = dict(ms=eager_ms(lambda a=qkv: ops.flash_attention(*a), iters=5,
+                                 warmup=1),
+                     plain_ms=eager_ms(lambda a=qkv: flash_attention_ref(*a), iters=3,
+                                       warmup=1),
+                     library_ms=eager_ms(lambda a=qkv: sdpa(*a), iters=5, warmup=1))
+            bytes_moved = 4 * B * S * H * hd * q.element_size()
+            t_ops, t_bytes = flops / peak, bytes_moved / HBM_BYTES_PER_S
+            t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+            t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+            t["max_abs_err"] = err
+            form = "wide form" if wide else "kernel"
+            log(f"  [{B},{S},{H},{hd}] q, k, v {dtype} causal, CUDA-core {form} "
+                f"(flash_attention.cu), ms per call: kernel {t['ms']:.6f}  plain "
+                f"{t['plain_ms']:.6f}  library (SDPA) {t['library_ms']:.6f}  bound "
+                f"{t['bound_ms']:.6f} ({t['bound_by']}: {flops / 1e9:.1f} GFLOP at "
+                f"{peak / 1e12:.0f} TFLOP/s, {bytes_moved / 1e6:.1f} MB); "
+                f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}")
+            out[(hd, str(dtype).removeprefix("torch."))] = t
+            del q, k, v, qkv
+            torch.cuda.empty_cache()
     return out
 
 
@@ -1408,7 +1549,7 @@ def run_lm_path(dev, arch: str) -> dict:
     fa_ops.LAUNCHES = wkv_ops.LAUNCHES = knn_ops.LAUNCHES = 0
     fa_ops.LAUNCHES_BF16 = fa_ops.LAUNCHES_F32 = 0
     fa_ops.LAUNCHES_PADDED = fa_ops.STAGED_COPIES = 0
-    fa_ops.LAUNCHES_BF16_CUDA_CORES = 0
+    fa_ops.LAUNCHES_BF16_CUDA_CORES = fa_ops.LAUNCHES_WIDE = 0
     t0 = time.perf_counter()
     logits, kv = prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
@@ -1421,7 +1562,7 @@ def run_lm_path(dev, arch: str) -> dict:
         raise AssertionError(f"{arch} prefill_forward: {fa_ops.LAUNCHES_BF16} bf16 and "
                              f"{fa_ops.LAUNCHES_F32} float32 flash launches, expected "
                              f"{want} and 0")
-    launches_f32 = fa_ops.LAUNCHES_F32
+    launches_f32, launches_wide = fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_WIDE
     if cfg.family == "dense":
         log(f"  prefill_forward flash: {fa_ops.LAUNCHES_PADDED} padded launches, "
             f"{fa_ops.STAGED_COPIES} staged copies (head_dim {cfg.head_dim}, "
@@ -1475,6 +1616,7 @@ def run_lm_path(dev, arch: str) -> dict:
     del params
     torch.cuda.empty_cache()
     return dict(launches=launches, launches_f32=launches_f32,
+                launches_wide=launches_wide,
                 prefill_tok_s=B * S / t_prefill, decode=decode, drift=drift)
 
 
@@ -1673,6 +1815,10 @@ def main() -> int:
     check_structural_vs_cpu(dev)
     run_structural(dev, card)
     log(f"phase 19 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_placement_vs_cpu(dev)
+    placement = run_placement(dev, card)
+    log(f"phase 20 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -1682,11 +1828,18 @@ def main() -> int:
                 "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
 
     # launches: the K-NN kernel's on the training path (phase 6; phase 17
-    # logs the serving path's), each flash route's in the llama3-8b prefill
+    # logs the serving path's) and on DDPG's placement path (phase 20, its
+    # select shape [128, 16]), each flash route's in the llama3-8b prefill
+    # (the wide form's: no path has hd > 256)
     print(json.dumps({"kernels": [
         row("row_top2_regret", "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
             "src/repro/kernels/knn_topk/kernel.py:37", launches, kernel,
             kernel["timings"][25600]),
+        row("row_top2_regret_placement",
+            "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
+            "src/repro/kernels/knn_topk/kernel.py:37", placement["knn_launches"],
+            dict(max_abs_err=kernel["placement_max_abs_err"]),
+            kernel["timings"][128]),
         row("flash_attention",
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
             "src/repro/kernels/flash_attention/kernel.py:74", llama["launches"],
@@ -1695,6 +1848,10 @@ def main() -> int:
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/kernel.py:74", llama["launches_f32"],
             flash["f32"], flash["f32"]["timings"]),
+        row("flash_attention_wide",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:74", llama["launches_wide"],
+            flash["wide"][(512, "float32")], flash["wide"][(512, "float32")]),
         row("wkv6", "src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
             "src/repro/kernels/rwkv6_scan/kernel.py:49", rwkv["launches"], wkv,
             wkv["timings"]["prefill"]),

@@ -1,5 +1,5 @@
 # The paper's DRL control loop: the DDPG agent (Algorithm 1), its K-NN
-# action projection, and the fleet runner.
+# action projection, the fleet runner, and the expert-placement env.
 from repro_torch.core.api import (Agent, EpochDraws, agent_names, make_agent,
                                   make_epoch_step, register_agent)
 from repro_torch.core.ddpg import (DDPGConfig, DDPGState, OfflineDraws,
@@ -9,10 +9,13 @@ from repro_torch.core.knn_projection import (distance_to, knn_actions,
                                              knn_actions_exact,
                                              knn_assignments_exact,
                                              nearest_assignment)
+from repro_torch.core.placement import (ExpertPlacementEnv, PlacementParams,
+                                        jamba_placement_env)
 
 __all__ = [
     "Agent", "EpochDraws", "agent_names", "make_agent", "make_epoch_step",
     "register_agent", "DDPGConfig", "DDPGState", "OfflineDraws", "ddpg_init",
     "History", "run_online_fleet", "distance_to", "knn_actions",
     "knn_actions_exact", "knn_assignments_exact", "nearest_assignment",
+    "ExpertPlacementEnv", "PlacementParams", "jamba_placement_env",
 ]

@@ -12,8 +12,9 @@ functions over a config:
 
 Every tensor carries the fleet axis ``[F]``.  ``draws`` is one epoch's
 :class:`EpochDraws`, or None to draw from the ``torch.Generator`` ``gen``.
-``env_params`` is one EnvParams shared by every lane or a lane-stacked
-scenario fleet (``dsdps.scenarios``); learning agents ignore it, the
+``env_params`` is one scenario shared by every lane or a lane-stacked
+scenario fleet (``dsdps.scenarios.build_for``: EnvParams on a DSDPS env,
+PlacementParams on the expert-placement env); learning agents ignore it, the
 model-based baseline profiles and searches each lane's own cluster with
 it.  Registered: ``ddpg``, ``dqn``, ``graph_policy``, ``model_based``,
 ``round_robin``, ``stream_ac`` and ``stream_q``, which step an env, and
@@ -37,8 +38,12 @@ class EpochDraws(NamedTuple):
     explore_noise: torch.Tensor  # [F, N, M] uniform [0, 1) (DDPG)
     explore_move: torch.Tensor   # [F] int in [0, N·M) — the random move (DQN,
                                  # Stream Q(λ))
-    meas_z: torch.Tensor         # [F, 5] standard normal (× noise_sigma)
-    rate_z: torch.Tensor         # [F, S] standard normal (× rate jitter)
+    # the env's draws, standard normal: DSDPS envs take the measurement
+    # noise [F, 5] (× noise_sigma) and the rate walk [F, S] (× rate
+    # jitter); the expert-placement env the step-time noise [F] (×
+    # noise_sigma) and the load drift [F, E] (× load_jitter)
+    meas_z: torch.Tensor
+    rate_z: torch.Tensor
     replay_idx: torch.Tensor     # [F, U, B] int
     # [F, N, M] standard Gumbel: a categorical draw is argmax(gumbel +
     # logits), as jax.random.categorical computes it (Stream AC(λ)'s

@@ -2,7 +2,7 @@
 
 The reference's ``DDPGState`` / ``DQNState`` / ``StreamQState`` /
 ``StreamACState`` / ``GraphPolicyState`` / ``EnvParams`` /
-``GraphEnvParams`` pytrees, after
+``GraphEnvParams`` / ``PlacementParams`` / ``PlacementState`` pytrees, after
 ``jax.tree.map(np.asarray, ·)``, are read here by attribute name only —
 the port imports nothing of the reference.  A single lane's state (scalar
 ``epoch``) gains the fleet axis ``[1]``; a stacked fleet keeps its
@@ -21,6 +21,7 @@ from repro_torch.core.ddpg import DDPGState
 from repro_torch.core.dqn import DQNState
 from repro_torch.core.graph_policy import GraphPolicyState, tree_map
 from repro_torch.core.networks import FleetMLP
+from repro_torch.core.placement import PlacementParams, PlacementState
 from repro_torch.core.replay import Replay
 from repro_torch.core.stream_ac import StreamACState
 from repro_torch.core.stream_q import StreamQState
@@ -349,3 +350,29 @@ def graph_env_params_from_numpy(tree, device: str | torch.device
     return GraphEnvParams(**{f: torch.tensor(np.asarray(getattr(tree, f)),
                                              device=device)
                              for f in GraphEnvParams._fields})
+
+
+def placement_params_from_numpy(tree, device: str | torch.device
+                                ) -> PlacementParams:
+    """A port ``PlacementParams`` from a numpy ``PlacementParams``-shaped
+    tree (float32 leaves): one scenario, or a lane-stacked fleet,
+    broadcast-invariant fields single-copy as given."""
+    return PlacementParams(**{f: torch.tensor(np.asarray(getattr(tree, f)),
+                                              device=device)
+                              for f in PlacementParams._fields})
+
+
+def placement_params_to_numpy(params: PlacementParams) -> PlacementParams:
+    """The same fields as numpy arrays (a ``PlacementParams`` of arrays)."""
+    return PlacementParams(*(_a(x) for x in params))
+
+
+def placement_state_from_numpy(tree, device: str | torch.device
+                               ) -> PlacementState:
+    """A port ``PlacementState`` from a numpy one: a fleet's leaves, or one
+    lane's (``X [E, D]``), which gains the fleet axis."""
+    lone = np.asarray(tree.X).ndim == 2
+    return PlacementState(**{
+        f: torch.tensor(np.asarray(getattr(tree, f))[None] if lone
+                        else np.asarray(getattr(tree, f)), device=device)
+        for f in PlacementState._fields})

@@ -82,8 +82,10 @@ class OfflineDraws(NamedTuple):
     samples and ``U`` updates."""
 
     assignments: torch.Tensor   # [F, n, N] int, machine of each executor
-    meas_z: torch.Tensor        # [F, n, 5] standard normal
-    rate_z: torch.Tensor        # [F, n, S] standard normal
+    # standard normal, the env's shapes: [F, n, 5] and [F, n, S] on a DSDPS
+    # env, [F, n] and [F, n, E] on the expert-placement env
+    meas_z: torch.Tensor
+    rate_z: torch.Tensor
     replay_idx: torch.Tensor    # [F, U, B] int
 
 

@@ -22,8 +22,12 @@ stack.
 from a ``torch.Generator`` seeded with ``seed``: torch cannot replay the
 reference's threefry draws (``fold_in(PRNGKey(seed), lane)``).  So does
 :func:`sample_perturbed`, the one-scenario sampler the serving launcher
-registers its clusters with (the scheduling half of the reference's; the
-placement half waits for the placement env)."""
+registers its clusters with.
+
+:func:`build_for`, :func:`sample_perturbed` and :func:`scenario_names`
+take either env family: a DSDPS env (it has a ``topo``) gets the
+EnvParams fleets here, the expert-placement env the PlacementParams
+fleets of ``repro_torch.core.placement``."""
 from __future__ import annotations
 
 import math
@@ -143,15 +147,17 @@ def build(name: str, env, fleet: int, broadcast_invariant: bool = False,
 
 def build_for(env, name: str, fleet: int, broadcast_invariant: bool = False,
               **kwargs):
-    """:func:`build` for any DSDPS env, plain or structural.  A topology
-    that does not fit a structural env's envelope raises ``ValueError``
-    from ``params_for``.  (The reference also dispatches the placement
-    env's scenarios here; that env is not ported yet.)"""
-    if not hasattr(env, "topo"):
-        raise TypeError(f"no scenarios for {type(env).__name__}: the port "
-                        "has the DSDPS scheduling envs only")
-    return build(name, env, fleet, broadcast_invariant=broadcast_invariant,
-                 **kwargs)
+    """Scenario fleet for either env family: :func:`build` for a DSDPS env,
+    plain or structural (a topology that does not fit a structural env's
+    envelope raises ``ValueError`` from ``params_for``), and
+    ``placement.build_scenario`` for the expert-placement env."""
+    if hasattr(env, "topo"):
+        return build(name, env, fleet, broadcast_invariant=broadcast_invariant,
+                     **kwargs)
+    from repro_torch.core import placement
+    return placement.build_scenario(name, env, fleet,
+                                    broadcast_invariant=broadcast_invariant,
+                                    **kwargs)
 
 
 def workload_shift(env, factor: float = 1.5) -> EnvParams:
@@ -160,7 +166,7 @@ def workload_shift(env, factor: float = 1.5) -> EnvParams:
     return scale_rates(env.default_params(), factor)
 
 
-def sample_perturbed(env, base: EnvParams | None = None,
+def sample_perturbed(env, base=None,
                      service_sigma: float = 0.12, rate_sigma: float = 0.12,
                      straggler_prob: float = 0.25,
                      straggler_factor: float = 0.4,
@@ -168,18 +174,29 @@ def sample_perturbed(env, base: EnvParams | None = None,
                      rate_z: torch.Tensor | None = None,
                      straggler: bool | None = None,
                      machine: int | None = None,
-                     gen: torch.Generator | None = None) -> EnvParams:
+                     gen: torch.Generator | None = None,
+                     skew_z: torch.Tensor | None = None,
+                     load_z: torch.Tensor | None = None,
+                     device: int | None = None):
     """ONE perturbed scenario around ``base`` (default: the env's declared
-    parameters): lognormal jitter on the true service costs and arrival
-    rates, plus, with probability ``straggler_prob``, one machine slowed to
-    ``straggler_factor``.
+    parameters), plus, with probability ``straggler_prob``, one machine (or
+    device) slowed to ``straggler_factor``.
 
-    The draws are ``service_z [N]`` and ``rate_z [S]`` (standard normal),
-    the straggler coin ``straggler`` and the straggler's ``machine`` in
-    ``[0, M)``; those not passed in come from ``gen`` in that order, on the
-    generator's device (the reference draws them from four keys split off
-    one).  So a CPU generator gives the same scenario on any device."""
+    On a DSDPS env: lognormal jitter on the true service costs and arrival
+    rates; the draws are ``service_z [N]`` and ``rate_z [S]`` (standard
+    normal), the straggler coin ``straggler`` and its ``machine`` in ``[0,
+    M)``.  On the expert-placement env: lognormal jitter on each expert's
+    popularity (σ ``service_sigma``) and on the total load (σ
+    ``rate_sigma``); the draws are ``skew_z [E]`` and ``load_z`` (a
+    scalar), the coin ``straggler`` and its ``device`` in ``[0, D)``.
+    Draws not passed in come from ``gen`` in that order, on the generator's
+    device (the reference draws them from four keys split off one).  So a
+    CPU generator gives the same scenario on any device."""
     p = env.default_params() if base is None else base
+    if not hasattr(env, "topo"):
+        return _sample_placement(env, p, service_sigma, rate_sigma,
+                                 straggler_prob, straggler_factor, skew_z,
+                                 load_z, straggler, device, gen)
     dev = p.base_rates.device if gen is None else gen.device
     if service_z is None:
         service_z = torch.randn(env.N, generator=gen, device=dev)
@@ -198,18 +215,47 @@ def sample_perturbed(env, base: EnvParams | None = None,
     return lane
 
 
-def perturb_sampler(env, base: EnvParams | None = None, **kwargs):
+def _sample_placement(env, p, skew_sigma, load_sigma, straggler_prob,
+                      straggler_factor, skew_z, load_z, straggler, device, gen):
+    """The placement half of :func:`sample_perturbed`."""
+    from repro_torch.core import placement
+
+    dev = p.base_load.device if gen is None else gen.device
+    if skew_z is None:
+        skew_z = torch.randn(env.N, generator=gen, device=dev)
+    if load_z is None:
+        load_z = torch.randn((), generator=gen, device=dev)
+    if straggler is None:
+        straggler = bool(torch.rand((), generator=gen, device=dev)
+                         < straggler_prob)
+    lane = placement.perturb_skew(p, skew_z.to(p.base_load.device), skew_sigma)
+    load = torch.exp(load_z.to(p.base_load.device) * load_sigma
+                     - 0.5 * load_sigma ** 2)
+    lane = placement.scale_load(lane, load)
+    if straggler:
+        if device is None:
+            device = int(torch.randint(0, env.M, (), generator=gen, device=dev))
+        lane = placement.with_device_straggler(lane, device, straggler_factor)
+    return lane
+
+
+def perturb_sampler(env, base=None, **kwargs):
     """Curry :func:`sample_perturbed` into a ``sample(gen=None, **draws) ->
-    EnvParams`` callable (``draws``: ``service_z``, ``rate_z``,
-    ``straggler``, ``machine``)."""
-    def sample(gen: torch.Generator | None = None, **draws) -> EnvParams:
+    params`` callable (``draws``: ``service_z``, ``rate_z``, ``straggler``,
+    ``machine`` on a DSDPS env; ``skew_z``, ``load_z``, ``straggler``,
+    ``device`` on the placement env)."""
+    def sample(gen: torch.Generator | None = None, **draws):
         return sample_perturbed(env, base=base, gen=gen, **kwargs, **draws)
     return sample
 
 
 def scenario_names(env) -> tuple[str, ...]:
-    """Names valid for ``build(name, env, ...)``: the structural ones only
-    for an env with a padding envelope."""
+    """Names valid for ``build_for(env, name, ...)``: the structural ones
+    only for an env with a padding envelope, the placement ones only (and
+    exactly those) for the expert-placement env."""
+    if not hasattr(env, "topo"):
+        from repro_torch.core import placement
+        return tuple(sorted(placement.PLACEMENT_SCENARIOS))
     names = list(SCENARIOS)
     if hasattr(env, "params_for"):
         names += list(STRUCTURAL_SCENARIOS)

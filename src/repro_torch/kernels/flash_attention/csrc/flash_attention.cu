@@ -12,8 +12,9 @@
 //   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(scale_hd),
 // over j <= i when causal and over all j otherwise, written into a
 // contiguous o [B, S, H, hd].  hd is one of the instantiations (16, 32, 64,
-// 96, 128, 192, 256 in float32; 192, 256 in bfloat16); scale_hd is the head
-// dim before the wrapper zero-padded it.  The math is full float32, with the
+// 96, 128, 192, 256 in float32; 192, 256 in bfloat16) or any hd above 256
+// (the wide form below, both types); scale_hd is the head dim before the
+// wrapper zero-padded it.  The math is full float32, with the
 // reference's online softmax: per tile of keys
 //   m_cur = max(m, max_j s_j); alpha = exp(m - m_cur); p_j = exp(s_j - m_cur)
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j;  m = m_cur
@@ -39,6 +40,18 @@
 // work are launched first.  At hd 256 the tiles take (64*256 + 32*260 +
 // 32*256) * 4 B = 131.6 kB of shared memory (one CTA an SM) and a lane
 // holds 8 rows x 8 output columns of accumulator.
+//
+// Above hd 256 that layout outgrows the card (at hd 512: 262.7 kB of tiles,
+// 8 x 16 accumulators a lane), so the wide form keeps shared memory and
+// registers independent of hd.  The same CTA of 8 warps walks the output
+// columns in slices of 256 (8 a lane, as at hd 256); for each slice it
+// walks the keys in tiles of 32, and for each key tile forms the scores
+// over hd in chunks of 64 columns of q and k staged in shared memory,
+// recomputes the running max and sum (the same values for every slice:
+// the same scores in the same order), and adds P times the tile's V
+// columns of the slice.  Tiles: (64*64 + 32*68 + 32*256) * 4 B = 57.9 kB.
+// It recomputes QK^T once per slice: at hd 512 the products are 1.5x the
+// function's.  A simple form, not yet a fast one.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
@@ -198,6 +211,160 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+constexpr int kWideChunk = 64;              // q, k columns staged per pass
+constexpr int kWideSlice = 256;             // output columns per slice
+constexpr int kWideDPL = kWideSlice / 32;   // output columns per lane
+constexpr int kWideSmemFloats =
+    kQTile * kWideChunk + kKTile * (kWideChunk + 4) + kKTile * kWideSlice;
+
+template <typename T, bool CAUSAL>
+__global__ void __launch_bounds__(kWarps * 32)
+flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            Strides sq, Strides sk, Strides sv, Strides so,
+                            int S, int H, int group, int BH, int HD, float scale) {
+  constexpr int KS = kWideChunk + 4;        // padded row of the K chunk
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);   // [kQTile][kWideChunk]
+  float* Ks = Qs + kQTile * kWideChunk;          // [kKTile][KS]
+  float* Vs = Ks + kKTile * KS;                   // [kKTile][kWideSlice]
+
+  const int n_qtiles = (S + kQTile - 1) / kQTile;
+  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x / BH);
+  const int bh = static_cast<int>(blockIdx.x % BH);
+  const int b = bh / H, h = bh % H, hk = h / group;
+  const int q0 = qt * kQTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + warp * kRows;       // this warp's first query row
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* kb = k + b * sk.b + hk * sk.h;
+  const T* vb = v + b * sv.b + hk * sv.h;
+  const int k_end = CAUSAL ? min(S, q0 + kQTile) : S;
+
+  for (int c0 = 0; c0 < HD; c0 += kWideSlice) {
+    float m[kRows], l[kRows], acc[kRows][kWideDPL];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      m[r] = kNegInf;
+      l[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kWideDPL; ++c) acc[r][c] = 0.f;
+    }
+
+    for (int k0 = 0; k0 < k_end; k0 += kKTile) {
+      // warp-uniform: whether any of this warp's rows sees this key tile
+      const bool live = row0 < S && !(CAUSAL && row0 + kRows - 1 < k0);
+
+      // scores over hd, kWideChunk columns of q and k at a time
+      float s[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s[r] = 0.f;
+      for (int d0 = 0; d0 < HD; d0 += kWideChunk) {
+        __syncthreads();                    // the last chunk's readers are done
+        for (int i = threadIdx.x; i < kQTile * kWideChunk; i += blockDim.x) {
+          const int r = i / kWideChunk, d = d0 + i % kWideChunk, row = q0 + r;
+          Qs[i] = row < S && d < HD ? to_f32(qb[row * sq.s + d]) : 0.f;
+        }
+        for (int i = threadIdx.x; i < kKTile * kWideChunk; i += blockDim.x) {
+          const int j = i / kWideChunk, dc = i % kWideChunk, d = d0 + dc, key = k0 + j;
+          Ks[j * KS + dc] = key < S && d < HD ? to_f32(kb[key * sk.s + d]) : 0.f;
+        }
+        __syncthreads();
+        if (!live) continue;
+        const float* krow = Ks + lane * KS;
+        const float* qrows = Qs + warp * kRows * kWideChunk;
+#pragma unroll 4
+        for (int d = 0; d < kWideChunk; d += 4) {
+          const float4 kk = *reinterpret_cast<const float4*>(krow + d);
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const float4 qq =
+                *reinterpret_cast<const float4*>(qrows + r * kWideChunk + d);
+            s[r] = fmaf(qq.x, kk.x, s[r]);
+            s[r] = fmaf(qq.y, kk.y, s[r]);
+            s[r] = fmaf(qq.z, kk.z, s[r]);
+            s[r] = fmaf(qq.w, kk.w, s[r]);
+          }
+        }
+      }
+
+      // this slice's columns of the tile's V rows
+      __syncthreads();                      // the last tile's P.V readers are done
+      for (int i = threadIdx.x; i < kKTile * kWideSlice; i += blockDim.x) {
+        const int j = i / kWideSlice, d = c0 + i % kWideSlice, key = k0 + j;
+        Vs[i] = key < S && d < HD ? to_f32(vb[key * sv.s + d]) : 0.f;
+      }
+      __syncthreads();
+      if (!live) continue;
+
+      const int key = k0 + lane;
+      float p[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const bool valid = key < S && (!CAUSAL || key <= row0 + r);
+        const float sr = valid ? s[r] * scale : kNegInf;
+        const float m_cur = fmaxf(m[r], warp_max(sr));
+        const float alpha = expf(m[r] - m_cur);
+        p[r] = expf(sr - m_cur);
+        l[r] = l[r] * alpha + warp_sum(p[r]);
+        m[r] = m_cur;
+#pragma unroll
+        for (int c = 0; c < kWideDPL; ++c) acc[r][c] *= alpha;
+      }
+
+      // acc += P V over the slice: lane owns columns c0 + lane + 32c
+#pragma unroll 4
+      for (int j = 0; j < kKTile; ++j) {
+        float vv[kWideDPL];
+#pragma unroll
+        for (int c = 0; c < kWideDPL; ++c) vv[c] = Vs[j * kWideSlice + lane + 32 * c];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float pj = __shfl_sync(kFull, p[r], j);
+#pragma unroll
+          for (int c = 0; c < kWideDPL; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int row = row0 + r;
+      if (row >= S) break;
+      const float denom = fmaxf(l[r], 1e-30f);
+      T* orow = o + b * so.b + row * so.s + h * so.h;
+#pragma unroll
+      for (int c = 0; c < kWideDPL; ++c) {
+        const int d = c0 + lane + 32 * c;
+        if (d < HD) orow[d] = from_f32<T>(acc[r][c] / denom);
+      }
+    }
+  }
+}
+
+template <typename T, bool CAUSAL>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+                        const Strides* st, int B, int S, int H, int Hkv, int hd,
+                        int scale_hd, cudaStream_t stream) {
+  constexpr size_t smem = kWideSmemFloats * sizeof(float);
+  auto kernel = flash_attention_wide_kernel<T, CAUSAL>;
+  static bool configured = false;           // per instantiation
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const int BH = B * H;
+  const int n_qtiles = (S + kQTile - 1) / kQTile;
+  const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));
+  kernel<<<static_cast<unsigned>(BH) * n_qtiles, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, H, H / Hkv, BH, hd, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    const Strides* st, int B, int S, int H, int Hkv, int scale_hd,
@@ -221,11 +388,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }
 
 // float32 takes every instantiated head dim; bfloat16 only those above the
-// tensor-core kernel's 128.
+// tensor-core kernel's 128.  Any hd above 256 takes the wide form.
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
                         const Strides* st, int B, int S, int H, int Hkv, int hd,
                         int scale_hd, cudaStream_t stream) {
+  if (hd > 256)
+    return launch_wide<T, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
   switch (hd) {
     case 192: return launch<T, 192, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
     case 256: return launch<T, 256, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
@@ -263,7 +432,7 @@ int entry(const void* q, const void* k, const void* v, void* o, int causal, int 
 }  // namespace
 
 // Launches the float32 kernel on `stream` and returns cudaGetLastError()
-// (0 on success).  hd is an instantiated head dim, scale_hd in [1, hd] the
+// (0 on success).  hd is an instantiated head dim or above 256, scale_hd in [1, hd] the
 // one whose 1/sqrt scales the scores (the head dim before the wrapper
 // zero-padded it).  strides: 12 element strides, (b, s, h) of q, k, v and
 // o in that order.  S == 0 launches nothing.
@@ -274,8 +443,8 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
   return entry<float>(q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd, strides, stream);
 }
 
-// The same kernel on bfloat16 q, k, v and o, for hd 192 and 256 (the head
-// dims above flash_attention_sm90.cu's 128): loads and stores in bfloat16,
+// The same kernel on bfloat16 q, k, v and o, for hd 192, 256 and above 256
+// (the head dims above flash_attention_sm90.cu's 128): loads and stores in bfloat16,
 // the math in float32.  flash_attention_fwd_bf16 calls it; it reads plain
 // strided memory, so no TMA alignment applies.
 extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const void* v,

@@ -415,7 +415,8 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// flash_attention.cu's CUDA-core kernel on bfloat16, for hd 192 and 256.
+// flash_attention.cu's CUDA-core kernel on bfloat16, for hd 192, 256 and
+// above 256.
 extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const void* v,
                                            void* o, int causal, int B, int S, int H,
                                            int Hkv, int hd, int scale_hd,
@@ -425,9 +426,9 @@ extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const v
 // (0 on success; cudaErrorInvalidValue when a tensor map cannot be
 // encoded).  hd is an instantiated head dim, scale_hd in [1, hd] the one
 // whose 1/sqrt scales the scores.  strides: 12 element strides, (b, s, h)
-// of q, k, v and o in that order.  S == 0 launches nothing.  hd 192 and 256
-// go to flash_attention_fwd_cc_bf16 (CUDA cores, plain strided loads): the
-// wgmma kernel's tiles stop at 128.
+// of q, k, v and o in that order.  S == 0 launches nothing.  hd 192, 256 and
+// any hd above 256 go to flash_attention_fwd_cc_bf16 (CUDA cores, plain
+// strided loads): the wgmma kernel's tiles stop at 128.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
                                         int causal, int B, int S, int H, int Hkv, int hd,
                                         int scale_hd, const int64_t* strides,

@@ -17,9 +17,11 @@ instantiation (bfloat16 loads and stores, float32 math on the CUDA cores,
 plain strided loads, so no TMA staging; ``LAUNCHES_BF16_CUDA_CORES``).
 Any other head_dim up to 256 is zero-padded to the next native one (zero
 columns add nothing to q·kᵀ and give zero output columns, sliced off),
-with the scores still scaled by ``1/sqrt(true hd)`` (``LAUNCHES_PADDED``);
-above 256 the wrapper raises.  Padding and staging are copies in front of
-the same kernel, not another route.
+with the scores still scaled by ``1/sqrt(true hd)`` (``LAUNCHES_PADDED``).
+Any head_dim above 256, in either dtype, runs as it is on the CUDA-core
+kernel's wide form, whose shared memory and registers do not grow with hd
+(``LAUNCHES_WIDE``).  Padding and staging are copies in front of the same
+kernel, not another route.
 
 On CPU tensors it runs the plain version (``ref.py``).  There is no
 fallback from one route to another."""
@@ -55,6 +57,9 @@ LAUNCHES_BF16 = 0
 LAUNCHES_PADDED = 0
 STAGED_COPIES = 0
 LAUNCHES_BF16_CUDA_CORES = 0
+# launches above the largest native head dim (the CUDA-core kernel's wide
+# form, either dtype)
+LAUNCHES_WIDE = 0
 
 
 def _check_tma_layout(**tensors: torch.Tensor) -> None:
@@ -84,11 +89,9 @@ def _stage_for_tma(t: torch.Tensor) -> torch.Tensor:
 
 
 def _padded_head_dim(hd: int) -> int:
-    """The smallest native head dim that holds ``hd``."""
-    if hd > HEAD_DIMS[-1]:
-        raise ValueError(f"flash_attention kernel takes head_dim up to "
-                         f"{HEAD_DIMS[-1]}, got {hd}")
-    return next(d for d in HEAD_DIMS if d >= hd)
+    """The smallest native head dim that holds ``hd``; above the largest
+    (256), ``hd`` itself, which the kernel's wide form runs as it is."""
+    return next((d for d in HEAD_DIMS if d >= hd), hd)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,9 +100,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bfloat16), H a multiple of Hkv, the last axis contiguous →
     ``[B, S, H, hd]`` in q's dtype.  Query head h reads kv head
     ``h // (H // Hkv)``; scores are scaled by ``1/sqrt(hd)``.  On the card
-    hd may be anything from 1 to 256."""
+    hd may be any positive size."""
     global LAUNCHES, LAUNCHES_F32, LAUNCHES_BF16, LAUNCHES_PADDED
-    global LAUNCHES_BF16_CUDA_CORES
+    global LAUNCHES_BF16_CUDA_CORES, LAUNCHES_WIDE
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q, k, v of rank 4 [B, S, H, hd]")
     B, S, H, hd = q.shape
@@ -117,6 +120,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
     kd = _padded_head_dim(hd)
+    wide = kd > HEAD_DIMS[-1]
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs the head_dim axis contiguous")
     if q.numel() == 0:
@@ -140,6 +144,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_WIDE += wide
     if q.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
         LAUNCHES_BF16_CUDA_CORES += not tma

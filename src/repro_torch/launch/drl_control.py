@@ -1,14 +1,18 @@
 """The paper's control loop as a launcher: train a registry agent's fleet
-on a DSDPS topology on the GPU and report the schedule.
+on a DSDPS topology or on the expert-placement env on the GPU and report
+the schedule.
 
-Port of the DSDPS-app path of ``repro/launch/drl_control.py``: build the
-env (one topology, or ``--app structural``: the chain, diamond and wide
-fan-out DAGs padded into one envelope), initialize ``--fleet`` lanes of
+Port of ``repro/launch/drl_control.py``: build the env (one topology,
+``--app structural``: the chain, diamond and wide fan-out DAGs padded into
+one envelope, or ``--app placement``: Jamba-1.5-large's 16 experts on 16
+devices, ``core/placement.py``), initialize ``--fleet`` lanes of
 ``--agent`` (``ddpg``, ``dqn``, ``graph_policy``, ``model_based``,
 ``round_robin``, ``stream_ac``, ``stream_q``), each under its own scenario
 when ``--scenario`` names a heterogeneous fleet (``uniform``,
 ``one_slow_machine``, ``diurnal_rate``, ``high_noise``, ``mixed``, and on
-``structural`` ``dag_shapes``, a DAG per lane; the model-based baseline
+``structural`` ``dag_shapes``, a DAG per lane; on ``placement``
+``uniform``, ``one_slow_device``, ``skewed_routing``, ``traffic_surge``,
+``mixed``; the model-based baseline
 profiles and fits the lane's cluster), pretrain DDPG
 lanes offline on random transitions, run ``--epochs`` online decision
 epochs, and score every lane's final assignment against round-robin under
@@ -27,6 +31,9 @@ training lane's scenario registered as a cluster.
       --fleet 8 --scenario mixed --serve 256
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app structural \\
       --agent graph_policy --scenario dag_shapes --fleet 6
+  PYTHONPATH=src python -m repro_torch.launch.drl_control --app placement \\
+      --scenario mixed --fleet 8 --offline 1000 --offline-updates 100 \\
+      --epochs 50
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises."""
@@ -38,18 +45,21 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.core import (agent_names, convert, make_agent,
-                              run_online_fleet)
+from repro_torch.core import (agent_names, convert, jamba_placement_env,
+                              make_agent, run_online_fleet)
 from repro_torch.core import ddpg as ddpg_lib
+from repro_torch.core.placement import PLACEMENT_SCENARIOS
 from repro_torch.device import resolve_device
 from repro_torch.dsdps import (SchedulingEnv, StructuralSchedulingEnv, apps,
                                lane_params, scenarios)
 from repro_torch.dsdps.apps import default_workload
 
-APPS = (*apps.ALL_APPS, "structural")
+APPS = (*apps.ALL_APPS, "placement", "structural")
 
 
-def build_env(app: str, device) -> SchedulingEnv | StructuralSchedulingEnv:
+def build_env(app: str, device):
+    if app == "placement":
+        return jamba_placement_env(device=device)
     if app == "structural":
         # chain / diamond / wide fan-out padded into one envelope: the
         # DAG-shape fleet (--scenario dag_shapes gives each lane its own)
@@ -57,6 +67,46 @@ def build_env(app: str, device) -> SchedulingEnv | StructuralSchedulingEnv:
                                        device=device)
     topo = apps.ALL_APPS[app]()
     return SchedulingEnv(topo, default_workload(topo), device=device)
+
+
+def refusal(app: str, agent: str, offline: int = 0, serve: int = 0
+            ) -> str | None:
+    """Why the launcher refuses ``agent`` on ``app`` (with ``offline``
+    pretraining samples and ``serve`` requests), or None: setups that
+    would crash on the env, as the reference's launcher refuses them."""
+    if app == "placement":
+        if agent == "model_based":
+            return ("model_based profiles a DSDPS cluster; use it with the "
+                    "Storm apps")
+        if agent == "graph_policy":
+            return ("graph_policy message-passes over a topology DAG; use it "
+                    "with the Storm apps or --app structural")
+        if serve:
+            return ("--serve drives the DSDPS control plane; use it with the "
+                    "Storm apps")
+    if app == "structural":
+        if agent == "model_based":
+            return ("model_based fits its latency model on random "
+                    "assignments, which a padded envelope does not define; "
+                    "use it with the Storm apps")
+        if agent == "ddpg" and offline > 0:
+            return ("offline pretraining draws random assignments, which a "
+                    "padded envelope does not define (random rows on padded "
+                    "executors); --offline 0 runs DDPG on --app structural")
+        if serve:
+            return ("--serve registers plain EnvParams clusters of one "
+                    "topology; use it with a Storm app, not --app structural")
+    if serve and agent not in ("ddpg", "round_robin"):
+        return (f"--serve needs an agent that decides from (s_vec, cluster "
+                f"params) alone; {agent}'s select reads the live EnvState "
+                f"(see docs/serving.md)")
+    return None
+
+
+def nominal_load(params):
+    """The load a scenario scores under: a DSDPS env's spout base rates, the
+    placement env's per-expert base load."""
+    return params.base_rates if hasattr(params, "base_rates") else params.base_load
 
 
 def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
@@ -72,7 +122,11 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     scenario), the index of the best lane (lowest final/round-robin), the
     wall seconds of each phase (``init`` holds the model-based fit) and
     the online lane-epochs/s.  ``k`` sizes DDPG's K-NN beam and
-    ``offline`` pretrains DDPG lanes; the other agents ignore both."""
+    ``offline`` pretrains DDPG lanes; the other agents ignore both.  A setup
+    the launcher refuses (:func:`refusal`) raises ``ValueError``."""
+    why = refusal(app, agent, offline)
+    if why is not None:
+        raise ValueError(why)
     dev = resolve_device(device)
 
     def now() -> float:
@@ -109,7 +163,7 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     # score every lane under the scenario it ran, noise-free, round-robin
     # too, so the improvement compares like with like per lane
     p = env.default_params() if env_params is None else env_params
-    w = p.base_rates.expand(fleet, -1)
+    w = nominal_load(p).expand(fleet, -1)
     X = torch.as_tensor(hist.final_assignment, device=dev)
     X_rr = env.round_robin_assignment().expand(fleet, env.N, env.M)
     finals = env.evaluate(X, w, params=p).cpu().numpy().astype(np.float64)
@@ -157,18 +211,22 @@ def serve_trained(res: dict, n_requests: int, seed: int = 0) -> dict:
 def main(argv: list[str] | None = None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--app", default="cq_small", choices=list(APPS),
-                    help="one Storm topology, or 'structural': the "
-                         "envelope-padded DAG-shape env over "
-                         "apps.STRUCTURAL_APPS (pairs with --agent "
+                    help="one Storm topology, 'placement': the expert-"
+                         "placement env (16 experts on 16 devices), or "
+                         "'structural': the envelope-padded DAG-shape env "
+                         "over apps.STRUCTURAL_APPS (pairs with --agent "
                          "graph_policy and --scenario dag_shapes)")
     ap.add_argument("--agent", default="ddpg", choices=list(agent_names()),
                     help="registered control policy (core.api.make_agent)")
     ap.add_argument("--scenario", default=None,
                     choices=sorted({**scenarios.SCENARIOS,
-                                    **scenarios.STRUCTURAL_SCENARIOS}),
+                                    **scenarios.STRUCTURAL_SCENARIOS,
+                                    **PLACEMENT_SCENARIOS}),
                     help="heterogeneous params fleet, one scenario per lane, "
-                         "instead of a pure seed sweep (dag_shapes, a DAG "
-                         "per lane, needs --app structural)")
+                         "instead of a pure seed sweep (EnvParams for the "
+                         "DSDPS apps, PlacementParams for --app placement; "
+                         "dag_shapes, a DAG per lane, needs --app "
+                         "structural)")
     ap.add_argument("--broadcast-invariant", action="store_true",
                     help="keep scenario-invariant params fields single-copy")
     ap.add_argument("--offline", type=int, default=2000,
@@ -195,13 +253,9 @@ def main(argv: list[str] | None = None) -> dict:
         ap.error("--fleet must be >= 1")
     if args.serve < 0:
         ap.error("--serve must be >= 0")
-    if args.serve and args.agent not in ("ddpg", "round_robin"):
-        ap.error(f"--serve needs an agent that decides from (s_vec, "
-                 f"cluster params) alone; {args.agent}'s select reads the "
-                 f"live EnvState (see docs/serving.md)")
-    if args.serve and args.app == "structural":
-        ap.error("--serve registers plain EnvParams clusters of one "
-                 "topology; use it with a Storm app, not --app structural")
+    why = refusal(args.app, args.agent, args.offline, args.serve)
+    if why is not None:
+        ap.error(why)
     env = build_env(args.app, resolve_device(args.device))
     if args.scenario and args.scenario not in scenarios.scenario_names(env):
         ap.error(f"scenario {args.scenario!r} is not defined for "

@@ -44,6 +44,54 @@ def test_kernel_matches_plain_version(cuda_device, shape):
     assert float((got[2] - want[2]).abs().max()) <= 1e-6
 
 
+@pytest.mark.parametrize("shape", [(128, 16), (8, 16, 16), (8, 32, 16, 16)])
+def test_kernel_at_the_placement_shapes(cuda_device, shape):
+    """The expert-placement env's DDPG: 16 experts on 16 devices, so rows
+    of m = 16: the select's [F·16, 16] at F = 8 (flat and as the beam's
+    [F, E, D]) and an update's [F, B, E, D]; one launch each, on the
+    kernel and never on the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    p = torch.rand(shape, generator=g, device=cuda_device)
+    p.view(-1, 16)[::9] = torch.round(p.view(-1, 16)[::9] * 2) / 2   # ties
+    before = ops.LAUNCHES
+    got = ops.row_top2_regret(p)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    _assert_as_plain(got, row_top2_regret_ref(p))
+
+
+def test_ddpg_on_placement_on_the_card_equals_the_cpu(cuda_device):
+    """DDPG on the full-size placement env (E = D = 16), F = 2, T = 4 under
+    a mixed fleet: the same moves on the card as on the CPU, every select
+    and update through the K-NN kernel."""
+    from repro_torch.core import convert, jamba_placement_env, make_agent
+    from repro_torch.core import run_online_fleet
+    from repro_torch.dsdps import scenarios
+
+    F, T = 2, 4
+    rng = np.random.default_rng(3)
+    cpu_env = jamba_placement_env(device="cpu")
+    skew = torch.as_tensor(rng.normal(size=(F, 16)).astype(np.float32))
+    init = convert.ddpg_state_to_numpy(make_agent("ddpg", cpu_env, k_nn=8).init_fleet(
+        torch.Generator().manual_seed(0), F, "cpu"))
+    draws = [d._replace(meas_z=d.meas_z[:, 0]) for d in _epoch_draws(
+        rng, F, 16, 16, 16, 32, T)]
+    hists = []
+    for dev in ("cpu", cuda_device):
+        env = jamba_placement_env(device=dev)
+        before = ops.LAUNCHES
+        hists.append(run_online_fleet(
+            0, env, make_agent("ddpg", env, k_nn=8),
+            convert.ddpg_state_from_numpy(init, dev), T,
+            env_params=scenarios.build_for(env, "mixed", F, skew_z=skew.to(dev)),
+            draws=[d.to(dev) for d in draws])[1])
+    assert ops.LAUNCHES == before + 2 * T
+    np.testing.assert_array_equal(hists[1].moved, hists[0].moved)
+    np.testing.assert_array_equal(hists[1].final_assignment,
+                                  hists[0].final_assignment)
+    np.testing.assert_allclose(hists[1].latencies, hists[0].latencies, rtol=1e-5)
+
+
 def test_kernel_skips_the_launch_for_no_rows(cuda_device):
     before = ops.LAUNCHES
     best, second, regret = ops.row_top2_regret(
@@ -247,14 +295,71 @@ def test_flash_routes_count_their_own_launches(cuda_device):
         counts[0] + 3, counts[1] + 1, counts[2] + 2)
 
 
-def test_flash_wrapper_refuses_head_dims_the_kernel_lacks(cuda_device):
-    """Up to 256 every head_dim runs (padded where not native); above, no
-    config of either package goes, and the wrapper raises."""
-    q = torch.zeros(1, 8, 2, 264, device=cuda_device)
-    before = fa_ops.LAUNCHES
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        fa_ops.flash_attention(q, q, q)
-    assert fa_ops.LAUNCHES == before
+def test_flash_wrapper_runs_hd_264_on_the_wide_form(cuda_device):
+    """The kernel lacks no head_dim: up to 256 every one runs (padded where
+    not native), and above 256, where the wrapper once refused, hd 264 runs
+    as it is on the wide form, one launch, nothing padded."""
+    g = torch.Generator(device=cuda_device).manual_seed(264)
+    q = torch.randn(1, 8, 2, 264, generator=g, device=cuda_device)
+    before = (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE, fa_ops.LAUNCHES_PADDED)
+    got = fa_ops.flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE, fa_ops.LAUNCHES_PADDED) == (
+        before[0] + 1, before[1] + 1, before[2])
+    torch.testing.assert_close(got, flash_attention_ref(q, q, q), atol=2e-5,
+                               rtol=2e-5)
+
+
+# above 256 the CUDA-core kernel's wide form: column slices of 256, scores
+# over chunks of 64 columns; both dtypes, both maskings, ragged S, S below
+# one tile, one row, GQA and MQA
+FLASH_WIDE_CASES = [
+    (2, 256, 4, 2, 320, True, torch.float32),
+    (2, 200, 4, 1, 320, False, torch.float32),
+    (2, 256, 4, 2, 512, False, torch.float32),
+    (3, 37, 4, 2, 512, True, torch.float32),
+    (1, 1, 2, 1, 300, True, torch.float32),
+    (1, 130, 2, 2, 257, True, torch.float32),
+    (2, 256, 4, 2, 320, False, torch.bfloat16),
+    (2, 200, 4, 1, 320, True, torch.bfloat16),
+    (2, 256, 4, 2, 512, True, torch.bfloat16),
+    (3, 37, 4, 2, 512, False, torch.bfloat16),
+    (1, 64, 2, 1, 1000, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,dtype", FLASH_WIDE_CASES)
+def test_flash_wide_head_dims_match_plain_version(cuda_device, B, S, H, Hkv, hd,
+                                                  causal, dtype):
+    """hd above 256 in either dtype: one launch of the wide form (counted
+    on its own; bf16 through the bf16 entry point onto the CUDA cores),
+    nothing padded or staged, the plain version's answer."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + hd)
+    q, k, v = (torch.randn(B, S, h, hd, generator=g, device=cuda_device).to(dtype)
+               for h in (H, Hkv, Hkv))
+    before = (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE, fa_ops.LAUNCHES_PADDED,
+              fa_ops.STAGED_COPIES, fa_ops.LAUNCHES_BF16_CUDA_CORES)
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE, fa_ops.LAUNCHES_PADDED,
+            fa_ops.STAGED_COPIES, fa_ops.LAUNCHES_BF16_CUDA_CORES) == (
+        before[0] + 1, before[1] + 1, before[2], before[3],
+        before[4] + (dtype == torch.bfloat16))
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    want = flash_attention_ref(q, k, v, causal=causal)
+    rtol, atol = FLASH_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_wide_form_reads_strided_views(cuda_device):
+    """q, k, v as slices of one fused bf16 projection at hd 320."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn(2, 96, 8, 320, generator=g, device=cuda_device).bfloat16()
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = fa_ops.flash_attention(q, k, v)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
+    rtol, atol = FLASH_TOLS[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
 @pytest.mark.parametrize("hd", [136, 192, 256])

@@ -138,15 +138,39 @@ def test_flash_cpu_path_runs_the_plain_version_and_counts_no_launch():
 def test_flash_wrapper_pads_head_dims_up_to_256_and_refuses_above():
     """On the card a head_dim between native ones is zero-padded to the
     next: 136 to 192 and 200 to 256 (above the bf16 tensor-core kernel's
-    128, on the CUDA-core kernel); above 256 the wrapper raises.  The
+    128, on the CUDA-core kernel); above 256, where the wrapper once
+    refused, the rule keeps the head dim as it is, for the wide form.  The
     choice reads the head dim alone, so it runs here."""
     assert fa_ops.HEAD_DIMS[-3:] == (128, 192, 256)
     assert fa_ops._padded_head_dim(136) == 192
     assert fa_ops._padded_head_dim(200) == 256
     assert fa_ops._padded_head_dim(256) == 256
     assert fa_ops._padded_head_dim(100) == 128
-    with pytest.raises(ValueError, match="head_dim up to 256"):
-        fa_ops._padded_head_dim(264)
+    assert fa_ops._padded_head_dim(264) == 264
+    assert fa_ops._padded_head_dim(512) == 512
+
+
+@pytest.mark.parametrize("hd,causal,dtype", [(320, True, "float32"),
+                                             (512, False, "float32"),
+                                             (320, False, "bfloat16"),
+                                             (512, True, "bfloat16")])
+def test_flash_wide_head_dims_plain_route_matches_pallas_kernel(hd, causal,
+                                                                dtype):
+    """Above 256 the card runs the CUDA-core kernel's wide form; on CPU
+    tensors the wrapper's plain route computes the same function at any
+    head dim, held to the Pallas kernel (interpret mode) and its oracle, and
+    counts no launch."""
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(5, 1, 128, 2, 1, hd, dtype)
+    before = (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE)
+    got = fa_ops.flash_attention(qt, kt, vt, causal=causal)
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE) == before
+    assert got.dtype == TORCH[dtype] and got.shape == qt.shape
+    got = to_numpy(got.float())
+    pallas = jax_flash(qj, kj, vj, causal=causal, q_blk=64, kv_blk=64)
+    oracle = attention_ref(qj, kj, vj, causal=causal)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   atol=TOLS[dtype], rtol=TOLS[dtype])
 
 
 def test_flash_routes_are_chosen_by_dtype_alone():

@@ -18,7 +18,9 @@ resulting numbers to the port as ``EpochDraws`` / ``OfflineDraws``:
     ``gumbel(k_rand, (N·M,))`` from the second key of ``split(k_act)``
     (core/stream_ac.py, core/graph_policy.py);
   * ``split(k_step)`` → measurement noise ``normal(·, (5,))``, rate walk
-    ``normal(·, (S,))`` (dsdps/env.py, simulator.py, workload.py);
+    ``normal(·, (S,))`` (dsdps/env.py, simulator.py, workload.py); on the
+    expert-placement env the step-time noise ``normal(·, ())`` and the load
+    drift ``normal(·, (E,))`` (core/placement.py): ``meas_shape=()``;
   * ``split(k_upd, U)`` → ``randint(k, (B,), 0, max(size, 1))``
     (core/replay.py);
   * ``offline_pretrain``: ``k_env, k_upd = split(key)``, one
@@ -132,13 +134,16 @@ def carried_fleet(jcfg, fleet: int, seed: int = 0):
 # --------------------------------------------------------------------------
 def jax_epoch_draws(keys, T: int, U: int, B: int, N: int, M: int, S: int,
                     eps=None, epoch0: int = 0, size0: int = 0,
-                    cap: int = 1000, gumbel: str = "act"):
+                    cap: int = 1000, gumbel: str = "act",
+                    meas_shape: tuple = (N_MEAS,)):
     """The per-epoch draws ``run_online_fleet(keys, ...)`` makes for every
     lane, as ``T`` port ``EpochDraws``.  ``eps`` is the reference's
     EpsilonSchedule; the replay size before epoch t's update is
     ``min(size0 + t + 1, cap)`` (one store per epoch).  ``gumbel`` names
     the key of the categorical draw: ``"act"`` (Stream AC(λ)) or
-    ``"rand"`` (graph_policy's random move, reshaped to ``[N, M]``)."""
+    ``"rand"`` (graph_policy's random move, reshaped to ``[N, M]``).
+    ``meas_shape`` is one lane's measurement draw: ``(5,)`` on a DSDPS env,
+    ``()`` on the expert-placement env (whose ``S`` is its expert count)."""
     eps = jexpl.EpsilonSchedule() if eps is None else eps
     lanes = []
     for lane_key in jnp.asarray(keys):
@@ -158,7 +163,7 @@ def jax_epoch_draws(keys, T: int, U: int, B: int, N: int, M: int, S: int,
             g = (jax.random.gumbel(k_act, (N, M)) if gumbel == "act" else
                  jax.random.gumbel(k_noise, (N * M,)).reshape(N, M))
             per_epoch.append((add, noise, move,
-                              jax.random.normal(k_meas, (N_MEAS,)),
+                              jax.random.normal(k_meas, meas_shape),
                               jax.random.normal(k_w, (S,)), jnp.stack(idx), g))
         lanes.append(per_epoch)
     out = []
@@ -170,8 +175,10 @@ def jax_epoch_draws(keys, T: int, U: int, B: int, N: int, M: int, S: int,
 
 
 def jax_offline_draws(keys, n: int, n_updates: int, B: int, N: int, M: int,
-                      S: int, cap: int = 1000) -> OfflineDraws:
-    """The draws ``offline_pretrain_fleet(keys, ...)`` makes, per lane."""
+                      S: int, cap: int = 1000,
+                      meas_shape: tuple = (N_MEAS,)) -> OfflineDraws:
+    """The draws ``offline_pretrain_fleet(keys, ...)`` makes, per lane
+    (``meas_shape`` as in :func:`jax_epoch_draws`)."""
     take = min(n, cap)
     lanes = []
     for key in jnp.asarray(keys):
@@ -181,7 +188,7 @@ def jax_offline_draws(keys, n: int, n_updates: int, B: int, N: int, M: int,
             k_a, k_step = jax.random.split(k)
             assign.append(jax.random.randint(k_a, (N,), 0, M))
             k_meas, k_w = jax.random.split(k_step)
-            meas.append(jax.random.normal(k_meas, (N_MEAS,)))
+            meas.append(jax.random.normal(k_meas, meas_shape))
             rate.append(jax.random.normal(k_w, (S,)))
         idx = [jax.random.randint(k, (B,), 0, max(take, 1))
                for k in jax.random.split(k_upd, n_updates)]

@@ -3,6 +3,8 @@ observations, the envelope-padded env (GraphEnvParams, the dense-relaxation
 latency model, step), the dag_shapes scenario, the graph policy on a
 structural fleet (against the reference's run_online_fleet, and lane by
 lane against single runs) and the launcher's ``--app structural``."""
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +22,7 @@ from repro.core.agent import run_online_fleet as jax_run_online_fleet
 from repro.dsdps import apps as japps
 from repro.dsdps import scenarios as jscen
 from repro.dsdps.structural import StructuralSchedulingEnv as JStructEnv
+from repro.launch import drl_control as jax_drl_control
 from repro_torch.core import EpochDraws, make_agent, run_online_fleet
 from repro_torch.core import convert
 from repro_torch.core import graph_policy as tgp
@@ -361,3 +364,39 @@ def test_launcher_refuses(capsys, argv, message):
     with pytest.raises(SystemExit):
         drl_control.main(["--device", "cpu", "--fleet", "2", "--epochs", "2", *argv])
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("agent,message", [
+    ("ddpg", "offline pretraining draws random assignments"),
+    ("model_based", "model_based fits its latency model on random assignments"),
+])
+def test_launcher_refuses_structural_setups_that_crash(capsys, monkeypatch, agent,
+                                                       message):
+    """Two setups the structural env cannot run: DDPG's offline pretraining
+    (random assignments, which the padded envelope does not define) and
+    the model-based fit.  The port refuses both at argparse and in
+    ``run``; the reference's launcher takes them and raises AttributeError
+    on the same arguments (both draw random assignments: the offline
+    samples, the model's profiling samples)."""
+    args = ["--app", "structural", "--agent", agent, "--fleet", "1", "--epochs",
+            "1", "--offline", "4", "--offline-updates", "1"]
+    with pytest.raises(SystemExit):
+        drl_control.main(["--device", "cpu", *args])
+    assert message in capsys.readouterr().err
+    with pytest.raises(ValueError, match=message):
+        drl_control.run(app="structural", agent=agent, fleet=1, epochs=1,
+                        offline=4, offline_updates=1, device="cpu")
+    monkeypatch.setattr(sys, "argv", ["drl_control", *args])
+    with pytest.raises(AttributeError, match="random_assignment"):
+        jax_drl_control.main()
+
+
+def test_launcher_runs_structural_ddpg_without_offline_pretraining(capsys):
+    """What the refusal advises: ``--offline 0`` runs DDPG on the
+    structural env, every lane scored under its own DAG."""
+    res = drl_control.main(["--device", "cpu", "--app", "structural", "--agent",
+                            "ddpg", "--offline", "0", "--scenario", "dag_shapes",
+                            "--fleet", "3", "--epochs", "2", "--k", "4"])
+    assert "final latency" in capsys.readouterr().out
+    assert res["seconds"]["offline"] < 1.0 and np.isfinite(res["finals"]).all()
+    assert len(set(res["rrs"])) == 3
