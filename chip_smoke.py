@@ -53,7 +53,14 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   DDPG, DQN, round-robin, Stream Q(λ) and Stream AC(λ) card against CPU on
   the same draws under a mixed fleet, then each through
   ``drl_control.run`` with 8 lanes under ``mixed`` and ``one_slow_device``,
-  profiled, DDPG's selects and updates through the K-NN kernel at m = 16.
+  profiled, DDPG's selects and updates through the K-NN kernel at m = 16;
+* fleet checkpoints: ``drl_control.run`` at ``cq_large`` with 8 DDPG lanes
+  for 30 epochs saving every 10, and killed after 20 then resumed in fresh
+  objects, held to uninterrupted runs (moves and final assignments exact,
+  floats within the gap between two uninterrupted card runs), the K-NN
+  kernel launched 160 times across the kill; the card's checkpoint
+  restored into CPU templates; the saves timed, and the loop beside each
+  part of a write; then every agent killed and resumed at a small size.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -108,6 +115,17 @@ PLACEMENT = dict(app="placement", fleet=8, epochs=50, offline=1000,
                  offline_updates=100)
 PLACEMENT_AGENTS = ("ddpg", "dqn", "round_robin", "stream_q", "stream_ac")
 PLACEMENT_RUN_SCENARIOS = ("mixed", "one_slow_device")
+# fleet checkpoints: the main path's DDPG fleet for 30 epochs saved every 10,
+# killed after 20 and resumed; then every agent the port runs at a small
+# size (F=2, T=4, saved every 2, killed after 2)
+CHECKPOINT = dict(epochs=30, every=10, killed_at=20)
+CHECKPOINT_SMALL = dict(fleet=2, epochs=4, every=2, killed_at=2)
+CHECKPOINT_AGENTS = (
+    *[("cq_small", a, "one_slow_machine") for a in
+      ("ddpg", "dqn", "graph_policy", "model_based", "round_robin", "stream_ac",
+       "stream_q")],
+    ("structural", "graph_policy", "dag_shapes"),
+    *[("placement", a, "mixed") for a in PLACEMENT_AGENTS])
 
 
 def log(msg: str) -> None:
@@ -1019,6 +1037,356 @@ def run_placement(dev, card: str) -> dict:
     return dict(knn_launches=knn, runs=out)
 
 
+def run_gap(a: dict, b: dict, skip_a: int = 0) -> dict:
+    """How far two runs of the launcher (or ``run_online_fleet``) differ:
+    the first epoch whose moves differ (None when none do), whether the
+    final assignments are equal, and the largest absolute difference of
+    the rewards, the latencies and any agent-state leaf.  ``skip_a`` drops
+    ``a``'s first epochs (a resumed ``b`` holds only the later ones)."""
+    from repro_torch.checkpoint import named_leaves
+
+    ha, hb = a["history"], b["history"]
+    diff = np.flatnonzero((ha.moved[:, skip_a:] != hb.moved).any(axis=0))
+    la, lb = named_leaves(a["states"]), named_leaves(b["states"])
+    if [n for n, _ in la] != [n for n, _ in lb]:
+        raise AssertionError("the two runs' states hold other leaves")
+    states = max(float((x.detach().double() - y.detach().double()).abs().max())
+                 for (_, x), (_, y) in zip(la, lb) if x.numel())
+    return dict(first_move_diff=None if diff.size == 0 else int(diff[0]) + skip_a,
+                final_equal=bool(np.array_equal(ha.final_assignment, hb.final_assignment)),
+                rewards=float(np.abs(ha.rewards[:, skip_a:] - hb.rewards).max()),
+                latencies=float(np.abs(ha.latencies[:, skip_a:] - hb.latencies).max()),
+                states=states)
+
+
+def check_within(what: str, gap: dict, bar: dict) -> None:
+    """Moves and final assignments exact; rewards, latencies and state
+    leaves within the bar that two uninterrupted card runs set."""
+    if gap["first_move_diff"] is not None or not gap["final_equal"]:
+        raise AssertionError(f"{what}: moves differ from epoch "
+                             f"{gap['first_move_diff']} (final assignments equal: "
+                             f"{gap['final_equal']})")
+    for key in ("rewards", "latencies", "states"):
+        if not gap[key] <= bar[key]:
+            raise AssertionError(f"{what}: {key} differ by {gap[key]!r}, beyond the "
+                                 f"card-to-card bar {bar[key]!r}")
+
+
+@contextlib.contextmanager
+def timed_saves():
+    """Times every ``FleetCheckpoint.save`` on the caller's thread (ms),
+    into the list it yields."""
+    from repro_torch.checkpoint import FleetCheckpoint
+
+    save, out = FleetCheckpoint.save, []
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        save(self, *args, **kwargs)
+        out.append((time.perf_counter() - t0) * 1e3)
+
+    FleetCheckpoint.save = timed
+    try:
+        yield out
+    finally:
+        FleetCheckpoint.save = save
+
+
+def time_saves(res: dict, root: str, n: int = 3) -> dict:
+    """Bytes of one DDPG checkpoint at the main path's size, and ms per save
+    on the caller's thread written synchronously and asynchronously (each
+    asynchronous save into an empty queue), and ms from its return until
+    the worker's write is on disk."""
+    from repro_torch.checkpoint import FleetCheckpoint
+
+    env, states = res["env"], res["states"]
+    env_state = env.reset(MAIN["fleet"])
+    gen = torch.Generator(device=env.device).manual_seed(0)
+    sync_ck = FleetCheckpoint(os.path.join(root, "sync"), use_async=False)
+    sync_ms = []
+    for epoch in range(1, n + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync_ck.save(epoch, states, env_state, gen)
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    step = os.path.join(root, "sync", f"step_{n:08d}")
+    nbytes = sum(os.path.getsize(os.path.join(step, f)) for f in os.listdir(step))
+    async_ck = FleetCheckpoint(os.path.join(root, "async"))
+    caller_ms, write_ms = [], []
+    try:
+        for epoch in range(1, n + 1):
+            async_ck.wait()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            async_ck.save(epoch, states, env_state, gen)
+            t1 = time.perf_counter()
+            async_ck.wait()
+            t2 = time.perf_counter()
+            caller_ms.append((t1 - t0) * 1e3)
+            write_ms.append((t2 - t1) * 1e3)
+    finally:
+        async_ck.close()
+    return dict(bytes=nbytes, sync_ms=sync_ms, async_caller_ms=caller_ms,
+                async_write_ms=write_ms)
+
+
+def probe_write_contention(res: dict, root: str, epochs: int = 10) -> dict:
+    """Ms per online epoch of the main path alone, then beside a background
+    thread that repeats one part of an asynchronous write of its
+    checkpoint without pause: the copies of the leaves into pinned memory on
+    a side stream, their crc32, their ``np.save``, the whole write (crc,
+    files, manifest), and a pure-Python loop (which holds the interpreter
+    lock).  Says which part of a write slows the thread that dispatches the
+    epochs."""
+    import threading
+    import zlib
+
+    from repro_torch.checkpoint import Checkpointer, named_leaves
+    from repro_torch.core import run_online_fleet
+
+    env, agent, states = res["env"], res["agent"], res["states"]
+    gen = torch.Generator(device=env.device).manual_seed(4)
+    leaves = [x.detach() for _, x in named_leaves(states)]
+    pinned = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True) for x in leaves]
+    side = torch.cuda.Stream(env.device)
+    names = [str(i) for i in range(len(leaves))]
+    writer = Checkpointer(os.path.join(root, "probe"), keep=1)
+
+    def d2h():
+        with torch.cuda.stream(side):
+            for buf, x in zip(pinned, leaves):
+                buf.copy_(x, non_blocking=True)
+        side.synchronize()
+
+    def busy_python():
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 0.05:
+            sum(range(1000))
+
+    parts = {"d2h": d2h,
+             "crc32": lambda: [zlib.crc32(b.numpy()) for b in pinned],
+             "np.save": lambda: [np.save(os.path.join(root, f"probe_{i}.npy"), b.numpy(),
+                                         allow_pickle=False) for i, b in enumerate(pinned)],
+             "write": lambda: writer._write(1, names, pinned),
+             "python": busy_python}
+
+    def epoch_ms() -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_online_fleet(gen, env, agent, states, epochs)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / epochs * 1e3
+
+    out = {"alone": epoch_ms()}
+    for name, fn in parts.items():
+        stop = threading.Event()
+
+        def repeat(fn=fn, stop=stop):
+            while not stop.is_set():
+                fn()
+
+        th = threading.Thread(target=repeat)
+        th.start()
+        try:
+            out[name] = epoch_ms()
+        finally:
+            stop.set()
+            th.join()
+    out["alone again"] = epoch_ms()
+    return out
+
+
+def check_card_to_cpu_restore(res: dict, directory: str) -> int:
+    """Restores the card's last checkpoint into CPU agent and env templates
+    (the generator into a CUDA one: a CPU generator is refused) and holds
+    every agent-state leaf to the card's, bit for bit.  Returns the number
+    of leaves."""
+    from repro_torch.checkpoint import FleetCheckpoint, named_leaves
+    from repro_torch.core import make_agent
+    from repro_torch.launch import drl_control
+
+    cpu_env = drl_control.build_env(MAIN["app"], "cpu")
+    template = make_agent("ddpg", cpu_env, k_nn=MAIN["k"]).init_fleet(
+        torch.Generator().manual_seed(1), MAIN["fleet"], "cpu")
+    ck = FleetCheckpoint(directory, use_async=False)
+    try:
+        ck.restore(template, cpu_env.reset(MAIN["fleet"]), torch.Generator())
+    except ValueError as e:
+        if "same device type" not in str(e):
+            raise
+    else:
+        raise AssertionError("a CUDA generator's state restored into a CPU generator")
+    epoch, states, _, _ = ck.restore(template, cpu_env.reset(MAIN["fleet"]),
+                                     torch.Generator(device="cuda"))
+    if epoch != CHECKPOINT["epochs"]:
+        raise AssertionError(f"the newest checkpoint is epoch {epoch}")
+    got, want = named_leaves(states), named_leaves(res["states"])
+    for (name, a), (_, b) in zip(got, want):
+        if a.device.type != "cpu" or not torch.equal(a, b.detach().cpu()):
+            raise AssertionError(f"card -> CPU restore: leaf {name} differs")
+    return len(got)
+
+
+def check_small_resumes(dev, root: str) -> None:
+    """Every agent the port runs, at F=2, T=4 from the generator's draws on
+    the card: killed after 2 epochs (saved every 2) and resumed into fresh
+    templates, against three uninterrupted runs.  The graph policy sums
+    messages with ``index_add`` (atomic on the card, in no fixed order), so
+    its float leaves may differ from run to run: the resumed run must be as
+    close to one of the uninterrupted runs as they come to each other, its
+    moves and final assignments equal to all of theirs."""
+    import copy
+    import itertools
+
+    from repro_torch.checkpoint import FleetCheckpoint
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.dsdps import scenarios
+    from repro_torch.launch import drl_control
+
+    F, T, every, kill = (CHECKPOINT_SMALL[k] for k in ("fleet", "epochs", "every",
+                                                       "killed_at"))
+    for i, (app, name, scenario) in enumerate(CHECKPOINT_AGENTS):
+        env = drl_control.build_env(app, dev)
+        params = scenarios.build_for(env, scenario, F)
+        agent = make_agent(name, env, **({"k_nn": 4, "batch": 8} if name == "ddpg" else {}))
+        init = agent.init_fleet(torch.Generator(device=dev).manual_seed(0), F, dev,
+                                env_params=params)
+
+        def run(states, n, gen=None, **kw):
+            gen = torch.Generator(device=dev).manual_seed(1) if gen is None else gen
+            st, hist = run_online_fleet(gen, env, agent, states, n, env_params=params,
+                                        **kw)
+            return dict(states=st, history=hist)
+
+        uninterrupted = [run(copy.deepcopy(init), T) for _ in range(3)]
+        pairs = [run_gap(a, b) for a, b in itertools.combinations(uninterrupted, 2)]
+        bar = {k: max(g[k] for g in pairs) for k in ("rewards", "latencies", "states")}
+        directory = os.path.join(root, f"small_{i}")
+        ck = FleetCheckpoint(directory, every=every)
+        run(copy.deepcopy(init), kill, checkpoint=ck)
+        ck.close()
+        epoch, states, env_state, gen = FleetCheckpoint(directory).restore(
+            copy.deepcopy(init), env.reset(F, params), torch.Generator(device=dev))
+        resumed = run(states, T - epoch, gen=gen, env_state=env_state,
+                      start_epoch=epoch)
+        gaps = [run_gap(u, resumed, skip_a=epoch) for u in uninterrupted]
+        for g in pairs + gaps:
+            check_within(f"phase 21 {name} on {app}: moves", g,
+                         dict(rewards=np.inf, latencies=np.inf, states=np.inf))
+        near = {k: min(g[k] for g in gaps) for k in ("rewards", "latencies", "states")}
+        check_within(f"phase 21 {name} on {app}", dict(near, first_move_diff=None,
+                                                       final_equal=True), bar)
+        log(f"phase 21 {name} on {app} under {scenario}, F={F} T={T} killed at "
+            f"{epoch}: resumed == uninterrupted (moves exact, "
+            f"{int(uninterrupted[0]['history'].moved.sum())} in all); three "
+            f"uninterrupted runs differ by up to rewards {bar['rewards']!r}, latencies "
+            f"{bar['latencies']!r}, states {bar['states']!r}; the resumed from the "
+            f"nearest by {near['rewards']!r}, {near['latencies']!r}, {near['states']!r}")
+
+
+def run_checkpoints(dev, card: str) -> dict:
+    """Phase 21: fleet checkpoints on the main path.  ``drl_control.run`` at
+    the main path's budget for 30 epochs: twice uninterrupted (how far two
+    card runs differ sets the bar), once saving every 10 (run A), and once
+    killed after 20 (run B) then resumed in fresh objects (run C).  Moves
+    and final assignments must match exactly, floats within the bar; the
+    K-NN kernel launches 160 times in A and in B and C together.  Then the
+    card's checkpoint restores into CPU templates, every agent resumes at a
+    small size, and the saves are timed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.kernels.knn_topk import ops
+    from repro_torch.launch import drl_control
+
+    T, every, kill = CHECKPOINT["epochs"], CHECKPOINT["every"], CHECKPOINT["killed_at"]
+    main = {**MAIN, "epochs": T}
+    F = main["fleet"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_checkpoints_")
+    try:
+        runs, launches = {}, {}
+        for what, kw in (("U1", {}),
+                         ("A", dict(checkpoint_dir=os.path.join(root, "A"),
+                                    checkpoint_every=every)),
+                         ("U2", {}),
+                         ("A2", dict(checkpoint_dir=os.path.join(root, "A2"),
+                                     checkpoint_every=every)),
+                         ("B", dict(checkpoint_dir=os.path.join(root, "B"),
+                                    checkpoint_every=every, epochs=kill)),
+                         ("C", dict(checkpoint_dir=os.path.join(root, "B"),
+                                    checkpoint_every=every, resume=True))):
+            ops.LAUNCHES = 0
+            with timed_saves() as save_ms:
+                runs[what] = drl_control.run(device=dev, **{**main, **kw})
+            torch.cuda.synchronize()
+            launches[what] = ops.LAUNCHES
+            runs[what]["save_ms"] = save_ms
+        want = dict(U1=main["offline_updates"] + T * (1 + U),
+                    B=main["offline_updates"] + kill * (1 + U), C=(T - kill) * (1 + U))
+        want.update(A=want["U1"], U2=want["U1"], A2=want["U1"])
+        if launches != want:
+            raise AssertionError(f"row_top2_regret launches {launches}, expected {want}")
+        if runs["C"]["start_epoch"] != kill or runs["C"]["history"].rewards.shape != (F, T - kill):
+            raise AssertionError("run C did not resume from epoch "
+                                 f"{kill}: {runs['C']['start_epoch']}")
+        for what, res in runs.items():
+            h, env = res["history"], res["env"]
+            if not (np.isfinite(h.rewards).all() and np.isfinite(h.latencies).all()
+                    and np.isfinite(res["finals"]).all()
+                    and np.array_equal(h.final_assignment.sum(-1), np.ones((F, env.N)))):
+                raise AssertionError(f"phase 21 run {what}: non-finite traces or "
+                                     "assignments that are not one-hot")
+        bar = run_gap(runs["U1"], runs["U2"])
+        chunked = run_gap(runs["U1"], runs["A"])
+        if run_gap(runs["A"], runs["A2"]) != chunked:
+            raise AssertionError("the second run saving every 10 differs from the first")
+        resumed = run_gap(runs["A"], runs["C"], skip_a=kill)
+        log(f"phase 21 checkpoints {main['app']} fleet={F} T={T} ({card}): two "
+            f"uninterrupted runs differ by moves from epoch {bar['first_move_diff']}, "
+            f"final assignments equal {bar['final_equal']}, rewards {bar['rewards']!r}, "
+            f"latencies {bar['latencies']!r}, state leaves {bar['states']!r}")
+        check_within("phase 21 saving every 10 vs uninterrupted", chunked, bar)
+        check_within("phase 21 killed at 20 and resumed vs run A", resumed, bar)
+        log(f"  saving every {every} == uninterrupted (rewards {chunked['rewards']!r}, "
+            f"latencies {chunked['latencies']!r}, states {chunked['states']!r}); killed "
+            f"at {kill} and resumed == run A (moves of epochs {kill}-{T - 1} and final "
+            f"assignments exact; rewards {resumed['rewards']!r}, latencies "
+            f"{resumed['latencies']!r}, states {resumed['states']!r})")
+        log(f"  row_top2_regret launches: A {launches['A']} = "
+            f"{main['offline_updates']} offline updates + {T} x (1 select + {U} update); "
+            f"B {launches['B']} + C {launches['C']} = {launches['B'] + launches['C']}")
+        leaves = check_card_to_cpu_restore(runs["A"], os.path.join(root, "A"))
+        log(f"  card -> CPU restore of epoch {T}: {leaves} agent-state leaves exact")
+        saves = time_saves(runs["A"], root)
+        epoch_ms = {w: runs[w]["seconds"]["online"] / (T - r["start_epoch"] if w == "C"
+                                                       else kill if w == "B" else T) * 1e3
+                    for w, r in runs.items()}
+        block = max(saves["async_write_ms"]) / min(epoch_ms["U1"], epoch_ms["U2"])
+        log(f"  one DDPG checkpoint at {main['app']} F={F} ({card}): {saves['bytes']} "
+            f"bytes; ms per save on the caller's thread, synchronous "
+            + ", ".join(f"{x:.3f}" for x in saves["sync_ms"]) + "; asynchronous "
+            + ", ".join(f"{x:.3f}" for x in saves["async_caller_ms"])
+            + "; its write in the worker " + ", ".join(f"{x:.3f}" for x in saves["async_write_ms"]))
+        log(f"  online lane-epochs/s ({card}): " + ", ".join(
+            f"{w} {r['lane_epochs_per_s']:.1f} ({epoch_ms[w]:.3f} ms an epoch"
+            + (f"; saves on the caller's thread " + ", ".join(f"{x:.3f}" for x in r["save_ms"])
+               + f" ms, the last write's flush {r['seconds']['flush'] * 1e3:.3f} ms"
+               if r["save_ms"] else "") + ")"
+            for w, r in runs.items())
+            + f"; U1, U2 uninterrupted, A the process's first run saving every {every} "
+            f"(it allocates the pinned buffers), A2 the second, B killed at {kill}, C "
+            f"resumed; a write spans {block:.1f} epochs, so from a cadence of "
+            f"{int(np.ceil(block))} epochs the double-buffered queue never blocks")
+        probe = probe_write_contention(runs["U2"], root)
+        log(f"  ms an epoch ({card}) alone, then beside a thread repeating one part of a "
+            "write: " + ", ".join(f"{k} {v:.3f}" for k, v in probe.items()))
+        check_small_resumes(dev, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(launches=launches, saves=saves,
+                lane_epochs_per_s={w: r["lane_epochs_per_s"] for w, r in runs.items()})
+
+
 def time_plane_steps(svc, env, on_card: bool, steps: int = 7) -> dict:
     """Phase 17: each plane's full step (every slot busy) timed alone, the
     median of ``steps``; on the card also the device's busy time and
@@ -1819,6 +2187,9 @@ def main() -> int:
     check_placement_vs_cpu(dev)
     placement = run_placement(dev, card)
     log(f"phase 20 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    run_checkpoints(dev, card)
+    log(f"phase 21 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,

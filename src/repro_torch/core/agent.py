@@ -3,9 +3,9 @@
 Port of ``repro/core/agent.py``'s ``History`` and ``run_online_fleet``:
 ``F`` independent runs step together, every per-lane tensor carrying the
 leading ``[F]`` axis, one epoch at a time (the reference's vmapped scan),
-each lane under one shared scenario or its own.
-Mesh sharding, checkpointing and the elastic lifecycle wait for later
-slices."""
+each lane under one shared scenario or its own, cut into chunks on a
+checkpoint's cadence.  Mesh sharding, the elastic lifecycle and the
+non-finite sweep at a chunk's end wait for later slices."""
 from __future__ import annotations
 
 import dataclasses
@@ -66,6 +66,17 @@ class History:
         return r.mean(axis=0), r.std(axis=0)
 
 
+def chunk_schedule(T: int, every: int | None) -> list[int]:
+    """Chunk lengths for ``T`` epochs cut every ``every`` epochs (a trailing
+    partial chunk included); ``[T]`` when ``every`` is falsy."""
+    if not every:
+        return [T]
+    chunks = [every] * (T // every)
+    if T % every:
+        chunks.append(T % every)
+    return chunks
+
+
 def run_online_fleet(
     gen_or_seed: torch.Generator | int,
     env,
@@ -76,18 +87,30 @@ def run_online_fleet(
     explore: bool = True,
     env_params=None,
     draws: Sequence[EpochDraws] | None = None,
+    env_state=None,
+    checkpoint=None,
+    start_epoch: int = 0,
 ):
     """``T`` online decision epochs for every lane of ``states`` (stacked on
     ``[F]``, e.g. from ``agent.init_fleet``, optionally pretrained).
 
-    Every lane starts from ``env.reset``.  ``env_params`` is one scenario
-    for every lane or a lane-stacked fleet of scenarios
+    Every lane starts from ``env.reset`` unless ``env_state`` (lane-stacked,
+    e.g. restored from a checkpoint) is given.  ``env_params`` is one
+    scenario for every lane or a lane-stacked fleet of scenarios
     (``dsdps.scenarios.build``), lane ``f`` reset and stepped under its
     own; on a ``StructuralSchedulingEnv`` a lane-stacked
     ``GraphEnvParams`` (``dag_shapes``) gives each lane its own DAG.
     ``draws`` holds one :class:`EpochDraws` per epoch; without it every
     draw comes from the generator (or a generator on ``env.device`` seeded
-    with the int).  ``states`` is updated in place.  Returns
+    with the int).  ``states`` is updated in place.
+
+    ``checkpoint`` (a :class:`repro_torch.checkpoint.FleetCheckpoint`) cuts
+    the ``T`` epochs of this call every ``checkpoint.every`` epochs and saves
+    the states, the env state and the generator after each chunk, tagged
+    ``start_epoch`` plus the epochs done; a run restored from epoch k
+    continues as the uninterrupted run would.  ``T`` and ``draws`` count
+    the epochs of this call alone.  (The reference also sweeps the carries
+    for non-finite values at each chunk's end: not ported yet.)  Returns
     (states, History)."""
     T = int(T)
     if T < 1:
@@ -105,15 +128,19 @@ def run_online_fleet(
     lanes = params_lanes(params, env.default_params())
     if lanes not in (None, fleet):
         raise ValueError(f"env_params holds {lanes} lanes, the states {fleet}")
-    env_state = env.reset(fleet, params)
+    if env_state is None:
+        env_state = env.reset(fleet, params)
     step = make_epoch_step(env, agent, env_params=params,
                            updates_per_epoch=updates_per_epoch,
                            explore=explore)
     traces = []
-    for t in range(T):
-        states, env_state, out = step(states, env_state, gen,
-                                      None if draws is None else draws[t])
-        traces.append(out)
+    for n in chunk_schedule(T, None if checkpoint is None else checkpoint.every):
+        for t in range(len(traces), len(traces) + n):
+            states, env_state, out = step(states, env_state, gen,
+                                          None if draws is None else draws[t])
+            traces.append(out)
+        if checkpoint is not None:
+            checkpoint.save(start_epoch + len(traces), states, env_state, gen)
     rewards, lats, moved = (torch.stack(x, dim=-1).cpu().numpy()
                             for x in zip(*traces))
     return states, History(rewards=rewards, latencies=lats, moved=moved,

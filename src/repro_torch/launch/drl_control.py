@@ -19,7 +19,11 @@ epochs, and score every lane's final assignment against round-robin under
 that lane's scenario.  ``--serve N`` then serves N synthetic decision
 requests from the best lane's trained policy through the batched serving
 control plane (``serve/control.py``, ``launch/serve_control.py``), every
-training lane's scenario registered as a cluster.
+training lane's scenario registered as a cluster.  ``--checkpoint-dir``
+saves the fleet's carries every ``--checkpoint-every`` epochs
+(``checkpoint/fleet.py``); ``--resume`` continues from the newest of them,
+without offline pretraining, since the restored lanes carry their replay
+and nets.
 
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
       --fleet 8 --offline 2000 --epochs 300
@@ -34,6 +38,9 @@ training lane's scenario registered as a cluster.
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app placement \\
       --scenario mixed --fleet 8 --offline 1000 --offline-updates 100 \\
       --epochs 50
+  PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
+      --fleet 8 --epochs 300 --checkpoint-dir ckpt --checkpoint-every 50 \\
+      [--resume]
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises."""
@@ -45,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import FleetCheckpoint
 from repro_torch.core import (agent_names, convert, jamba_placement_env,
                               make_agent, run_online_fleet)
 from repro_torch.core import ddpg as ddpg_lib
@@ -103,6 +111,17 @@ def refusal(app: str, agent: str, offline: int = 0, serve: int = 0
     return None
 
 
+def resume_refusal(checkpoint_dir) -> str | None:
+    """Why the launcher refuses to resume from ``checkpoint_dir``, or None:
+    an elastic-lifecycle run's snapshots hold a compacted fleet, and this
+    launcher has no ``--early-stop`` to restore one."""
+    if FleetCheckpoint(checkpoint_dir, use_async=False).has_lane_map():
+        return (f"{checkpoint_dir} holds elastic-lifecycle (compacted) "
+                f"snapshots with a lane map, which this launcher cannot "
+                f"resume: it has no --early-stop")
+    return None
+
+
 def nominal_load(params):
     """The load a scenario scores under: a DSDPS env's spout base rates, the
     placement env's per-expert base load."""
@@ -114,17 +133,30 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
         k: int = 12, seed: int = 0,
         device: str | torch.device | None = None,
         scenario: str | None = None,
-        broadcast_invariant: bool = False, env=None) -> dict:
+        broadcast_invariant: bool = False, env=None,
+        checkpoint_dir=None, checkpoint_every: int = 50,
+        resume: bool = False) -> dict | None:
     """Run the loop on ``env`` (default ``build_env(app, device)``); returns
     a dict with the env, the scenario fleet (None
     without ``scenario``), the agent, the trained states, the History,
     per-lane final and round-robin latencies (ms, each under the lane's
     scenario), the index of the best lane (lowest final/round-robin), the
-    wall seconds of each phase (``init`` holds the model-based fit) and
-    the online lane-epochs/s.  ``k`` sizes DDPG's K-NN beam and
-    ``offline`` pretrains DDPG lanes; the other agents ignore both.  A setup
-    the launcher refuses (:func:`refusal`) raises ``ValueError``."""
+    wall seconds of each phase (``init`` holds the model-based fit;
+    ``flush``, with a checkpoint, the wait for its last write), the epoch
+    the online phase started at and its lane-epochs/s.  ``k`` sizes DDPG's
+    K-NN beam and ``offline`` pretrains DDPG lanes; the other agents
+    ignore both.
+
+    ``checkpoint_dir`` saves the carries every ``checkpoint_every`` epochs;
+    ``resume`` restores the newest of them, skips offline pretraining and
+    runs the epochs left up to ``epochs``; the History then holds those
+    alone.  When none are left it prints so and returns None.  A setup the
+    launcher refuses (:func:`refusal`, :func:`resume_refusal`, ``resume``
+    without ``checkpoint_dir``) raises ``ValueError``."""
     why = refusal(app, agent, offline)
+    if resume:
+        why = why or ("resume needs a checkpoint directory"
+                      if checkpoint_dir is None else resume_refusal(checkpoint_dir))
     if why is not None:
         raise ValueError(why)
     dev = resolve_device(device)
@@ -145,20 +177,40 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     # profiles and fits the lane's cluster, not the nominal one
     states = ag.init_fleet(torch.Generator(device=dev).manual_seed(seed),
                            fleet, dev, env_params=env_params)
-    t1 = now()
-    seconds["init"] = t1 - t0
-    if agent == "ddpg" and offline > 0:
-        states = ddpg_lib.offline_pretrain(
-            states, ag.cfg, env, n_samples=offline, n_updates=offline_updates,
-            env_params=env_params,
-            gen=torch.Generator(device=dev).manual_seed(seed + 1))
-    t2 = now()
-    seconds["offline"] = t2 - t1
-    states, hist = run_online_fleet(
-        torch.Generator(device=dev).manual_seed(seed + 2), env, ag, states,
-        T=epochs, env_params=env_params)
-    t3 = now()
-    seconds["online"] = t3 - t2
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    ck = (FleetCheckpoint(checkpoint_dir, every=checkpoint_every)
+          if checkpoint_dir is not None else None)
+    try:
+        env_state, start = None, 0
+        if resume and ck.latest_epoch() is not None:
+            start, states, env_state, gen = ck.restore(
+                states, env.reset(fleet, env_params), gen)
+            if start >= epochs:
+                print(f"checkpoint already at epoch {start} >= --epochs "
+                      f"{epochs}; nothing left to run")
+                return None
+        t1 = now()
+        seconds["init"] = t1 - t0
+        # offline pretraining seeds a fresh run alone: restored lanes
+        # already carry their replay buffers and trained networks
+        if agent == "ddpg" and offline > 0 and env_state is None:
+            states = ddpg_lib.offline_pretrain(
+                states, ag.cfg, env, n_samples=offline,
+                n_updates=offline_updates, env_params=env_params,
+                gen=torch.Generator(device=dev).manual_seed(seed + 1))
+        t2 = now()
+        seconds["offline"] = t2 - t1
+        states, hist = run_online_fleet(
+            gen, env, ag, states, T=epochs - start, env_params=env_params,
+            env_state=env_state, checkpoint=ck, start_epoch=start)
+        t3 = now()
+        seconds["online"] = t3 - t2
+    finally:
+        if ck is not None:
+            ck.close()
+    if ck is not None:
+        seconds["flush"] = now() - t3
+        t3 = now()
 
     # score every lane under the scenario it ran, noise-free, round-robin
     # too, so the improvement compares like with like per lane
@@ -172,8 +224,8 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     best = int((finals / rrs).argmin())
     return dict(env=env, env_params=env_params, agent=ag, states=states,
                 history=hist, finals=finals, rrs=rrs, best=best,
-                seconds=seconds,
-                lane_epochs_per_s=fleet * epochs / seconds["online"])
+                seconds=seconds, start_epoch=start,
+                lane_epochs_per_s=fleet * (epochs - start) / seconds["online"])
 
 
 def serve_trained(res: dict, n_requests: int, seed: int = 0) -> dict:
@@ -248,12 +300,23 @@ def main(argv: list[str] | None = None) -> dict:
                          "through the batched serving control plane — "
                          "every training lane's scenario becomes a "
                          "registered cluster (repro_torch.serve.control)")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="directory for asynchronous, atomic fleet "
+                         "checkpoints (repro_torch.checkpoint.FleetCheckpoint)")
+    ap.add_argument("--checkpoint-every", type=int, default=50,
+                    help="checkpoint cadence in decision epochs")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest checkpoint in "
+                         "--checkpoint-dir instead of starting fresh")
     args = ap.parse_args(argv)
     if args.fleet < 1:
         ap.error("--fleet must be >= 1")
     if args.serve < 0:
         ap.error("--serve must be >= 0")
-    why = refusal(args.app, args.agent, args.offline, args.serve)
+    if args.resume and args.checkpoint_dir is None:
+        ap.error("--resume needs --checkpoint-dir")
+    why = refusal(args.app, args.agent, args.offline, args.serve) or (
+        resume_refusal(args.checkpoint_dir) if args.resume else None)
     if why is not None:
         ap.error(why)
     env = build_env(args.app, resolve_device(args.device))
@@ -269,7 +332,11 @@ def main(argv: list[str] | None = None) -> dict:
               offline=args.offline, offline_updates=args.offline_updates,
               epochs=args.epochs, k=args.k, seed=args.seed, device=args.device,
               scenario=args.scenario,
-              broadcast_invariant=args.broadcast_invariant, env=env)
+              broadcast_invariant=args.broadcast_invariant, env=env,
+              checkpoint_dir=args.checkpoint_dir,
+              checkpoint_every=args.checkpoint_every, resume=args.resume)
+    if res is None:
+        return None
     finals, rrs, best = res["finals"], res["rrs"], res["best"]
     print(f"\nfinal latency {finals.mean():.3f} ± {finals.std():.3f} ms "
           f"over {args.fleet} lanes "

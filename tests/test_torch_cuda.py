@@ -660,3 +660,105 @@ def test_structural_graph_policy_on_the_card_equals_the_cpu(cuda_device):
                               plain.default_params().base_rates)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
 
+
+
+def _card_ddpg_bundle(device, F=2):
+    """A DDPG fleet's checkpoint bundle at cq_small: agent states, env
+    state and generator, on ``device``."""
+    from repro_torch.core import make_agent
+    from repro_torch.dsdps import SchedulingEnv, apps
+
+    topo = apps.continuous_queries("small")
+    env = SchedulingEnv(topo, apps.default_workload(topo), device=device)
+    states = make_agent("ddpg", env, k_nn=4).init_fleet(
+        torch.Generator(device=device).manual_seed(0), F, device)
+    return {"agent": states, "env": env.reset(F),
+            "gen": torch.Generator(device=device).manual_seed(5)}
+
+
+def _leaf_values(bundle):
+    from repro_torch.checkpoint import named_leaves
+
+    return [(n, x.get_state() if isinstance(x, torch.Generator) else x.detach().cpu().clone())
+            for n, x in named_leaves(bundle)]
+
+
+@pytest.mark.parametrize("overlap_transfer", [True, False])
+def test_async_save_of_card_tensors_survives_in_place_writes(cuda_device, tmp_path,
+                                                             overlap_transfer):
+    """save_async snapshots the CUDA leaves on the current stream before it
+    returns: kernels that write every leaf in place right after it, and a
+    draw from the CUDA generator, while the writer is slowed, leave the
+    file with the values of the call (bit for bit)."""
+    import time
+
+    from repro_torch.checkpoint import AsyncCheckpointer, named_leaves
+
+    ck = AsyncCheckpointer(tmp_path, overlap_transfer=overlap_transfer)
+    orig_write = ck._write
+
+    def slow_write(*a, **k):
+        time.sleep(0.2)
+        return orig_write(*a, **k)
+
+    ck._write = slow_write
+    bundle = _card_ddpg_bundle(cuda_device)
+    want = _leaf_values(bundle)
+    for step in (1, 2, 3):           # the third reuses the first's pinned buffers
+        ck.save_async(step, bundle)
+        with torch.no_grad():
+            for _, leaf in named_leaves(bundle):
+                if isinstance(leaf, torch.Generator):
+                    torch.rand(1024, generator=leaf, device=cuda_device)
+                else:
+                    leaf.add_(step)
+    ck.close()
+    got = _leaf_values(ck.restore(_card_ddpg_bundle(cuda_device), step=1))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        assert torch.equal(a, b), name
+
+
+def test_card_checkpoint_restores_into_a_cpu_template(cuda_device, tmp_path):
+    """A DDPG fleet run on the card for 4 epochs, saved every 2: its
+    checkpoint restores into CPU agent and env templates bit for bit (the
+    generator into a CUDA generator: a CPU one raises)."""
+    from repro_torch.checkpoint import FleetCheckpoint, named_leaves
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.dsdps import SchedulingEnv, apps
+
+    topo = apps.continuous_queries("small")
+    card = SchedulingEnv(topo, apps.default_workload(topo), device=cuda_device)
+    agent = make_agent("ddpg", card, k_nn=4)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ck = FleetCheckpoint(tmp_path, every=2)
+    states, hist = run_online_fleet(gen, card, agent, agent.init_fleet(
+        torch.Generator(device=cuda_device).manual_seed(0), 2, cuda_device), 4,
+        checkpoint=ck)
+    ck.close()
+    cpu = SchedulingEnv(topo, apps.default_workload(topo), device="cpu")
+    cpu_agent = make_agent("ddpg", cpu, k_nn=4)
+    template = cpu_agent.init_fleet(torch.Generator().manual_seed(7), 2, "cpu")
+    with pytest.raises(ValueError, match="same device type"):
+        ck.restore(template, cpu.reset(2), torch.Generator())
+    epoch, r_states, r_env, r_gen = ck.restore(
+        template, cpu.reset(2), torch.Generator(device=cuda_device))
+    assert epoch == 4
+    for (name, a), (_, b) in zip(named_leaves(r_states), named_leaves(states)):
+        assert a.device.type == "cpu" and torch.equal(a, b.cpu()), name
+    np.testing.assert_array_equal(r_env.X.numpy(), hist.final_assignment)
+    assert torch.equal(r_gen.get_state(), gen.get_state())
+
+
+def test_cuda_generator_state_roundtrip(cuda_device, tmp_path):
+    """A CUDA generator's state (seed and Philox offset) saves and restores:
+    the restored generator repeats the draws that followed the save."""
+    from repro_torch.checkpoint import Checkpointer
+
+    ck = Checkpointer(tmp_path)
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    torch.rand(1000, generator=g, device=cuda_device)
+    ck.save(1, {"gen": g})
+    want = torch.rand(1000, generator=g, device=cuda_device)
+    r = ck.restore({"gen": torch.Generator(device=cuda_device)})["gen"]
+    assert torch.equal(torch.rand(1000, generator=r, device=cuda_device), want)
