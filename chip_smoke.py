@@ -60,7 +60,17 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   floats within the gap between two uninterrupted card runs), the K-NN
   kernel launched 160 times across the kill; the card's checkpoint
   restored into CPU templates; the saves timed, and the loop beside each
-  part of a write; then every agent killed and resumed at a small size.
+  part of a write; then every agent killed and resumed at a small size;
+* the elastic lane lifecycle and the runtime guards: an elastic run card
+  against CPU on the same draws, its surviving lanes against the card's
+  fixed-grid run; then ``drl_control.run`` with ``early_stop`` at
+  ``cq_large`` with 8 DDPG lanes, two of them forced to stop at epoch 16
+  and under the default plateau rule, beside a fixed-grid run (lane-epochs
+  executed, wall s, K-NN launches); the forced-stop run killed at epoch 24
+  and resumed from its compacted checkpoint, held bit for bit to the
+  uninterrupted one; the synchronizing calls of a steady-state epoch,
+  by site, for every agent the port runs (sync debug mode); and a
+  successive-halving scenario search over 8 candidates.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -126,6 +136,18 @@ CHECKPOINT_AGENTS = (
        "stream_q")],
     ("structural", "graph_policy", "dag_shapes"),
     *[("placement", a, "mixed") for a in PLACEMENT_AGENTS])
+# the elastic lane lifecycle: the main path's DDPG fleet with lanes 1 and 5
+# stopped at epoch 16, the stop test every 8 epochs; killed at 24 (saved
+# every 8) and resumed; the syncs of a steady-state epoch counted over 4
+# epochs for every agent at its phase's width; a successive-halving search
+# over 8 candidates
+ELASTIC = dict(stop_at=16, stopped=(1, 5), killed_at=24, every=8, sync_epochs=4)
+SYNC_AGENTS = (
+    *[("cq_large", a, "one_slow_machine") for a in
+      ("ddpg", "dqn", "round_robin", "model_based", *STREAMING_AGENTS)],
+    ("structural", "graph_policy", "dag_shapes"),
+    *[("placement", a, "mixed") for a in PLACEMENT_AGENTS])
+SEARCH = dict(app="cq_large", fleet=8, rungs=(16, 16, 32), scenario="mixed")
 
 
 def log(msg: str) -> None:
@@ -260,8 +282,11 @@ def check_kernel(dev) -> dict:
     # env at F = 8: select [128, 16] and the update's target rows
     # [8, 32, 16, 16]
     placement_shapes = [(128, 16), (8, 32, 16, 16)]
-    shapes = [(800, 10), (25600, 10), (3200, 10), (7, 3), (1, 2), (513, 16),
-              (300, 33)] + placement_shapes
+    # a compacted cq_large fleet of 1-7 live lanes (phase 22): select
+    # [F·100, 10] and update [F·32·100, 10]
+    compacted = [(f * rows, 10) for f in range(1, 8) for rows in (100, 3200)]
+    shapes = [(800, 10), (25600, 10), (7, 3), (1, 2), (513, 16),
+              (300, 33)] + compacted + placement_shapes
     cases = [(str(s), torch.rand(s, generator=gen, device=dev)) for s in shapes]
     # quantized rows: ties everywhere, incl. a best value held by several
     # columns and rows that are constant
@@ -303,7 +328,8 @@ def check_kernel(dev) -> dict:
     log(f"phase 3 kernel vs plain version: {len(cases)} cases agree, edge rows "
         f"and offsets 1-3 among them (indices exact, NaN and inf at the same "
         f"places, max |regret err| {max_err}; at the placement shapes "
-        f"{placement_shapes} {placement_err})")
+        f"{placement_shapes} {placement_err}; the compacted cq_large shapes "
+        f"{compacted} among them)")
 
     one = torch.zeros(1, device=dev)
     floor = graph_ms(lambda: one.fill_(1.0))
@@ -1387,6 +1413,239 @@ def run_checkpoints(dev, card: str) -> dict:
                 lane_epochs_per_s={w: r["lane_epochs_per_s"] for w, r in runs.items()})
 
 
+def forced_stop(start: int = 0):
+    """Phase 22's ``stop_fn``: lanes 1 and 5 stop at absolute epoch 16 (the
+    call starts at ``start``; the live fleet is still whole there)."""
+    def stop(rewards, t):
+        done = np.zeros(rewards.shape[0], bool)
+        if start + t == ELASTIC["stop_at"]:
+            done[list(ELASTIC["stopped"])] = True
+        return done
+    return stop
+
+
+def check_elastic_vs_cpu(dev) -> None:
+    """Phase 22, first part: DDPG at cq_small, F=3, T=12, lane 1 stopped at
+    epoch 4 (checked every 4), on the same numpy draws on the card and the
+    CPU: moves, lane accounting and final assignments exact, traces at
+    1e-4; on the card the surviving lanes equal a fixed-grid run on the
+    same draws bit for bit (traces and states), the stopped lane up to its
+    stop."""
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.core.convert import ddpg_state_from_numpy, ddpg_state_to_numpy
+    from repro_torch.dsdps import SchedulingEnv, apps
+    from repro_torch.dsdps.apps import default_workload
+    from repro_torch.fleet import StopRule, run_online_fleet_elastic, take_lanes
+
+    F, T, stop = 3, 12, 4
+    topo = apps.continuous_queries("small")
+
+    def stop_lane1(rewards, t):
+        return (np.arange(rewards.shape[0]) == 1) & (t == stop)
+
+    out, init, draws = {}, None, None
+    for where in ("cpu", dev):
+        env = SchedulingEnv(topo, default_workload(topo), device=where)
+        agent = make_agent("ddpg", env, k_nn=12)
+        if init is None:
+            init = ddpg_state_to_numpy(
+                agent.init_fleet(torch.Generator().manual_seed(22), F, "cpu"))
+            draws = numpy_draws(np.random.default_rng(22), F, T, env, agent.cfg.batch)
+        on = [d.to(where) for d in draws]
+        out[str(where)] = run_online_fleet_elastic(
+            0, env, agent, ddpg_state_from_numpy(init, where), T,
+            rule=StopRule(check_every=stop), draws=on, stop_fn=stop_lane1)
+    fixed_states, fixed = run_online_fleet(0, env, agent, ddpg_state_from_numpy(init, dev),
+                                           T, draws=on)
+    cpu, gpu = out["cpu"], out[str(dev)]
+    if not (gpu.epochs_run.tolist() == cpu.epochs_run.tolist() == [T, stop, T]
+            and gpu.executed_lane_epochs == cpu.executed_lane_epochs == 2 * T + stop):
+        raise AssertionError(f"phase 22: epochs run {gpu.epochs_run} (card), "
+                             f"{cpu.epochs_run} (CPU)")
+    np.testing.assert_array_equal(gpu.history.moved, cpu.history.moved)
+    np.testing.assert_array_equal(gpu.history.final_assignment,
+                                  cpu.history.final_assignment)
+    np.testing.assert_allclose(gpu.history.latencies, cpu.history.latencies, rtol=1e-4)
+    np.testing.assert_allclose(gpu.history.rewards, cpu.history.rewards, rtol=1e-4)
+    for field in ("rewards", "latencies", "moved", "final_assignment"):
+        got, want = getattr(gpu.history, field), getattr(fixed, field)
+        np.testing.assert_array_equal(got[[0, 2]], want[[0, 2]])
+        if field != "final_assignment":
+            np.testing.assert_array_equal(got[1, :stop], want[1, :stop])
+    for (name, a), (_, b) in zip(named_leaves(take_lanes(gpu.states, [0, 2])),
+                                 named_leaves(take_lanes(fixed_states, [0, 2]))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"phase 22: survivor leaf {name} differs from the "
+                                 "fixed-grid run")
+    log(f"phase 22 elastic cq_small F={F} T={T}, lane 1 stopped at {stop}: card == "
+        f"CPU (epochs run {gpu.epochs_run.tolist()}, {gpu.executed_lane_epochs} "
+        f"lane-epochs; moves exact, {int(cpu.history.moved.sum())} in all; latencies "
+        f"max rel diff {np.abs(gpu.history.latencies / cpu.history.latencies - 1).max():.3g}"
+        f"); on the card lanes 0 and 2 == the fixed-grid run bit for bit (traces "
+        f"and states), lane 1 up to epoch {stop}")
+
+
+def sync_counts(dev, card: str) -> dict:
+    """Phase 22: the synchronizing calls of an epoch, by site, for every
+    agent the port runs at its phase's width, under
+    ``guards(transfer="log")``: first through ``drl_control.run`` over 4
+    epochs from a fresh fleet (DDPG after its offline pretraining at the
+    main path's budget), whose first epoch builds the per-device caches,
+    then over 4 more epochs of the same fleet, the steady state."""
+    from repro_torch.core import run_online_fleet
+    from repro_torch.diagnostics import guards
+    from repro_torch.dsdps import StructuralSchedulingEnv, apps
+    from repro_torch.launch import drl_control
+
+    out = {}
+    n = ELASTIC["sync_epochs"]
+    for app, agent, scenario in SYNC_AGENTS:
+        kw = dict(device=dev, app=app, agent=agent, scenario=scenario, epochs=n,
+                  guards=True, offline=0, fleet=MAIN["fleet"])
+        if agent == "ddpg":
+            kw.update(offline=MAIN["offline"], offline_updates=MAIN["offline_updates"],
+                      **({"k": MAIN["k"]} if app == MAIN["app"] else {}))
+        if app == "structural":
+            kw.update(fleet=STRUCTURAL["fleet"], env=StructuralSchedulingEnv(
+                [apps.ALL_APPS[a]() for a in STRUCTURAL["apps"]], device=dev))
+        res = drl_control.run(**kw)
+        first = res["guards"]
+        with guards(transfer="log") as steady:
+            run_online_fleet(torch.Generator(device=dev).manual_seed(22), res["env"],
+                             res["agent"], res["states"], n,
+                             env_params=res["env_params"])
+        for g in (first, steady):
+            if g.steady_steps != n or g.nonfinite:
+                raise AssertionError(f"phase 22 {agent} on {app}: {g}")
+        out[(app, agent)] = dict(first=first.n_syncs / n, steady=steady.n_syncs / n,
+                                 sites=dict(first.syncs + steady.syncs))
+        log(f"phase 22 syncs {agent} on {app} under {scenario}, fleet {kw['fleet']} "
+            f"({card}): from a fresh fleet {first.sync_report(per='epoch')}; then "
+            f"{steady.sync_report(per='epoch')}; no non-finite carries")
+    return out
+
+
+def run_elastic(dev, card: str) -> dict:
+    """Phase 22: the elastic lane lifecycle on the main path.
+    ``drl_control.run`` at the main budget: a fixed-grid run (U), the
+    forced stop of lanes 1 and 5 at epoch 16 (F), the default StopRule (D),
+    the forced-stop run killed at epoch 24 saving every 8 (K) and resumed
+    in fresh objects (R).  F's first 16 epochs equal U's; R equals F's
+    surviving lanes bit for bit; the K-NN kernel launches 100 offline + 2
+    an epoch the fleet runs.  Then the syncs of a steady-state epoch for
+    every agent, and the scenario search."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import named_leaves
+    from repro_torch.fleet import StopRule, take_lanes
+    from repro_torch.kernels.knn_topk import ops
+    from repro_torch.launch import drl_control
+
+    F, T, kill = MAIN["fleet"], MAIN["epochs"], ELASTIC["killed_at"]
+    rule = StopRule()                 # the launcher's: the stop test every 8 epochs
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        runs, launches = {}, {}
+        ck = dict(checkpoint_dir=root, checkpoint_every=ELASTIC["every"])
+        for what, kw in (("U", {}),
+                         ("F", dict(early_stop=True, stop_fn=forced_stop())),
+                         ("D", dict(early_stop=True)),
+                         ("K", dict(early_stop=True, epochs=kill,
+                                    stop_fn=forced_stop(), **ck)),
+                         ("R", dict(early_stop=True, resume=True,
+                                    stop_fn=forced_stop(kill), **ck))):
+            ops.LAUNCHES = 0
+            runs[what] = drl_control.run(device=dev, **{**MAIN, **kw})
+            torch.cuda.synchronize()
+            launches[what] = ops.LAUNCHES
+        for what, res in runs.items():
+            h = res["history"]
+            if not (np.isfinite(h.rewards).all() and np.isfinite(res["finals"]).all()):
+                raise AssertionError(f"phase 22 run {what}: non-finite traces")
+            e = res["elastic"]
+            ran = T - res["start_epoch"] if e is None else int(e.epochs_run.max())
+            offline = 0 if what == "R" else MAIN["offline_updates"]
+            want = offline + ran * (1 + U)
+            if launches[what] != want:
+                raise AssertionError(f"phase 22 run {what}: {launches[what]} K-NN "
+                                     f"launches, expected {want}")
+        fo, u = runs["F"]["elastic"], runs["U"]["history"]
+        stopped = list(ELASTIC["stopped"])
+        survivors = [f for f in range(F) if f not in stopped]
+        want_run = [ELASTIC["stop_at"] if f in stopped else T for f in range(F)]
+        if fo.epochs_run.tolist() != want_run or fo.executed_lane_epochs != sum(want_run):
+            raise AssertionError(f"phase 22 forced stop: epochs run {fo.epochs_run}, "
+                                 f"{fo.executed_lane_epochs} lane-epochs")
+        s = ELASTIC["stop_at"]
+        prefix = run_gap(dict(history=u, states=runs["U"]["states"]),
+                         dict(history=fo.history, states=runs["U"]["states"]))
+        if not (np.array_equal(fo.history.moved[:, :s], u.moved[:, :s])
+                and np.array_equal(fo.history.rewards[:, :s], u.rewards[:, :s])):
+            raise AssertionError("phase 22: the forced-stop run's first 16 epochs "
+                                 "differ from the fixed-grid run's")
+        r = runs["R"]
+        if r["lane_ids"].tolist() != survivors or r["start_epoch"] != kill:
+            raise AssertionError(f"phase 22: resumed lanes {r['lane_ids']} at "
+                                 f"{r['start_epoch']}")
+        for field in ("rewards", "latencies", "moved", "final_assignment"):
+            got = getattr(r["history"], field)
+            want = getattr(fo.history, field)[survivors]
+            if field != "final_assignment":
+                want = want[:, kill:]
+            if not np.array_equal(got, want):
+                raise AssertionError(f"phase 22: resumed {field} differ from the "
+                                     "uninterrupted elastic run")
+        for (name, a), (_, b) in zip(named_leaves(r["states"]),
+                                     named_leaves(take_lanes(fo.states, survivors))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 22: resumed state leaf {name} differs")
+        log(f"phase 22 elastic {MAIN['app']} fleet={F} T={T} ({card}): "
+            f"forced stop of lanes {stopped} at epoch {s} (checked every "
+            f"{rule.check_every}): first {s} epochs == the fixed grid's (moves and "
+            f"rewards exact; later rewards differ by up to {prefix['rewards']!r}: "
+            f"the compacted fleet draws other numbers); killed at {kill} and "
+            f"resumed == uninterrupted bit for bit (lanes {survivors}, traces, "
+            f"final assignments and {len(named_leaves(r['states']))} state leaves)")
+        for what in ("U", "F", "D"):
+            res = runs[what]
+            e = res["elastic"]
+            acct = ("fixed grid" if e is None else
+                    f"epochs run {e.epochs_run.tolist()}, {e.executed_lane_epochs} "
+                    f"lane-epochs executed of {e.fixed_grid_lane_epochs} "
+                    f"({e.savings:.1%} saved)")
+            log(f"  {what}: {acct}; online wall {res['seconds']['online']:.3f} s "
+                f"({res['seconds']['online'] / T * 1e3:.3f} ms a grid epoch), "
+                f"{res['lane_epochs_per_s']:.1f} lane-epochs/s executed; offline "
+                f"{res['seconds']['offline']:.3f} s; {launches[what]} K-NN launches")
+        log(f"  K + R: {launches['K']} + {launches['R']} = "
+            f"{launches['K'] + launches['R']} K-NN launches; online wall "
+            f"{runs['K']['seconds']['online']:.3f} + {runs['R']['seconds']['online']:.3f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    syncs = sync_counts(dev, card)
+    ops.LAUNCHES = 0
+    res = drl_control.run(device=dev, agent="ddpg", k=MAIN["k"], seed=0,
+                          scenario_search=True, search_rungs=SEARCH["rungs"],
+                          **{k: SEARCH[k] for k in ("app", "fleet", "scenario")})
+    torch.cuda.synchronize()
+    lb = res["leaderboard"]
+    rungs = SEARCH["rungs"]
+    if (lb.total_lane_epochs != SEARCH["fleet"] * sum(rungs)
+            or ops.LAUNCHES != sum(rungs) * (1 + U)
+            or not np.isfinite([e.score for e in lb.entries]).all()):
+        raise AssertionError(f"phase 22 search: {lb.to_json()}; {ops.LAUNCHES} launches")
+    best = lb.entries[0]
+    log(f"phase 22 search_scenarios ddpg {SEARCH['app']} fleet {SEARCH['fleet']} rungs "
+        f"{rungs} under {SEARCH['scenario']} ({card}): {len(lb.entries)} candidates, "
+        f"{lb.total_lane_epochs} lane-epochs, wall {res['seconds']['search']:.3f} s, "
+        f"{ops.LAUNCHES} K-NN launches; best candidate {best.cand} (rung {best.rung}, "
+        f"{best.epochs} epochs) score {best.score:.4f}")
+    return dict(launches=launches, syncs=syncs,
+                lane_epochs_per_s={w: r["lane_epochs_per_s"] for w, r in runs.items()})
+
+
 def time_plane_steps(svc, env, on_card: bool, steps: int = 7) -> dict:
     """Phase 17: each plane's full step (every slot busy) timed alone, the
     median of ``steps``; on the card also the device's busy time and
@@ -2190,6 +2449,10 @@ def main() -> int:
     t0 = time.perf_counter()
     run_checkpoints(dev, card)
     log(f"phase 21 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_elastic_vs_cpu(dev)
+    run_elastic(dev, card)
+    log(f"phase 22 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,

@@ -4,8 +4,10 @@ Port of ``repro/core/agent.py``'s ``History`` and ``run_online_fleet``:
 ``F`` independent runs step together, every per-lane tensor carrying the
 leading ``[F]`` axis, one epoch at a time (the reference's vmapped scan),
 each lane under one shared scenario or its own, cut into chunks on a
-checkpoint's cadence.  Mesh sharding, the elastic lifecycle and the
-non-finite sweep at a chunk's end wait for later slices."""
+checkpoint's cadence, the carries swept for non-finite values after each
+chunk inside a ``diagnostics.guards`` region; ``lifecycle=`` hands the run
+to the elastic lane lifecycle (``fleet/lifecycle.py``).  Mesh sharding
+waits for a later slice."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,6 +18,7 @@ import torch
 from scipy.signal import butter, filtfilt
 
 from repro_torch.core.api import Agent, EpochDraws, make_epoch_step
+from repro_torch.diagnostics import lifted, maybe_check_finite, steady
 from repro_torch.dsdps.simulator import params_lanes
 
 
@@ -77,6 +80,46 @@ def chunk_schedule(T: int, every: int | None) -> list[int]:
     return chunks
 
 
+def prepare_fleet(gen_or_seed: torch.Generator | int, env, states,
+                  env_params=None, env_state=None):
+    """The fleet runners' common set-up: the generator (or one on
+    ``env.device`` seeded with the int), the lane count of ``states``, the
+    scenario (``env.default_params()`` when None; a lane-stacked one must
+    hold as many lanes as the states) and the env state (every lane from
+    ``env.reset`` when None).  Returns ``(gen, fleet, params, env_state)``."""
+    if isinstance(gen_or_seed, torch.Generator):
+        gen = gen_or_seed
+    else:
+        gen = torch.Generator(device=env.device).manual_seed(int(gen_or_seed))
+    # the non-learning baselines' states are bare tensors ([F] epochs, [F, P]
+    # fitted models); the learners' carry a fleet property
+    fleet = states.shape[0] if isinstance(states, torch.Tensor) else states.fleet
+    params = env.default_params() if env_params is None else env_params
+    lanes = params_lanes(params, env.default_params())
+    if lanes not in (None, fleet):
+        raise ValueError(f"env_params holds {lanes} lanes, the states {fleet}")
+    if env_state is None:
+        env_state = env.reset(fleet, params)
+    return gen, fleet, params, env_state
+
+
+def run_chunk(step, states, env_state, gen: torch.Generator, n: int,
+              draws: Sequence[EpochDraws] | None = None):
+    """``n`` epochs of ``step`` (``make_epoch_step``'s), the steady state:
+    inside a ``diagnostics.guards`` region its sync guard is armed over
+    these epochs alone (``diagnostics.steady``).  ``draws`` holds the
+    chunk's ``n`` epochs or is None.  Returns ``(states, env_state,
+    rewards, latencies, moved)``, the traces ``[F, n]`` tensors on the
+    device."""
+    outs = []
+    with steady(n):
+        for t in range(n):
+            states, env_state, out = step(states, env_state, gen,
+                                          None if draws is None else draws[t])
+            outs.append(out)
+    return (states, env_state, *(torch.stack(x, dim=-1) for x in zip(*outs)))
+
+
 def run_online_fleet(
     gen_or_seed: torch.Generator | int,
     env,
@@ -90,6 +133,7 @@ def run_online_fleet(
     env_state=None,
     checkpoint=None,
     start_epoch: int = 0,
+    lifecycle=None,
 ):
     """``T`` online decision epochs for every lane of ``states`` (stacked on
     ``[F]``, e.g. from ``agent.init_fleet``, optionally pretrained).
@@ -109,39 +153,48 @@ def run_online_fleet(
     the states, the env state and the generator after each chunk, tagged
     ``start_epoch`` plus the epochs done; a run restored from epoch k
     continues as the uninterrupted run would.  ``T`` and ``draws`` count
-    the epochs of this call alone.  (The reference also sweeps the carries
-    for non-finite values at each chunk's end: not ported yet.)  Returns
-    (states, History)."""
+    the epochs of this call alone.  After each chunk, before the save, the
+    states and the chunk's rewards are swept for non-finite values
+    (``diagnostics.maybe_check_finite``: a ``NonFiniteError`` inside a
+    ``guards(nan_check=True)`` region, nothing outside one).
+
+    ``lifecycle`` (a :class:`repro_torch.fleet.StopRule`) runs the elastic
+    lane lifecycle instead: plateaued lanes stop and the fleet is compacted
+    between chunks; a stopped lane's traces repeat its last reward and
+    latency (``fleet.run_online_fleet_elastic`` returns the per-lane stop
+    epochs and the lane-epochs executed).  Returns (states, History)."""
     T = int(T)
     if T < 1:
         raise ValueError(f"T must be >= 1, got {T}")
     if draws is not None and len(draws) != T:
         raise ValueError(f"draws holds {len(draws)} epochs, T is {T}")
-    if isinstance(gen_or_seed, torch.Generator):
-        gen = gen_or_seed
-    else:
-        gen = torch.Generator(device=env.device).manual_seed(int(gen_or_seed))
-    # the non-learning baselines' states are bare tensors ([F] epochs, [F, P]
-    # fitted models); the learners' carry a fleet property
-    fleet = states.shape[0] if isinstance(states, torch.Tensor) else states.fleet
-    params = env.default_params() if env_params is None else env_params
-    lanes = params_lanes(params, env.default_params())
-    if lanes not in (None, fleet):
-        raise ValueError(f"env_params holds {lanes} lanes, the states {fleet}")
-    if env_state is None:
-        env_state = env.reset(fleet, params)
-    step = make_epoch_step(env, agent, env_params=params,
-                           updates_per_epoch=updates_per_epoch,
-                           explore=explore)
-    traces = []
-    for n in chunk_schedule(T, None if checkpoint is None else checkpoint.every):
-        for t in range(len(traces), len(traces) + n):
-            states, env_state, out = step(states, env_state, gen,
-                                          None if draws is None else draws[t])
-            traces.append(out)
-        if checkpoint is not None:
-            checkpoint.save(start_epoch + len(traces), states, env_state, gen)
-    rewards, lats, moved = (torch.stack(x, dim=-1).cpu().numpy()
-                            for x in zip(*traces))
+    if lifecycle is not None:
+        from repro_torch.fleet.lifecycle import run_online_fleet_elastic
+        result = run_online_fleet_elastic(
+            gen_or_seed, env, agent, states, T, rule=lifecycle,
+            updates_per_epoch=updates_per_epoch, explore=explore,
+            env_params=env_params, draws=draws, env_state=env_state,
+            checkpoint=checkpoint, start_epoch=start_epoch)
+        return result.states, result.history
+    with lifted():
+        gen, _, params, env_state = prepare_fleet(gen_or_seed, env, states,
+                                                  env_params, env_state)
+        step = make_epoch_step(env, agent, env_params=params,
+                               updates_per_epoch=updates_per_epoch,
+                               explore=explore)
+        parts, done = [], 0
+        for n in chunk_schedule(T, None if checkpoint is None else checkpoint.every):
+            states, env_state, *traces = run_chunk(
+                step, states, env_state, gen, n,
+                None if draws is None else draws[done:done + n])
+            parts.append(traces)
+            done += n
+            maybe_check_finite((states, traces[0]),
+                               f"run_online_fleet epoch {start_epoch + done}")
+            if checkpoint is not None:
+                checkpoint.save(start_epoch + done, states, env_state, gen)
+        rewards, lats, moved = (torch.cat(x, dim=-1).cpu().numpy()
+                                for x in zip(*parts))
+        X = env_state.X.cpu().numpy()
     return states, History(rewards=rewards, latencies=lats, moved=moved,
-                           final_assignment=env_state.X.cpu().numpy())
+                           final_assignment=X)

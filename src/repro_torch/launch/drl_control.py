@@ -23,7 +23,19 @@ training lane's scenario registered as a cluster.  ``--checkpoint-dir``
 saves the fleet's carries every ``--checkpoint-every`` epochs
 (``checkpoint/fleet.py``); ``--resume`` continues from the newest of them,
 without offline pretraining, since the restored lanes carry their replay
-and nets.
+and nets.  ``--early-stop`` runs the elastic lane lifecycle
+(``fleet/lifecycle.py``): lanes whose windowed reward plateaus stop and the
+fleet compacts, and ``--resume`` then continues a compacted snapshot
+through ``restore_elastic``.  ``--scenario-search`` trains no fleet: it
+runs a successive-halving search over perturbed scenarios (``--fleet``
+candidates seeded from ``--scenario``, default ``mixed``, rungs of
+``--search-rungs`` epochs) and writes the ranked leaderboard to
+``--search-json``.  ``--guards`` runs the online phase under
+``diagnostics.guards(transfer="log")`` and prints the synchronizing calls
+per steady-state epoch with their sites: "log", not the reference's
+"disallow", since whether the port's epochs wait on the device is what is
+being measured, and a guard that aborts the first such call would measure
+nothing.
 
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
       --fleet 8 --offline 2000 --epochs 300
@@ -40,13 +52,18 @@ and nets.
       --epochs 50
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
       --fleet 8 --epochs 300 --checkpoint-dir ckpt --checkpoint-every 50 \\
-      [--resume]
+      [--resume] [--early-stop]
+  PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
+      --fleet 8 --offline 1000 --offline-updates 100 --epochs 50 --guards
+  PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_small \\
+      --scenario-search --fleet 8 --search-rungs 16,16,32
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -58,9 +75,12 @@ from repro_torch.core import (agent_names, convert, jamba_placement_env,
 from repro_torch.core import ddpg as ddpg_lib
 from repro_torch.core.placement import PLACEMENT_SCENARIOS
 from repro_torch.device import resolve_device
+from repro_torch.diagnostics import guards as guard_region
 from repro_torch.dsdps import (SchedulingEnv, StructuralSchedulingEnv, apps,
                                lane_params, scenarios)
 from repro_torch.dsdps.apps import default_workload
+from repro_torch.fleet import (restore_elastic, run_online_fleet_elastic,
+                               search_scenarios)
 
 APPS = (*apps.ALL_APPS, "placement", "structural")
 
@@ -77,11 +97,17 @@ def build_env(app: str, device):
     return SchedulingEnv(topo, default_workload(topo), device=device)
 
 
-def refusal(app: str, agent: str, offline: int = 0, serve: int = 0
+def refusal(app: str, agent: str, offline: int = 0, serve: int = 0,
+            fleet: int = 4, checkpoint_dir=None, resume: bool = False,
+            early_stop: bool = False, scenario_search: bool = False
             ) -> str | None:
-    """Why the launcher refuses ``agent`` on ``app`` (with ``offline``
-    pretraining samples and ``serve`` requests), or None: setups that
-    would crash on the env, as the reference's launcher refuses them."""
+    """Why the launcher refuses ``agent`` on ``app`` with these options, or
+    None: setups that would crash on the env, as the reference's launcher
+    refuses them; a scenario search with checkpoints, a resume or early
+    stopping (it runs its own rung fleets), or with fewer than 2
+    candidates; a resume without a checkpoint directory, or from an
+    elastic-lifecycle directory (its snapshots hold a compacted fleet and
+    a lane map) without ``early_stop``."""
     if app == "placement":
         if agent == "model_based":
             return ("model_based profiles a DSDPS cluster; use it with the "
@@ -108,17 +134,23 @@ def refusal(app: str, agent: str, offline: int = 0, serve: int = 0
         return (f"--serve needs an agent that decides from (s_vec, cluster "
                 f"params) alone; {agent}'s select reads the live EnvState "
                 f"(see docs/serving.md)")
-    return None
-
-
-def resume_refusal(checkpoint_dir) -> str | None:
-    """Why the launcher refuses to resume from ``checkpoint_dir``, or None:
-    an elastic-lifecycle run's snapshots hold a compacted fleet, and this
-    launcher has no ``--early-stop`` to restore one."""
-    if FleetCheckpoint(checkpoint_dir, use_async=False).has_lane_map():
-        return (f"{checkpoint_dir} holds elastic-lifecycle (compacted) "
-                f"snapshots with a lane map, which this launcher cannot "
-                f"resume: it has no --early-stop")
+    if scenario_search:
+        for flag, on in (("--checkpoint-dir", checkpoint_dir is not None),
+                         ("--resume", resume), ("--early-stop", early_stop)):
+            if on:
+                return (f"--scenario-search does not support {flag}: the "
+                        f"search runs its own un-checkpointed rung fleets "
+                        f"(--offline/--epochs are ignored too — rung lengths "
+                        f"come from --search-rungs)")
+        if fleet < 2:
+            return "--scenario-search needs --fleet >= 2"
+    if resume:
+        if checkpoint_dir is None:
+            return "--resume needs --checkpoint-dir (a checkpoint directory)"
+        if (not early_stop and
+                FleetCheckpoint(checkpoint_dir, use_async=False).has_lane_map()):
+            return (f"{checkpoint_dir} holds elastic-lifecycle (compacted) "
+                    f"snapshots with a lane map; resume with --early-stop")
     return None
 
 
@@ -135,7 +167,10 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
         scenario: str | None = None,
         broadcast_invariant: bool = False, env=None,
         checkpoint_dir=None, checkpoint_every: int = 50,
-        resume: bool = False) -> dict | None:
+        resume: bool = False, early_stop: bool = False,
+        guards: bool = False, scenario_search: bool = False,
+        search_rungs: tuple[int, ...] = (16, 16, 32),
+        stop_fn=None) -> dict | None:
     """Run the loop on ``env`` (default ``build_env(app, device)``); returns
     a dict with the env, the scenario fleet (None
     without ``scenario``), the agent, the trained states, the History,
@@ -143,20 +178,31 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     scenario), the index of the best lane (lowest final/round-robin), the
     wall seconds of each phase (``init`` holds the model-based fit;
     ``flush``, with a checkpoint, the wait for its last write), the epoch
-    the online phase started at and its lane-epochs/s.  ``k`` sizes DDPG's
-    K-NN beam and ``offline`` pretrains DDPG lanes; the other agents
-    ignore both.
+    the online phase started at, the lane-epochs it executed and their
+    rate per second.  ``k`` sizes DDPG's K-NN beam and ``offline``
+    pretrains DDPG lanes; the other agents ignore both.
 
     ``checkpoint_dir`` saves the carries every ``checkpoint_every`` epochs;
     ``resume`` restores the newest of them, skips offline pretraining and
     runs the epochs left up to ``epochs``; the History then holds those
-    alone.  When none are left it prints so and returns None.  A setup the
-    launcher refuses (:func:`refusal`, :func:`resume_refusal`, ``resume``
-    without ``checkpoint_dir``) raises ``ValueError``."""
-    why = refusal(app, agent, offline)
-    if resume:
-        why = why or ("resume needs a checkpoint directory"
-                      if checkpoint_dir is None else resume_refusal(checkpoint_dir))
+    alone.  When none are left it prints so and returns None.
+
+    ``early_stop`` runs the elastic lane lifecycle under the default
+    ``StopRule`` (``stop_fn`` overrides its test, as
+    ``run_online_fleet_elastic``'s does); the result then holds the
+    ``ElasticResult`` as ``elastic``, the History in the original lane
+    order, and with ``resume`` of a compacted snapshot only its surviving
+    lanes (``lane_ids``).  ``guards`` runs the online phase under
+    ``diagnostics.guards(transfer="log")``; its ``GuardState`` is returned
+    as ``guards``.  ``scenario_search`` trains no fleet: it runs
+    ``search_scenarios`` over ``fleet`` candidates seeded from
+    ``scenario`` (default ``mixed``) with rungs of ``search_rungs`` epochs
+    and returns the env, the agent, the ``Leaderboard`` and the wall
+    seconds.  A setup the launcher refuses (:func:`refusal`) raises
+    ``ValueError``."""
+    why = refusal(app, agent, offline, fleet=fleet, checkpoint_dir=checkpoint_dir,
+                  resume=resume, early_stop=early_stop,
+                  scenario_search=scenario_search)
     if why is not None:
         raise ValueError(why)
     dev = resolve_device(device)
@@ -169,10 +215,15 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     seconds = {}
     t0 = now()
     env = build_env(app, dev) if env is None else env
+    ag = make_agent(agent, env, **({"k_nn": k} if agent == "ddpg" else {}))
+    if scenario_search:
+        lb = search_scenarios(env, ag, scenario=scenario or "mixed", fleet=fleet,
+                              rungs=tuple(search_rungs), seed=seed)
+        seconds["search"] = now() - t0
+        return dict(env=env, agent=ag, leaderboard=lb, seconds=seconds)
     env_params = (scenarios.build_for(env, scenario, fleet,
                                       broadcast_invariant=broadcast_invariant)
                   if scenario else None)
-    ag = make_agent(agent, env, **({"k_nn": k} if agent == "ddpg" else {}))
     # lanes initialize under their own scenario: the model-based baseline
     # profiles and fits the lane's cluster, not the nominal one
     states = ag.init_fleet(torch.Generator(device=dev).manual_seed(seed),
@@ -180,11 +231,19 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
     ck = (FleetCheckpoint(checkpoint_dir, every=checkpoint_every)
           if checkpoint_dir is not None else None)
+    elastic = g = lane_ids = None
     try:
         env_state, start = None, 0
         if resume and ck.latest_epoch() is not None:
-            start, states, env_state, gen = ck.restore(
-                states, env.reset(fleet, env_params), gen)
+            like = (states, env.reset(fleet, env_params), gen)
+            if ck.has_lane_map():
+                # a compacted elastic snapshot: its surviving lanes, and
+                # their rows of the scenario fleet
+                start, states, env_state, gen, env_params, lane_ids = \
+                    restore_elastic(ck, *like, env_params=env_params,
+                                    ref=env.default_params())
+            else:
+                start, states, env_state, gen = ck.restore(*like)
             if start >= epochs:
                 print(f"checkpoint already at epoch {start} >= --epochs "
                       f"{epochs}; nothing left to run")
@@ -200,9 +259,21 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
                 gen=torch.Generator(device=dev).manual_seed(seed + 1))
         t2 = now()
         seconds["offline"] = t2 - t1
-        states, hist = run_online_fleet(
-            gen, env, ag, states, T=epochs - start, env_params=env_params,
-            env_state=env_state, checkpoint=ck, start_epoch=start)
+        region = (guard_region(transfer="log", label="drl_control") if guards
+                  else contextlib.nullcontext())
+        with region as g:
+            if early_stop:
+                elastic = run_online_fleet_elastic(
+                    gen, env, ag, states, epochs - start,
+                    env_params=env_params, env_state=env_state, checkpoint=ck,
+                    start_epoch=start, stop_fn=stop_fn, lane_ids=lane_ids)
+                states, hist = elastic.states, elastic.history
+                executed = elastic.executed_lane_epochs
+            else:
+                states, hist = run_online_fleet(
+                    gen, env, ag, states, T=epochs - start, env_params=env_params,
+                    env_state=env_state, checkpoint=ck, start_epoch=start)
+                executed = hist.rewards.size
         t3 = now()
         seconds["online"] = t3 - t2
     finally:
@@ -214,18 +285,20 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
 
     # score every lane under the scenario it ran, noise-free, round-robin
     # too, so the improvement compares like with like per lane
+    lanes = hist.final_assignment.shape[0]
     p = env.default_params() if env_params is None else env_params
-    w = nominal_load(p).expand(fleet, -1)
+    w = nominal_load(p).expand(lanes, -1)
     X = torch.as_tensor(hist.final_assignment, device=dev)
-    X_rr = env.round_robin_assignment().expand(fleet, env.N, env.M)
+    X_rr = env.round_robin_assignment().expand(lanes, env.N, env.M)
     finals = env.evaluate(X, w, params=p).cpu().numpy().astype(np.float64)
     rrs = env.evaluate(X_rr, w, params=p).cpu().numpy().astype(np.float64)
     seconds["score"] = now() - t3
     best = int((finals / rrs).argmin())
     return dict(env=env, env_params=env_params, agent=ag, states=states,
                 history=hist, finals=finals, rrs=rrs, best=best,
-                seconds=seconds, start_epoch=start,
-                lane_epochs_per_s=fleet * (epochs - start) / seconds["online"])
+                seconds=seconds, start_epoch=start, elastic=elastic, guards=g,
+                lane_ids=lane_ids, lane_epochs=executed,
+                lane_epochs_per_s=executed / seconds["online"])
 
 
 def serve_trained(res: dict, n_requests: int, seed: int = 0) -> dict:
@@ -307,39 +380,95 @@ def main(argv: list[str] | None = None) -> dict:
                     help="checkpoint cadence in decision epochs")
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest checkpoint in "
-                         "--checkpoint-dir instead of starting fresh")
+                         "--checkpoint-dir instead of starting fresh (a "
+                         "compacted elastic snapshot needs --early-stop)")
+    ap.add_argument("--early-stop", action="store_true",
+                    help="elastic lane lifecycle: stop lanes whose windowed "
+                         "reward plateaus and compact the fleet, so converged "
+                         "scenarios stop paying compute "
+                         "(repro_torch.fleet.lifecycle)")
+    ap.add_argument("--scenario-search", action="store_true",
+                    help="successive-halving search over perturbed "
+                         "scenarios instead of training: --fleet candidates "
+                         "seeded from --scenario (default mixed), bottom "
+                         "half pruned at each rung, freed lanes refilled; "
+                         "prints and saves the ranked leaderboard")
+    ap.add_argument("--search-rungs", default="16,16,32",
+                    help="comma-separated epochs per successive-halving rung")
+    ap.add_argument("--search-json", default="artifacts/scenario_search.json",
+                    help="leaderboard artifact path for --scenario-search")
+    ap.add_argument("--guards", action="store_true",
+                    help="run the online phase under the runtime guards "
+                         "(repro_torch.diagnostics, transfer='log'): count "
+                         "the synchronizing calls of each steady-state epoch "
+                         "by site, sweep the carries for non-finite values "
+                         "at every chunk boundary")
     args = ap.parse_args(argv)
     if args.fleet < 1:
         ap.error("--fleet must be >= 1")
     if args.serve < 0:
         ap.error("--serve must be >= 0")
-    if args.resume and args.checkpoint_dir is None:
-        ap.error("--resume needs --checkpoint-dir")
-    why = refusal(args.app, args.agent, args.offline, args.serve) or (
-        resume_refusal(args.checkpoint_dir) if args.resume else None)
+    try:
+        rungs = tuple(int(x) for x in args.search_rungs.split(",") if x)
+    except ValueError:
+        rungs = ()
+    if not rungs or min(rungs) < 1:
+        ap.error(f"--search-rungs must be positive integers, got "
+                 f"{args.search_rungs!r}")
+    why = refusal(args.app, args.agent, args.offline, args.serve,
+                  fleet=args.fleet, checkpoint_dir=args.checkpoint_dir,
+                  resume=args.resume, early_stop=args.early_stop,
+                  scenario_search=args.scenario_search)
     if why is not None:
         ap.error(why)
     env = build_env(args.app, resolve_device(args.device))
     if args.scenario and args.scenario not in scenarios.scenario_names(env):
         ap.error(f"scenario {args.scenario!r} is not defined for "
                  f"--app {args.app}; known: {scenarios.scenario_names(env)}")
+    kw = dict(app=args.app, agent=args.agent, fleet=args.fleet, k=args.k,
+              seed=args.seed, device=args.device, scenario=args.scenario,
+              env=env)
+    if args.scenario_search:
+        print(f"successive-halving scenario search: {args.fleet} candidates "
+              f"seeded from {args.scenario or 'mixed'!r}, rungs {rungs} ...")
+        res = run(**kw, scenario_search=True, search_rungs=rungs)
+        lb = res["leaderboard"]
+        print("\nrank  cand  rung  epochs  eval_reward  survived")
+        for rank, e in enumerate(lb.entries):
+            print(f"{rank:4d}  {e.cand:4d}  {e.rung:4d}  {e.epochs:6d}  "
+                  f"{e.score:11.4f}  {e.survived}")
+        print(f"\ntotal lane-epochs executed: {lb.total_lane_epochs} "
+              f"(fixed grid over every candidate would be "
+              f"{len(lb.entries) * sum(rungs)})")
+        print(f"wrote {lb.save(args.search_json)}")
+        return res
     scen = f" ({args.scenario} scenario fleet)" if args.scenario else ""
     pre = (f"{args.offline} offline samples, {args.offline_updates} offline "
            f"updates, " if args.agent == "ddpg" else "")
+    stop = " with per-lane early stopping" if args.early_stop else ""
     print(f"{args.agent} fleet of {args.fleet} on {args.app}{scen}: "
-          f"{pre}{args.epochs} online epochs ...")
-    res = run(app=args.app, agent=args.agent, fleet=args.fleet,
-              offline=args.offline, offline_updates=args.offline_updates,
-              epochs=args.epochs, k=args.k, seed=args.seed, device=args.device,
-              scenario=args.scenario,
-              broadcast_invariant=args.broadcast_invariant, env=env,
+          f"{pre}{args.epochs} online epochs{stop} ...")
+    res = run(**kw, offline=args.offline, offline_updates=args.offline_updates,
+              epochs=args.epochs, broadcast_invariant=args.broadcast_invariant,
               checkpoint_dir=args.checkpoint_dir,
-              checkpoint_every=args.checkpoint_every, resume=args.resume)
+              checkpoint_every=args.checkpoint_every, resume=args.resume,
+              early_stop=args.early_stop, guards=args.guards)
     if res is None:
         return None
+    if res["lane_ids"] is not None:
+        print(f"resumed a compacted elastic fleet from epoch "
+              f"{res['start_epoch']}: surviving lanes "
+              f"{res['lane_ids'].tolist()}")
+    if res["elastic"] is not None:
+        e = res["elastic"]
+        print(f"early stopping: per-lane epochs {e.epochs_run.tolist()} — "
+              f"{e.executed_lane_epochs} lane-epochs executed vs "
+              f"{e.fixed_grid_lane_epochs} fixed-grid ({e.savings:.0%} saved)")
+    if res["guards"] is not None:
+        print(f"guards: {res['guards'].sync_report()}; no non-finite carries")
     finals, rrs, best = res["finals"], res["rrs"], res["best"]
     print(f"\nfinal latency {finals.mean():.3f} ± {finals.std():.3f} ms "
-          f"over {args.fleet} lanes "
+          f"over {len(finals)} lanes "
           f"(best lane {best}: {finals[best]:.3f} ms)   "
           f"round-robin {rrs.mean():.3f} ms   "
           f"improvement {1 - finals.mean() / rrs.mean():.1%} mean / "
@@ -348,7 +477,7 @@ def main(argv: list[str] | None = None) -> dict:
           res["history"].final_assignment[best].argmax(-1).tolist())
     if args.serve:
         print(f"\nserving {args.serve} decision requests from the trained "
-              f"policy across {args.fleet} cluster(s) ...")
+              f"policy across {len(finals)} cluster(s) ...")
         res["serve"] = serve_trained(res, args.serve, seed=args.seed)
         for kind, stats in res["serve"]["stats"].items():
             print(f"  {kind:13s} n={stats['n']:4d}  "

@@ -15,17 +15,22 @@ policies for the same clusters.
       --clusters 16 --requests 256 --slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve_control --device cpu \\
       --kinds placement,rate_control --clusters 3 --requests 24
+  PYTHONPATH=src python -m repro_torch.launch.serve_control --app cq_large \\
+      --clusters 6 --requests 48 --slots 8 --guards
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
-``--device cpu`` it raises.  The reference's ``--guards`` (a compile-once
-assertion over jitted programs) waits for the port of
-``diagnostics/guards.py``.  ``drl_control --serve N`` reuses
+``--device cpu`` it raises.  ``--guards`` serves the steady state (every
+step after the warm-up) under ``diagnostics.guards(transfer="log")`` and
+prints the synchronizing calls per plane step with their sites; the
+reference's guard asserts that no plane recompiles, and no plane of the
+port compiles.  ``drl_control --serve N`` reuses
 :func:`build_service` / :func:`synthetic_requests` to serve N decisions
 from the freshly trained policy, each training lane's scenario registered
 as a cluster."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.core import convert, make_agent, spaces
 from repro_torch.device import resolve_device
+from repro_torch.diagnostics import guards as guard_region
 from repro_torch.dsdps import SchedulingEnv, apps, scenarios
 from repro_torch.dsdps.apps import default_workload
 from repro_torch.serve.control import (ControlPlane, ControlService,
@@ -94,11 +100,15 @@ def synthetic_requests(env, svc: ControlService, n_requests: int,
     return reqs
 
 
-def serve(svc: ControlService, reqs: list[DecisionRequest]) -> dict:
+def serve(svc: ControlService, reqs: list[DecisionRequest],
+          guards: bool = False) -> dict:
     """Submit ``reqs``, take one warm-up step (each plane's first select),
     then drain the rest.  Returns the served requests, the warm-up's, the
     wall seconds after warm-up, the decisions/s over them and the
-    per-kind latency stats (warm-up included, as the reference reports)."""
+    per-kind latency stats (warm-up included, as the reference reports).
+    With ``guards`` the drain runs under ``guards(transfer="log")``, and
+    ``guards`` holds its ``GuardState``, ``steady_steps`` the plane steps
+    taken (else None)."""
     for r in reqs:
         svc.submit(r)
     warm = svc.step()
@@ -110,13 +120,22 @@ def serve(svc: ControlService, reqs: list[DecisionRequest]) -> dict:
                 torch.cuda.synchronize(d)
         return time.perf_counter()
 
+    def plane_steps() -> int:
+        return sum(p.steps for p in svc.planes.values())
+
+    region = (guard_region(transfer="log", label="serve_control") if guards
+              else contextlib.nullcontext())
+    before = plane_steps()
     t0 = now()
-    served = svc.run()
+    with region as g:
+        served = svc.run()
     wall = now() - t0
+    if g is not None:
+        g.steady_steps = plane_steps() - before
     steady = len(served) - len(warm)
     return dict(served=served, warm=warm, wall_s=wall,
                 decisions_per_s=steady / wall if wall > 0 else float("inf"),
-                stats=svc.decision_stats())
+                stats=svc.decision_stats(), guards=g)
 
 
 def register_perturbed(svc: ControlService, env, n_clusters: int,
@@ -145,6 +164,10 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch path)")
+    ap.add_argument("--guards", action="store_true",
+                    help="serve the steady state under the runtime guards "
+                         "(repro_torch.diagnostics, transfer='log') and "
+                         "print the synchronizing calls per plane step")
     args = ap.parse_args(argv)
     kinds = tuple(k for k in args.kinds.split(",") if k)
     for k in kinds:
@@ -162,7 +185,7 @@ def main(argv: list[str] | None = None) -> dict:
     print(f"serving {len(kinds)} decision kind(s) {list(kinds)} for "
           f"{args.clusters} clusters, {args.slots} slots/plane on {dev} ...")
     res = serve(svc, synthetic_requests(env, svc, args.requests,
-                                        seed=args.seed))
+                                        seed=args.seed), guards=args.guards)
     steady = len(res["served"]) - len(res["warm"])
     print(f"served {len(res['served'])}/{args.requests} decisions "
           f"({steady} post-warmup in {res['wall_s'] * 1e3:.1f} ms = "
@@ -172,6 +195,8 @@ def main(argv: list[str] | None = None) -> dict:
               f"p50 {stats['p50_ms']:8.3f} ms  "
               f"p99 {stats['p99_ms']:8.3f} ms  "
               f"mean {stats['mean_ms']:8.3f} ms")
+    if res["guards"] is not None:
+        print(f"guards: {res['guards'].sync_report(per='plane step')}")
     return dict(res, env=env, service=svc)
 
 

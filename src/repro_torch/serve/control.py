@@ -38,9 +38,10 @@ servable through this path.
 
 The reference jits the batched select once per cluster-stack layout and
 donates the per-step input buffers; eager PyTorch has neither a trace
-cache nor donation, so neither has a counterpart here.  The reference's
-compile-once assertion (``diagnostics.guards`` around a plane's program)
-belongs to the port of ``diagnostics/guards.py`` (ROADMAP A13.9)."""
+cache nor donation, so neither has a counterpart here, nor has the
+reference's compile-once assertion around a plane's program.
+``serve_control --guards`` counts a step's waits on the device instead
+(``diagnostics.guards(transfer="log")``)."""
 from __future__ import annotations
 
 import dataclasses

@@ -762,3 +762,114 @@ def test_cuda_generator_state_roundtrip(cuda_device, tmp_path):
     want = torch.rand(1000, generator=g, device=cuda_device)
     r = ck.restore({"gen": torch.Generator(device=cuda_device)})["gen"]
     assert torch.equal(torch.rand(1000, generator=r, device=cuda_device), want)
+
+
+# --------------------------------------------------------------------------
+# the runtime guards and the elastic lifecycle on the card
+# --------------------------------------------------------------------------
+def _syncing_round_robin(env):
+    """Round-robin whose tick waits on the device once an epoch."""
+    from repro_torch.core import make_agent
+
+    rr = make_agent("round_robin", env)
+    return rr._replace(tick_fn=lambda cfg, s: s + int(s.sum().item() * 0) + 1)
+
+
+def test_guard_disallow_raises_in_the_steady_state_not_at_the_boundary(cuda_device):
+    from repro_torch.core import run_online_fleet
+    from repro_torch.diagnostics import guards, lifted, steady
+    from repro_torch.dsdps import SchedulingEnv, apps
+
+    x = torch.ones(3, device=cuda_device)
+    with guards(transfer="disallow"):
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            x.sum().item()                          # the region is armed
+        with lifted():
+            assert x.sum().item() == 3.0            # boundary work
+            with steady():
+                with pytest.raises(RuntimeError, match="synchroniz"):
+                    x.sum().item()
+            assert x.sum().item() == 3.0
+    assert torch.cuda.get_sync_debug_mode() == 0
+    topo = apps.continuous_queries("small")
+    env = SchedulingEnv(topo, apps.default_workload(topo), device=cuda_device)
+    agent = _syncing_round_robin(env)
+    with guards(transfer="disallow"), pytest.raises(RuntimeError, match="synchroniz"):
+        run_online_fleet(0, env, agent, agent.init_fleet(None, 2, cuda_device), 3)
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_guard_log_counts_the_steady_states_syncs_by_site(cuda_device):
+    """Under "log" the tick's wait counts once an epoch at its line; the
+    stop test's ``.item()`` at the chunk boundary does not count."""
+    import numpy as np
+
+    from repro_torch.diagnostics import guards
+    from repro_torch.dsdps import SchedulingEnv, apps
+    from repro_torch.fleet import StopRule, run_online_fleet_elastic
+
+    topo = apps.continuous_queries("small")
+    env = SchedulingEnv(topo, apps.default_workload(topo), device=cuda_device)
+    agent = _syncing_round_robin(env)
+    probe = torch.ones(1, device=cuda_device)
+
+    def stop_fn(rewards, t):
+        probe.item()                                 # boundary: lifted
+        return np.zeros(rewards.shape[0], bool)
+
+    with guards(transfer="log") as g:
+        res = run_online_fleet_elastic(0, env, agent, agent.init_fleet(None, 2, cuda_device),
+                                       6, rule=StopRule(check_every=2), stop_fn=stop_fn)
+    assert res.executed_lane_epochs == 12 and g.steady_steps == 6
+    tick = _syncing_round_robin.__code__.co_firstlineno + 5
+    assert g.syncs[f"test_torch_cuda.py:{tick}"] == 6, g.sync_report()
+    assert not [s for s in g.syncs if s.startswith("test_torch_cuda.py:") and
+                not s.endswith(f":{tick}")], g.sync_report()
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_elastic_run_on_the_card_equals_the_cpu(cuda_device):
+    """DDPG at cq_small, F=3, T=8, lane 1 stopped at 4, on the same numpy
+    draws: moves and lane accounting exact, traces at 1e-4."""
+    import numpy as np
+
+    from repro_torch.core import EpochDraws, convert, make_agent
+    from repro_torch.dsdps import SchedulingEnv, apps
+    from repro_torch.fleet import StopRule, run_online_fleet_elastic
+
+    F, T = 3, 8
+    topo = apps.continuous_queries("small")
+    rng = np.random.default_rng(22)
+    out = {}
+    init = None
+    for where in ("cpu", cuda_device):
+        env = SchedulingEnv(topo, apps.default_workload(topo), device=where)
+        agent = make_agent("ddpg", env, k_nn=4, batch=8)
+        if init is None:
+            init = convert.ddpg_state_to_numpy(
+                agent.init_fleet(torch.Generator().manual_seed(22), F, "cpu"))
+            draws = [EpochDraws(
+                explore_add=torch.as_tensor(rng.uniform(size=F) < 0.6),
+                explore_noise=torch.as_tensor(rng.uniform(size=(F, env.N, env.M))
+                                              .astype(np.float32)),
+                explore_move=torch.as_tensor(rng.integers(0, env.N * env.M, F)),
+                meas_z=torch.as_tensor(rng.normal(size=(F, 5)).astype(np.float32)),
+                rate_z=torch.as_tensor(rng.normal(size=(F, env.workload.num_spouts))
+                                       .astype(np.float32)),
+                replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, 1, 8))),
+                explore_gumbel=torch.zeros(F, env.N, env.M)) for t in range(T)]
+
+        def stop(rewards, t):
+            return np.arange(rewards.shape[0]) == 1 if t == 4 else np.zeros(
+                rewards.shape[0], bool)
+        out[str(where)] = run_online_fleet_elastic(
+            0, env, agent, convert.ddpg_state_from_numpy(init, where), T,
+            rule=StopRule(check_every=4), draws=[d.to(where) for d in draws],
+            stop_fn=stop)
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert card.epochs_run.tolist() == cpu.epochs_run.tolist() == [T, 4, T]
+    assert card.executed_lane_epochs == cpu.executed_lane_epochs
+    np.testing.assert_array_equal(card.history.moved, cpu.history.moved)
+    np.testing.assert_array_equal(card.history.final_assignment,
+                                  cpu.history.final_assignment)
+    np.testing.assert_allclose(card.history.latencies, cpu.history.latencies, rtol=1e-4)
