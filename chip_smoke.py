@@ -70,7 +70,21 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   and resumed from its compacted checkpoint, held bit for bit to the
   uninterrupted one; the synchronizing calls of a steady-state epoch,
   by site, for every agent the port runs (sync debug mode); and a
-  successive-halving scenario search over 8 candidates.
+  successive-halving scenario search over 8 candidates;
+* LM serving beyond llama3-8b: the dense yi-34b (full depth),
+  command-r-plus-104b and qwen1.5-110b (16 layers each: their bf16
+  weights do not fit one card) and the MoE granite-moe-3b-a800m and
+  qwen2-moe-a2.7b (full depth) in bfloat16: ``prefill_forward`` on 4
+  prompts of 2048 tokens (one bf16 wgmma flash launch a layer, none
+  padded or staged) and ``Engine.generate``, the decode step timed beside
+  its byte bound, the flash kernel timed against SDPA at each config's
+  prefill shape, and for the MoE two card runs held to the same tokens
+  and the bf16 drift to a plain-version control's;
+* continuous batching: ``ContinuousBatcher`` on the float32 smoke
+  configs card against CPU (the reference tests' scenarios and a recycled
+  slot), then llama3-8b and rwkv6-7b at full size in bf16 serving 32
+  requests through 8 slots, the first wave held to ``Engine.generate``
+  token for token, every RWKV step through 32 WKV launches.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -92,6 +106,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(0, os.path.join(ROOT, "tests"))         # torch_lm_cases
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
@@ -110,6 +125,17 @@ BASELINES = dict(app="cq_large", fleet=8, epochs=50)
 LM = dict(batch=4, prefill_len=2048, prompt_len=64, new_tokens=32, max_seq=128)
 # decode throughput: serve_step timed over 4 windows of 64 steps
 DECODE = dict(windows=4, steps=64)
+# the LM configs beyond llama3-8b and rwkv6-7b, with the layers each runs:
+# command-r-plus-104b (~208 GB in bf16) and qwen1.5-110b (~220 GB) cut to
+# 16 layers to fit one 80 GB card; the others at full depth
+LM_MORE = (("yi-34b", None), ("command-r-plus-104b", 16), ("qwen1.5-110b", 16),
+           ("granite-moe-3b-a800m", None), ("qwen2-moe-a2.7b", None))
+# the continuous batcher: 8 slots, a 2048-position shared cache, 32 seeded
+# requests, the first 8 of 64 prompt and 32 new tokens, then 24 of 16-128
+# prompt and 16-64 new tokens; greedy, no EOS.  With every request run to
+# its budget, the seeded traffic takes 491 steps of the shared length
+BATCHER = dict(slots=8, max_seq=2048, requests=32, first=8, first_prompt=64,
+               first_new=32, prompt=(16, 128), new=(16, 64), seed=24, steps=491)
 # the control-serving path: three decision kinds, 8 slots a plane, 16
 # perturbed clusters, 256 requests, at the paper's large-scale setup
 SERVE = dict(app="cq_large", clusters=16, requests=256, slots=8, seed=0)
@@ -1253,14 +1279,37 @@ def check_card_to_cpu_restore(res: dict, directory: str) -> int:
     return len(got)
 
 
+@contextlib.contextmanager
+def fixed_order_sums():
+    """PyTorch's deterministic algorithms on, warnings only (the GEMMs of
+    one shape on one stream repeat without cuBLAS's workspace setting), no
+    fill of uninitialized memory: ``index_add`` on the card then sums in a
+    fixed order instead of by atomics."""
+    from torch.utils import deterministic
+
+    was, warn = (torch.are_deterministic_algorithms_enabled(),
+                 torch.is_deterministic_algorithms_warn_only_enabled())
+    fill = deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+        deterministic.fill_uninitialized_memory = fill
+
+
 def check_small_resumes(dev, root: str) -> None:
     """Every agent the port runs, at F=2, T=4 from the generator's draws on
     the card: killed after 2 epochs (saved every 2) and resumed into fresh
-    templates, against three uninterrupted runs.  The graph policy sums
-    messages with ``index_add`` (atomic on the card, in no fixed order), so
-    its float leaves may differ from run to run: the resumed run must be as
+    templates, against three uninterrupted runs: the resumed run must be as
     close to one of the uninterrupted runs as they come to each other, its
-    moves and final assignments equal to all of theirs."""
+    moves and final assignments equal to all of theirs.  The graph policy
+    sums messages with ``index_add``, atomic on the card and in no fixed
+    order, so its float leaves would differ from run to run by a few ulps
+    and the bar would be a draw; the runs here sum in a fixed order
+    (``fixed_order_sums``), so every bar is what two runs of one program
+    give, 0 where nothing else varies."""
     import copy
     import itertools
 
@@ -1284,17 +1333,18 @@ def check_small_resumes(dev, root: str) -> None:
                                         **kw)
             return dict(states=st, history=hist)
 
-        uninterrupted = [run(copy.deepcopy(init), T) for _ in range(3)]
+        with fixed_order_sums():
+            uninterrupted = [run(copy.deepcopy(init), T) for _ in range(3)]
+            directory = os.path.join(root, f"small_{i}")
+            ck = FleetCheckpoint(directory, every=every)
+            run(copy.deepcopy(init), kill, checkpoint=ck)
+            ck.close()
+            epoch, states, env_state, gen = FleetCheckpoint(directory).restore(
+                copy.deepcopy(init), env.reset(F, params), torch.Generator(device=dev))
+            resumed = run(states, T - epoch, gen=gen, env_state=env_state,
+                          start_epoch=epoch)
         pairs = [run_gap(a, b) for a, b in itertools.combinations(uninterrupted, 2)]
         bar = {k: max(g[k] for g in pairs) for k in ("rewards", "latencies", "states")}
-        directory = os.path.join(root, f"small_{i}")
-        ck = FleetCheckpoint(directory, every=every)
-        run(copy.deepcopy(init), kill, checkpoint=ck)
-        ck.close()
-        epoch, states, env_state, gen = FleetCheckpoint(directory).restore(
-            copy.deepcopy(init), env.reset(F, params), torch.Generator(device=dev))
-        resumed = run(states, T - epoch, gen=gen, env_state=env_state,
-                      start_epoch=epoch)
         gaps = [run_gap(u, resumed, skip_a=epoch) for u in uninterrupted]
         for g in pairs + gaps:
             check_within(f"phase 21 {name} on {app}: moves", g,
@@ -1761,13 +1811,21 @@ def time_critic_head(res) -> None:
             f"(device, CUDA graph); max |diff| {err:.3g}")
 
 
+def sdpa(q, k, v):
+    """The library call for the flash kernel's work: causal GQA attention on
+    ``[B, S, H, hd]`` inputs."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        enable_gqa=True)
+
+
 def check_flash(dev) -> dict:
     """Phase 9: both flash-attention routes against their plain version on
     tests/test_kernels.py's cases, every head dim, ragged S, a strided view
     and the llama3-8b prefill shape; then, at that shape, the float32
     route's time, and the bfloat16 kernel's against plain, SDPA and bound."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.flash_attention import flash_attention_ref, ops
 
     # (rtol, atol) of |got - want| <= rtol * |want| + atol.  float32: both
@@ -1880,11 +1938,6 @@ def check_flash(dev) -> dict:
     q, k, v = inputs
     flops = 4 * B * H * hd * S * (S + 1) // 2            # causal: j <= i
     elems = 2 * B * S * H * hd + 2 * B * S * Hkv * hd     # q, o and k, v
-    def sdpa(q, k, v):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
-            enable_gqa=True)
-
     q32, k32, v32 = q.float(), k.float(), v.float()
     f32 = dict(ms=eager_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True),
                            iters=5, warmup=1),
@@ -1916,46 +1969,60 @@ def check_flash(dev) -> dict:
         f"{bytes_moved / 1e6:.1f} MB); {flops / t['ms'] / 1e9:.1f} TFLOP/s; "
         f"|kernel - SDPA| max {lib_err:.3g}")
     del q, k, v, inputs
-    phi3 = time_phi3_prefill(dev, gen, sdpa)
-    wide = time_wide_heads(dev, gen, sdpa)
+    # phi-3-vision's head dim (96, native: it has its own instantiation)
+    phi3 = time_flash_shape(dev, gen, "phi-3-vision heads", 32, 32, 96)
+    wide = time_wide_heads(dev, gen)
     f32["bound_by"] = "operations"
     return dict(max_abs_err=max_err[torch.bfloat16], timings=t,
                 f32=dict(max_abs_err=max_err[torch.float32], timings=f32),
                 phi3=phi3, wide=wide)
 
 
-def time_phi3_prefill(dev, gen, sdpa) -> dict:
-    """Phase 9, last part: the bf16 route at phi-3-vision's head dim (96,
-    native since it has its own instantiation) on the prefill shape q and
-    k/v [4, 2048, 32, 96], causal: kernel, plain, SDPA and bound."""
+def time_flash_shape(dev, gen, what: str, H: int, Hkv: int, hd: int) -> dict:
+    """The bf16 route on a prefill shape, q [4, 2048, H, hd] and k/v [4,
+    2048, Hkv, hd], causal: held to its plain version, one native wgmma
+    launch (not padded, staged or on the CUDA cores), and timed beside
+    plain, SDPA and the bound."""
     from repro_torch.kernels.flash_attention import flash_attention_ref, ops
 
-    B, S, H, hd = LM["batch"], LM["prefill_len"], 32, 96
-    q, k, v = (torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
-               for _ in range(3))
-    padded = ops.LAUNCHES_PADDED
-    err = float((ops.flash_attention(q, k, v).float()
-                 - flash_attention_ref(q, k, v).float()).abs().max())
-    if ops.LAUNCHES_PADDED != padded:
-        raise AssertionError("hd 96 was padded: it has its own instantiation")
+    B, S = LM["batch"], LM["prefill_len"]
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev).bfloat16()
+               for n in (H, Hkv, Hkv))
+    counts = lambda: (ops.LAUNCHES_BF16, ops.LAUNCHES_PADDED,  # noqa: E731
+                      ops.STAGED_COPIES, ops.LAUNCHES_BF16_CUDA_CORES)
+    before = counts()
+    got = ops.flash_attention(q, k, v)
+    if counts() != (before[0] + 1, *before[1:]):
+        raise AssertionError(f"{what}: flash counts {before} -> {counts()}, expected "
+                             "one native bf16 launch")
+    want = flash_attention_ref(q, k, v)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    if bool((diff > 1e-2 * want.float().abs() + 2e-3).any()):
+        raise AssertionError(f"{what}: flash off its plain version by {err}")
+    lib_err = float((sdpa(q, k, v).transpose(1, 2).float() - got.float()).abs().max())
+    del got, want, diff
     flops = 4 * B * H * hd * S * (S + 1) // 2
-    bytes_moved = 2 * 4 * B * S * H * hd                  # q, k, v, o in bf16
+    bytes_moved = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)       # q, o, k, v
     t = dict(ms=eager_ms(lambda: ops.flash_attention(q, k, v), iters=20, warmup=3),
-             plain_ms=eager_ms(lambda: flash_attention_ref(q, k, v), iters=3,
-                               warmup=1),
-             library_ms=eager_ms(lambda: sdpa(q, k, v), iters=20, warmup=3))
+             plain_ms=eager_ms(lambda: flash_attention_ref(q, k, v), iters=3, warmup=1),
+             library_ms=eager_ms(lambda: sdpa(q, k, v), iters=20, warmup=3),
+             max_abs_err=err)
     t_ops, t_bytes = flops / BF16_TC_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
     t["bound_ms"] = max(t_ops, t_bytes) * 1e3
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"  [{B},{S},{H},{hd}] q, k, v bf16 causal (phi-3-vision heads), bfloat16 "
-        f"route, ms per call: kernel {t['ms']:.6f}  plain {t['plain_ms']:.6f}  "
+    log(f"  {what}: q [{B},{S},{H},{hd}] x k/v [{B},{S},{Hkv},{hd}] bf16 causal, "
+        f"bfloat16 route, ms per call: kernel {t['ms']:.6f}  plain {t['plain_ms']:.6f}  "
         f"library (SDPA) {t['library_ms']:.6f}  bound {t['bound_ms']:.6f} "
         f"({t['bound_by']}: {flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); "
-        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}")
-    return dict(max_abs_err=err, timings=t)
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}, "
+        f"|kernel - SDPA| max {lib_err:.3g}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return t
 
 
-def time_wide_heads(dev, gen, sdpa) -> dict:
+def time_wide_heads(dev, gen) -> dict:
     """Phase 9, last part: head dims 256 (the CUDA-core kernel's widest
     instantiation) and 512 (its wide form) at q, k, v [4, 2048, 32, hd],
     causal, in float32 and in bf16: kernel, plain, SDPA and bound (float32
@@ -2008,9 +2075,10 @@ def time_wide_heads(dev, gen, sdpa) -> dict:
 
 def check_wkv(dev) -> dict:
     """Phase 10: the WKV6 kernel against its plain version at T=1 and
-    T=2048, from a zero and a non-zero state, and at the smoke head sizes;
-    then kernel, plain and bound at the rwkv6-7b decode and prefill
-    shapes."""
+    T=2048, from a zero and a non-zero state, at the continuous batcher's
+    step and at the smoke head sizes; then kernel, plain and bound at the
+    rwkv6-7b decode, prefill and batcher shapes.  The batcher's row in the
+    kernels line takes its error from its own case."""
     from repro_torch.kernels.rwkv6_scan import ops, wkv6_ref
 
     B, H, hd = LM["batch"], 64, 64
@@ -2026,12 +2094,15 @@ def check_wkv(dev) -> dict:
         S0 = torch.randn(b, h, d, d, generator=gen, device=dev) if carry else None
         return w, r, k, v, u, S0
 
+    batcher = (BATCHER["slots"], 1, H, hd, torch.bfloat16, True)
     cases = [(B, 1, H, hd, torch.bfloat16, False), (B, 1, H, hd, torch.bfloat16, True),
              (B, 2048, H, hd, torch.bfloat16, False), (B, 2048, H, hd, torch.bfloat16, True),
+             batcher,
              (2, 96, 2, 8, torch.float32, True), (2, 64, 4, 16, torch.float32, False),
              (1, 40, 2, 128, torch.float32, True)]
-    max_rel = max_abs = 0.0
-    for b, T, h, d, dtype, carry in cases:
+    max_rel = max_abs = batcher_abs = 0.0
+    for case in cases:
+        b, T, h, d, dtype, carry = case
         args = make(b, T, h, d, dtype, carry)
         out, S_T = ops.wkv6(*args)
         want, want_S = wkv6_ref(*args)
@@ -2048,12 +2119,16 @@ def check_wkv(dev) -> dict:
                                      f"largest value) at {(b, T, h, d)} {dtype} "
                                      f"carry={carry}")
             max_rel, max_abs = max(max_rel, rel), max(max_abs, err)
+            if case == batcher:
+                batcher_abs = max(batcher_abs, err)
     log(f"phase 10 wkv kernel vs plain version: {len(cases)} cases agree "
-        f"(max |err| {max_abs:.3g}; max |err|/(1+max|x|) {max_rel:.3g}, tol 1e-5)")
+        f"(max |err| {max_abs:.3g}; max |err|/(1+max|x|) {max_rel:.3g}, tol 1e-5; "
+        f"at the batcher's step {list(batcher[:4])}: max |err| {batcher_abs:.3g})")
 
     timings = {}
-    for name, T, carry in (("decode", 1, True), ("prefill", LM["prefill_len"], False)):
-        args = make(B, T, H, hd, torch.bfloat16, carry)
+    for name, b, T, carry in (("decode", B, 1, True), ("prefill", B, LM["prefill_len"], False),
+                              ("batcher", BATCHER["slots"], 1, True)):
+        args = make(b, T, H, hd, torch.bfloat16, carry)
         kernel = lambda a=args: ops.wkv6(*a)                 # noqa: E731
         plain = lambda a=args: wkv6_ref(*a)                  # noqa: E731
         if T == 1:
@@ -2061,88 +2136,125 @@ def check_wkv(dev) -> dict:
         else:
             t = dict(ms=eager_ms(kernel, iters=20, warmup=3),
                      plain_ms=eager_ms(plain, iters=2, warmup=1))
-        elems = B * T * H * hd
-        state = B * H * hd * hd * 4
+        elems = b * T * H * hd
+        state = b * H * hd * hd * 4
         bytes_moved = elems * (4 + 3 * 2 + 4) + state * (2 if carry else 1)
         # per state element and step: r_i S_ij into the output (an FMA) and
         # S_ij = w_i S_ij + k_i v_j (a product and an FMA); the bonus
         # v_j sum_i r_i u_i k_i is O(hd) per step and left out
-        ops_count = 5 * B * T * H * hd * hd
+        ops_count = 5 * b * T * H * hd * hd
         t_ops, t_bytes = ops_count / F32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
         t["bound_ms"] = max(t_ops, t_bytes) * 1e3
         t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         timings[name] = t
-        log(f"  {name} [{B},{T},{H},{hd}] bf16 r/k/v, ms per call: kernel "
+        log(f"  {name} [{b},{T},{H},{hd}] bf16 r/k/v, ms per call: kernel "
             f"{t['ms']:.6f}  plain {t['plain_ms']:.6f}  library none  bound "
             f"{t['bound_ms']:.6f} ({t['bound_by']}: {ops_count / 1e9:.3f} GFLOP, "
             f"{bytes_moved / 1e6:.2f} MB)")
-    return dict(max_abs_err=max_abs, timings=timings)
+    return dict(max_abs_err=max_abs, batcher_max_abs_err=batcher_abs, timings=timings)
+
+
+LM_ARCHS = ("llama3-8b", "rwkv6-7b", "yi-34b", "command-r-plus-104b", "qwen1.5-110b",
+            "granite-moe-3b-a800m", "qwen2-moe-a2.7b")
+
+
+@contextlib.contextmanager
+def recorded_routes(into: list):
+    """Every MoE layer's routing (expert ids, keep mask) appended to
+    ``into`` as it is computed, on the host."""
+    from repro_torch.models import ffn
+
+    route = ffn.moe_route
+
+    def recording(*args, **kwargs):
+        r = route(*args, **kwargs)
+        into.append((r.expert.cpu(), r.keep.cpu()))
+        return r
+    ffn.moe_route = recording
+    try:
+        yield
+    finally:
+        ffn.moe_route = route
 
 
 def check_lm_smoke(dev) -> None:
-    """Phase 11: both smoke configs in float32, card against CPU, on the
-    same weights: prefill_forward logits, and Engine.generate's greedy
-    tokens."""
-    import dataclasses
+    """Phase 11: the seven ported smoke configs in float32, card against
+    CPU, on the same weights: prefill_forward logits, Engine.generate's
+    greedy tokens, and every MoE layer's expert ids and keep mask."""
+    from torch_lm_cases import smoke_lm
 
-    from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serve import Engine
 
-    for arch in ("llama3-8b", "rwkv6-7b"):
-        cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
-        cpu = lm.init_params(cfg, torch.Generator().manual_seed(11), "cpu")
-        if cfg.family == "ssm":
-            u = cpu["layers"]["pos0"]["mixer"]["u"]
-            u.copy_(torch.randn(u.shape, generator=torch.Generator().manual_seed(12)) * 0.5)
+    worst, routed = 0.0, 0
+    for arch in LM_ARCHS:
+        cfg, cpu = smoke_lm(arch, 11)
         card = _tree_map(lambda t: t.to(dev), cpu)
         toks = torch.randint(1, cfg.vocab_size, (2, 24),
                              generator=torch.Generator().manual_seed(13))
-        logits = {}
-        gens = {}
+        logits, gens, routes = {}, {}, {}
         for where, params in (("cpu", cpu), ("card", card)):
             d = "cpu" if where == "cpu" else dev
-            logits[where], _ = lm.prefill_forward(cfg)(params, {"tokens": toks.to(d)})
-            eng = Engine(cfg, params, max_seq=48, batch_size=2, device=d)
-            gens[where] = eng.generate(None, toks, 16).cpu()
+            routes[where] = []
+            with recorded_routes(routes[where]):
+                logits[where], _ = lm.prefill_forward(cfg)(params, {"tokens": toks.to(d)})
+                eng = Engine(cfg, params, max_seq=48, batch_size=2, device=d)
+                gens[where] = eng.generate(None, toks, 16).cpu()
         # float32 on both sides with TF32 off: the matmuls and the kernels sum
         # in another order than the CPU, ~1e-6 relative on logits of O(1)
         err = float((logits["card"].cpu() - logits["cpu"]).abs().max())
+        worst = max(worst, err)
         if err > 1e-4:
             raise AssertionError(f"{arch} smoke: card logits off the CPU by {err}")
         if not torch.equal(gens["card"], gens["cpu"]):
             raise AssertionError(f"{arch} smoke: greedy tokens differ card vs CPU")
-    log("phase 11 smoke configs (llama3-8b, rwkv6-7b) float32: card == CPU "
-        "(prefill logits within 1e-4, 16 greedy tokens identical)")
+        if len(routes["card"]) != len(routes["cpu"]) or not all(
+                torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                for a, b in zip(routes["card"], routes["cpu"])):
+            raise AssertionError(f"{arch} smoke: MoE expert ids or keep masks differ "
+                                 "card vs CPU")
+        if cfg.num_experts and not routes["card"]:
+            raise AssertionError(f"{arch} smoke: no MoE layer ran")
+        routed += len(routes["card"])
+    log(f"phase 11 smoke configs ({', '.join(LM_ARCHS)}) float32: card == CPU "
+        f"(prefill logits within 1e-4, max |err| {worst:.3g}; 16 greedy tokens "
+        f"identical; {routed} MoE routings with expert ids and keep masks identical)")
 
 
-def profile_decode(step, params, cache, tok, steps: int = 4) -> float:
-    """Device busy share of the decode step: ``steps`` more steps under
-    ``torch.profiler``, kernels' device time over the unprofiled wall."""
+def busy_share(run, steps: int, what: str) -> dict:
+    """``run()`` ``steps`` times unprofiled (host clock, synchronized), then
+    ``steps`` times under ``torch.profiler``: the kernels' device time over
+    the unprofiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        _, cache = step(params, cache, tok)
+        run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            _, cache = step(params, cache, tok)
+            run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels) / steps
-    log(f"  decode step profile: wall {wall * 1e3:.3f} ms unprofiled, device busy "
+    log(f"  {what} profile: wall {wall * 1e3:.3f} ms unprofiled, device busy "
         f"{busy_us / 1e3:.3f} ms in {len(kernels) / steps:.0f} kernels = "
         f"{busy_us / (wall * 1e6):.1%} of the wall")
-    return busy_us / (wall * 1e6)
+    return dict(wall_ms=wall * 1e3, busy_ms=busy_us / 1e3, kernels=len(kernels) / steps,
+                busy=busy_us / (wall * 1e6))
 
 
-def run_lm_path(dev, arch: str) -> dict:
-    """Phases 12-13: ``arch`` at full width and depth in bfloat16, random
+def run_lm_path(dev, arch: str, layers: int | None = None,
+                batcher: bool = False) -> dict:
+    """Phases 12, 13 and 23: ``arch`` at full width in bfloat16 (at
+    ``layers`` of its layers where given, else at full depth), random
     weights from a seeded generator: prefill_forward, then Engine.generate,
-    with the path's kernel launches counted."""
+    with the path's kernel launches counted; the decode step timed; then
+    (phase 24, ``batcher``) the continuous batcher on the same weights."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.knn_topk import ops as knn_ops
@@ -2150,7 +2262,10 @@ def run_lm_path(dev, arch: str) -> dict:
     from repro_torch.models import lm
     from repro_torch.serve import Engine
 
-    cfg = get_config(arch)
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    phase = {"llama3-8b": 12, "rwkv6-7b": 13}.get(arch, 23)
+    attn = cfg.family != "ssm"
     B, S, P, N = LM["batch"], LM["prefill_len"], LM["prompt_len"], LM["new_tokens"]
     gen = torch.Generator(device=dev).manual_seed(12)
     t0 = time.perf_counter()
@@ -2161,18 +2276,23 @@ def run_lm_path(dev, arch: str) -> dict:
         u.copy_(torch.randn(u.shape, generator=gen, device=dev) * 0.5)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"phase {12 if cfg.family == 'dense' else 13} {arch}: {cfg.num_layers} layers, "
-        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {n_params / 1e9:.3f} B "
-        f"params bf16 ({torch.cuda.memory_allocated() / 2**30:.2f} GiB), "
+    log(f"phase {phase} {arch}: {cfg.num_layers} of {full.num_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} kv) of "
+        f"{cfg.head_dim}, vocab {cfg.vocab_size}"
+        + (f", {cfg.num_experts} experts top-{cfg.experts_per_token}"
+           f" + {cfg.num_shared_experts} shared" if cfg.num_experts else "")
+        + f"; {n_params / 1e9:.3f} B params bf16 "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), "
         f"init {time.perf_counter() - t0:.2f} s"
         + ("; the bonus u filled with seeded values" if cfg.family == "ssm" else ""))
     want = cfg.num_layers                  # one launch per layer
-    count = fa_ops if cfg.family == "dense" else wkv_ops
+    count = fa_ops if attn else wkv_ops
 
     prefill = lm.prefill_forward(cfg)
     toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device=dev)
     prefill(params, {"tokens": toks[:, :256]})           # warm the libraries
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fa_ops.LAUNCHES = wkv_ops.LAUNCHES = knn_ops.LAUNCHES = 0
     fa_ops.LAUNCHES_BF16 = fa_ops.LAUNCHES_F32 = 0
     fa_ops.LAUNCHES_PADDED = fa_ops.STAGED_COPIES = 0
@@ -2185,12 +2305,12 @@ def run_lm_path(dev, arch: str) -> dict:
     if launches_prefill != want:
         raise AssertionError(f"{arch} prefill_forward launched its kernel "
                              f"{launches_prefill} times, expected {want}")
-    if cfg.family == "dense" and (fa_ops.LAUNCHES_BF16, fa_ops.LAUNCHES_F32) != (want, 0):
+    if attn and (fa_ops.LAUNCHES_BF16, fa_ops.LAUNCHES_F32) != (want, 0):
         raise AssertionError(f"{arch} prefill_forward: {fa_ops.LAUNCHES_BF16} bf16 and "
                              f"{fa_ops.LAUNCHES_F32} float32 flash launches, expected "
                              f"{want} and 0")
     launches_f32, launches_wide = fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_WIDE
-    if cfg.family == "dense":
+    if attn:
         log(f"  prefill_forward flash: {fa_ops.LAUNCHES_PADDED} padded launches, "
             f"{fa_ops.STAGED_COPIES} staged copies (head_dim {cfg.head_dim}, "
             "fused-projection views)")
@@ -2208,7 +2328,8 @@ def run_lm_path(dev, arch: str) -> dict:
     del logits, kv
     log(f"  prefill_forward [{B},{S}]: {t_prefill:.3f} s = "
         f"{B * S / t_prefill:.1f} tokens/s; {launches_prefill} "
-        f"{'bf16 flash' if cfg.family == 'dense' else 'wkv'} launches (one per layer)")
+        f"{'bf16 flash' if attn else 'wkv'} launches (one per layer); peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     eng = Engine(cfg, params, max_seq=LM["max_seq"], batch_size=B, device=dev)
     prompts = toks[:, :P]
@@ -2229,35 +2350,76 @@ def run_lm_path(dev, arch: str) -> dict:
     if knn_ops.LAUNCHES:
         raise AssertionError("the K-NN kernel ran on the LM path")
     launches = count.LAUNCHES
-
-    # the Engine's token-by-token prefill against prefill_forward on the
-    # same 64-token prompts; the float32 pair on the same weights follows
-    _, step_logits = eng.prefill(eng.new_cache(), prompts)
-    full_logits, _ = prefill(params, {"tokens": prompts})
-    del eng
     log(f"  Engine.generate {B} x ({P} prompt + {N} new) tokens: {t_gen:.3f} s, "
         f"{launches_gen} {'wkv' if cfg.family == 'ssm' else 'flash'} launches "
         f"({steps} steps x {cfg.num_layers} layers)")
+    if cfg.num_experts:
+        # the dispatch writes kept rows by plain indexing and combines in a
+        # fixed order: a second run gives the same tokens
+        again = eng.generate(None, prompts, N)
+        if not torch.equal(again, out):
+            raise AssertionError(f"{arch}: two card runs of generate differ")
+        log(f"  Engine.generate run twice: {N} x {B} tokens identical")
+
+    drift = None
+    if phase != 23:
+        # the Engine's token-by-token prefill against prefill_forward on the
+        # same 64-token prompts; the float32 pair on the same weights follows
+        _, step_logits = eng.prefill(eng.new_cache(), prompts)
+        full_logits, _ = prefill(params, {"tokens": prompts})
+    del eng
     decode = time_decode(cfg, params, out[:, -1:])
-    drift = check_prefills_agree(cfg, params, prompts, step_logits, full_logits)
+    if phase != 23:
+        drift = check_prefills_agree(cfg, params, prompts, step_logits, full_logits)
+    elif cfg.num_experts:
+        # it turns the weights to float32 in place: nothing runs after it
+        drift = check_moe_drift(cfg, params, gen)
+    res = dict(launches=launches, launches_f32=launches_f32,
+               launches_wide=launches_wide, layers=cfg.num_layers,
+               prefill_tok_s=B * S / t_prefill, decode=decode, drift=drift)
+    if batcher:
+        res["batcher"] = run_batcher(dev, cfg, params)
     del params
     torch.cuda.empty_cache()
-    return dict(launches=launches, launches_f32=launches_f32,
-                launches_wide=launches_wide,
-                prefill_tok_s=B * S / t_prefill, decode=decode, drift=drift)
+    return res
+
+
+def decode_bytes(cfg, params, B: int, t: int, routed: int | None = None) -> int:
+    """What one decode step at batch ``B`` and position ``t`` moves: every
+    weight once (an untied embedding only its B rows), the K/V rows 0..t
+    of each attention layer read and row t written, the RWKV states read
+    and written.  An MoE's experts: with ``routed`` None, all of them, as
+    this formulation reads them (capacity 1, ``bmm`` over every expert);
+    else ``routed`` experts' weights, the distinct experts the step's
+    layers route to (at most B·K a layer): the function's bound."""
+    total = 0
+    for name, leaf in _named_leaves(params):
+        if name == ("embed", "table") and not cfg.tie_embeddings:
+            total += B * leaf.shape[1] * leaf.element_size()
+        elif routed is not None and name[-2] == "ffn" and name[-1] in ("gate", "up", "down"):
+            # the stacked experts [num_blocks, E, ...]
+            total += routed * leaf[0, 0].numel() * leaf.element_size()
+        else:
+            total += leaf.numel() * leaf.element_size()
+    if cfg.family == "ssm":
+        state = cfg.rwkv_heads * cfg.rwkv_head_size ** 2 * 4 + 2 * cfg.d_model * 2
+        return total + 2 * cfg.num_layers * B * state
+    row = 2 * cfg.num_kv_heads * cfg.head_dim * 2          # k and v, bf16
+    return total + cfg.num_layers * B * row * (t + 2)
 
 
 def time_decode(cfg, params, tok) -> dict:
     """Decode throughput at batch ``B``: ``serve_step`` on a fresh cache,
     timed over DECODE["windows"] back-to-back windows of DECODE["steps"]
     steps each (host time, synchronized at each window's end), so that the
-    host's noise averages out; then the device's busy share."""
+    host's noise averages out; then the device's busy share, and the byte
+    bound of a step at the windows' middle position."""
     from repro_torch.models import lm
 
     B, n, k = tok.shape[0], DECODE["steps"], DECODE["windows"]
     prof_steps = 4
     step = lm.serve_step(cfg)
-    cache = lm.init_cache(cfg, batch=B, max_seq=2 + n * k + 2 * prof_steps,
+    cache = lm.init_cache(cfg, batch=B, max_seq=3 + n * k + 2 * prof_steps,
                           device=tok.device)
     step(params, cache, tok)                             # warm
     torch.cuda.synchronize()
@@ -2269,12 +2431,74 @@ def time_decode(cfg, params, tok) -> dict:
         torch.cuda.synchronize()
         window_ms.append((time.perf_counter() - t0) / n * 1e3)
     step_ms = sum(window_ms) / k
+    moved = decode_bytes(cfg, params, B, 1 + n * k // 2)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"  decode step at batch {B}, {k} windows of {n} steps: {step_ms:.3f} ms "
         f"mean = {B / step_ms * 1e3:.1f} tokens/s (windows "
-        f"{min(window_ms):.3f}-{max(window_ms):.3f} ms per step)")
-    busy = profile_decode(step, params, cache, tok, steps=prof_steps)
-    return dict(step_ms=step_ms, tok_s=B / step_ms * 1e3, window_ms=window_ms,
-                busy=busy)
+        f"{min(window_ms):.3f}-{max(window_ms):.3f} ms per step); byte bound "
+        f"{bound_ms:.3f} ms ({moved / 1e9:.3f} GB at 3.35 TB/s)")
+    res = dict(step_ms=step_ms, tok_s=B / step_ms * 1e3, window_ms=window_ms,
+               bound_ms=bound_ms, bytes=moved)
+    if cfg.family == "moe":
+        routes = []
+        with recorded_routes(routes):
+            step(params, cache, tok)
+        routed = sum(len(set(e[keep].tolist())) for e, keep in routes)
+        fn_moved = decode_bytes(cfg, params, B, 1 + n * k // 2, routed=routed)
+        res.update(fn_bound_ms=fn_moved / HBM_BYTES_PER_S * 1e3, routed=routed)
+        log(f"  that byte bound is this formulation's (every expert read at "
+            f"capacity 1); the function's, with the {routed} experts routed in "
+            f"{len(routes)} layers (at most {min(B * cfg.experts_per_token, cfg.num_experts)}"
+            f" of {cfg.num_experts} a layer): {res['fn_bound_ms']:.3f} ms "
+            f"({fn_moved / 1e9:.3f} GB)")
+    prof = busy_share(lambda: step(params, cache, tok), prof_steps, "decode step")
+    res["busy"] = prof["busy"]
+    return res
+
+
+def check_moe_drift(cfg, params, gen) -> dict:
+    """Phase 23, MoE: the bf16 prefill_forward's drift from the float32
+    answer of the same weights, no larger than 1.5x that of a control with
+    the kernels' plain versions.  With random weights the routers are
+    close to uniform, and bf16 rounding moves some tokens to other experts
+    in any run, the control's too, which makes a sequence's last logits
+    jump: the distance is taken over 32 sequences of 64 tokens, where the
+    jumps average out (tests/test_torch_lm_bf16.py).  The weights are
+    turned to float32 in place, leaf by leaf (qwen2-moe's 28.6 GB in bf16
+    and 57.2 GB in float32 do not fit one card together)."""
+    import dataclasses
+
+    from repro_torch.models import lm
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    prompts = torch.randint(1, cfg.vocab_size, (32, 64), generator=gen,
+                            device=params["embed"]["table"].device)
+    full16, _ = lm.prefill_forward(cfg)(params, {"tokens": prompts})
+    with plain_kernels():
+        plain16, _ = lm.prefill_forward(cfg)(params, {"tokens": prompts})
+
+    def to_f32(tree):
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                to_f32(leaf)
+            else:
+                tree[name] = leaf.float()
+                del leaf
+    to_f32(params)
+    torch.cuda.empty_cache()
+    full32, _ = lm.prefill_forward(dataclasses.replace(cfg, dtype="float32"))(
+        params, {"tokens": prompts})
+    r = dict(full16=rel(full16, full32), control=rel(plain16, full32),
+             kernel_vs_plain16=rel(full16, plain16))
+    log(f"  MoE bf16 drift from the float32 answer over 32 x 64 tokens: "
+        f"prefill_forward {r['full16']:.4f}, control with the plain versions "
+        f"{r['control']:.4f} (tol 1.5x the control); kernels vs plain versions "
+        f"in bf16 {r['kernel_vs_plain16']:.4f}")
+    if not r["full16"] <= 1.5 * r["control"]:
+        raise AssertionError(f"{cfg.name}: bf16 drift past 1.5x the control: {r}")
+    return r
 
 
 @contextlib.contextmanager
@@ -2345,6 +2569,142 @@ def check_prefills_agree(cfg, params, prompts, step16, full16) -> dict:
     return r
 
 
+def time_config_flash(dev) -> dict:
+    """Phase 23: the bf16 flash kernel at each new config's prefill shape."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    log("phase 23 flash bf16 at each config's prefill shape")
+    out = {}
+    for arch, _ in LM_MORE:
+        cfg = get_config(arch)
+        out[arch] = time_flash_shape(dev, gen, arch, cfg.num_heads, cfg.num_kv_heads,
+                                     cfg.head_dim)
+    return out
+
+
+def serve_requests(cfg, params, n_slots, max_seq, reqs, device) -> list:
+    """[(rid, out)] in finish order, served by a ContinuousBatcher."""
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cb = ContinuousBatcher(cfg, params, max_seq=max_seq, n_slots=n_slots, eos_id=-1,
+                           device=device)
+    for rid, (prompt, new) in enumerate(reqs):
+        cb.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=new))
+    return [(r.rid, list(r.out)) for r in cb.run(None, max_steps=200)]
+
+
+def check_batcher_vs_cpu(dev) -> None:
+    """Phase 24, first part: the float32 smoke llama3-8b, rwkv6-7b and
+    granite-moe through the continuous batcher, card against CPU: outputs
+    token for token and the finish order."""
+    from torch_lm_cases import BATCHER_SCENARIOS, smoke_lm
+
+
+    distinct = {}
+    for arch in ("llama3-8b", "rwkv6-7b", "granite-moe-3b-a800m"):
+        cfg, cpu = smoke_lm(arch, 24)
+        card = _tree_map(lambda t: t.to(dev), cpu)
+        for name, (n_slots, max_seq, reqs) in BATCHER_SCENARIOS.items():
+            got = serve_requests(cfg, card, n_slots, max_seq, reqs, dev)
+            want = serve_requests(cfg, cpu, n_slots, max_seq, reqs, "cpu")
+            if got != want:
+                raise AssertionError(f"phase 24 {arch} {name}: card {got} != CPU {want}")
+            if name == "recycled_slot":
+                distinct[arch] = len({tuple(out) for _, out in got})
+    log("phase 24 ContinuousBatcher smoke configs (llama3-8b, rwkv6-7b, "
+        "granite-moe-3b-a800m) float32, 5 requests on 2 slots, 2 on 1, 3 equal "
+        "prompts through 1 slot: card == CPU (outputs and finish order); distinct "
+        f"outputs of the 3 equal prompts {distinct}")
+
+
+def run_batcher(dev, cfg, params) -> dict:
+    """Phase 24: 32 seeded requests through 8 slots of a 2048-position
+    shared cache, greedy, no EOS, on ``cfg`` at full size: the first wave
+    against Engine.generate on the same prompts at batch 8, every request
+    finished with its budget, the traffic's steps, the kernel launches of
+    the run, its tokens/s and requests/s, and a step's device busy
+    share."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.serve import ContinuousBatcher, Engine, Request
+
+    n_slots, max_seq = BATCHER["slots"], BATCHER["max_seq"]
+    rng = np.random.default_rng(BATCHER["seed"])
+    reqs = []
+    for i in range(BATCHER["requests"]):
+        if i < BATCHER["first"]:
+            P, N = BATCHER["first_prompt"], BATCHER["first_new"]
+        else:
+            P = int(rng.integers(BATCHER["prompt"][0], BATCHER["prompt"][1] + 1))
+            N = int(rng.integers(BATCHER["new"][0], BATCHER["new"][1] + 1))
+        reqs.append((rng.integers(1, cfg.vocab_size, P).tolist(), N))
+
+    first = torch.tensor([p for p, _ in reqs[:n_slots]], dtype=torch.int32, device=dev)
+    eng = Engine(cfg, params, max_seq=max_seq, batch_size=n_slots, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = eng.generate(None, first, BATCHER["first_new"]).cpu().tolist()
+    t_eng = time.perf_counter() - t0
+    del eng
+    torch.cuda.empty_cache()
+
+    cb = ContinuousBatcher(cfg, params, max_seq=max_seq, n_slots=n_slots, eos_id=-1,
+                           device=dev)
+    for rid, (prompt, new) in enumerate(reqs):
+        cb.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+    fa_ops.LAUNCHES = wkv_ops.LAUNCHES = 0
+    steps = slot_steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while cb.queue or any(cb.slots):
+        slot_steps += min(n_slots, cb.active + len(cb.queue))
+        cb.step()
+        steps += 1
+    wall = time.perf_counter() - t0
+    launches = dict(flash=fa_ops.LAUNCHES, wkv=wkv_ops.LAUNCHES)
+    done = cb._finished
+    if len(done) != len(reqs) or any(len(r.out) != reqs[r.rid][1] for r in done):
+        raise AssertionError(f"phase 24 {cfg.name}: {len(done)} of {len(reqs)} requests "
+                             "finished with their budget")
+    if not cb.cache["len"] == steps == BATCHER["steps"] <= max_seq:
+        raise AssertionError(f"phase 24 {cfg.name}: {steps} steps (cache len "
+                             f"{cb.cache['len']}), expected {BATCHER['steps']} within "
+                             f"max_seq {max_seq}")
+    got = {r.rid: r.out for r in done}
+    if [got[i] for i in range(n_slots)] != want:
+        raise AssertionError(f"phase 24 {cfg.name}: the first wave's tokens differ "
+                             "from Engine.generate's")
+    want_launches = dict(flash=0, wkv=cfg.num_layers * steps if cfg.family == "ssm" else 0)
+    if launches != want_launches:
+        raise AssertionError(f"phase 24 {cfg.name}: launches {launches}, expected "
+                             f"{want_launches}")
+    new_tokens = sum(n for _, n in reqs)
+    prompt_tokens = sum(len(p) for p, _ in reqs)
+    res = dict(steps=steps, wall_s=wall, tok_s=new_tokens / wall,
+               req_s=len(reqs) / wall, active=slot_steps / steps,
+               step_ms=wall / steps * 1e3, launches=launches,
+               engine_tok_s=n_slots * BATCHER["first_new"] / t_eng)
+    log(f"phase 24 ContinuousBatcher {cfg.name} bf16, {n_slots} slots, max_seq "
+        f"{max_seq}, {len(reqs)} requests ({prompt_tokens} prompt + {new_tokens} new "
+        f"tokens): {steps} steps, {wall:.3f} s = "
+        f"{res['tok_s']:.1f} generated tokens/s, {res['req_s']:.3f} requests/s, "
+        f"{res['step_ms']:.3f} ms a step, {res['active']:.2f} slots active a step; "
+        f"first wave == Engine.generate at batch {n_slots} token for token "
+        f"(Engine: {res['engine_tok_s']:.1f} generated tokens/s); launches {launches}")
+
+    # a step's device busy share: 8 more requests on the same batcher, past
+    # their prompts' first steps
+    for rid in range(n_slots):
+        cb.submit(Request(rid=100 + rid, prompt=reqs[rid][0][:16], max_new_tokens=64))
+    for _ in range(20):
+        cb.step()
+    res["profile"] = busy_share(cb.step, 4, "batcher step")
+    del cb
+    torch.cuda.empty_cache()
+    return res
+
+
 def log_instantiations(source: str, text: str) -> None:
     """Phase 2: registers and spill stores of every kernel instantiation in
     ``source``'s ``-Xptxas -v`` log, by demangled name."""
@@ -2379,6 +2739,14 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def _named_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, path + (k,))
+    else:
+        yield path, tree
 
 
 def main() -> int:
@@ -2424,8 +2792,8 @@ def main() -> int:
     flash = check_flash(dev)
     wkv = check_wkv(dev)
     check_lm_smoke(dev)
-    llama = run_lm_path(dev, "llama3-8b")
-    rwkv = run_lm_path(dev, "rwkv6-7b")
+    llama = run_lm_path(dev, "llama3-8b", batcher=True)
+    rwkv = run_lm_path(dev, "rwkv6-7b", batcher=True)
     t0 = time.perf_counter()
     check_baselines_vs_cpu(dev)
     run_baselines(dev, card)
@@ -2453,6 +2821,14 @@ def main() -> int:
     check_elastic_vs_cpu(dev)
     run_elastic(dev, card)
     log(f"phase 22 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    config_flash = time_config_flash(dev)
+    more = {arch: run_lm_path(dev, arch, layers) for arch, layers in LM_MORE}
+    log(f"phase 23 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_batcher_vs_cpu(dev)
+    log(f"phase 24 smoke configs {time.perf_counter() - t0:.1f} s (the full-size "
+        "batcher runs beside phases 12 and 13, on their weights)")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -2464,7 +2840,12 @@ def main() -> int:
     # launches: the K-NN kernel's on the training path (phase 6; phase 17
     # logs the serving path's) and on DDPG's placement path (phase 20, its
     # select shape [128, 16]), each flash route's in the llama3-8b prefill
-    # (the wide form's: no path has hd > 256)
+    # (the wide form's: no path has hd > 256) and the bf16 route's in each
+    # phase 23 config's prefill, at its own shape; WKV's in the rwkv6-7b
+    # prefill and generate, and in the continuous batcher's run (phase 24,
+    # checked and timed at its [8, 1, 64, 64] step)
+    flash_sm90 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu"
+    flash_tpu = "src/repro/kernels/flash_attention/kernel.py:74"
     print(json.dumps({"kernels": [
         row("row_top2_regret", "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
             "src/repro/kernels/knn_topk/kernel.py:37", launches, kernel,
@@ -2489,6 +2870,12 @@ def main() -> int:
         row("wkv6", "src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
             "src/repro/kernels/rwkv6_scan/kernel.py:49", rwkv["launches"], wkv,
             wkv["timings"]["prefill"]),
+        *[row(f"flash_attention_{arch}", flash_sm90, flash_tpu, more[arch]["launches"],
+              config_flash[arch], config_flash[arch]) for arch, _ in LM_MORE],
+        row("wkv6_batcher", "src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
+            "src/repro/kernels/rwkv6_scan/kernel.py:49",
+            rwkv["batcher"]["launches"]["wkv"],
+            dict(max_abs_err=wkv["batcher_max_abs_err"]), wkv["timings"]["batcher"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,7 +1,10 @@
 """Architecture registry of the port: ``get_config(arch_id, smoke=)``.
 
-The ids are the reference's (``repro/configs/__init__.py``).  Two are
-ported, llama3-8b (dense GQA) and rwkv6-7b (Finch); the others raise
+The ids are the reference's (``repro/configs/__init__.py``).  Seven are
+ported: the dense GQA transformers (llama3-8b, command-r-plus-104b with
+its parallel block and tied embeddings, qwen1.5-110b with its qkv bias,
+yi-34b), rwkv6-7b (Finch) and the MoE family (granite-moe-3b-a800m,
+qwen2-moe-a2.7b with shared experts).  The others raise
 ``NotImplementedError`` naming the ROADMAP item that ports their
 family.  The shape grid (``SHAPES``, ``all_cells``) waits for the
 dry-run."""
@@ -12,20 +15,20 @@ import importlib
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
+    "command-r-plus-104b": "command_r_plus_104b",
     "llama3-8b": "llama3_8b",
+    "qwen1.5-110b": "qwen15_110b",
+    "yi-34b": "yi_34b",
     "rwkv6-7b": "rwkv6_7b",
+    "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "qwen2-moe-a2.7b": "qwen2_moe_a27b",
 }
 
 # where each id that is not ported yet waits (ROADMAP queue A)
 _WAITS = {
-    "command-r-plus-104b": "A9 (dense configs beyond llama3-8b)",
-    "qwen1.5-110b": "A9 (dense configs beyond llama3-8b)",
-    "yi-34b": "A9 (dense configs beyond llama3-8b)",
     "seamless-m4t-medium": "A9 (encdec family)",
     "jamba-1.5-large-398b": "A9 (hybrid Mamba + MoE family)",
     "phi-3-vision-4.2b": "A9 (vlm family)",
-    "granite-moe-3b-a800m": "A9 (MoE family)",
-    "qwen2-moe-a2.7b": "A9 (MoE family)",
 }
 
 

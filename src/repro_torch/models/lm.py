@@ -7,11 +7,13 @@ One parameter layout and the serving entry points:
   init_cache(cfg, batch, max_seq, device)    -> decode state
   serve_step(cfg)(params, cache, tokens)     -> (logits, cache)
 
-Ported families: ``dense`` (GQA transformer, with the parallel block) and
-``ssm`` (RWKV6 Finch); a config of another family raises
+Ported families: ``dense`` (GQA transformer, with the parallel block),
+``moe`` (the routed top-k FFN of ``ffn.moe_ffn``, shared experts
+included) and ``ssm`` (RWKV6 Finch); a config of another family raises
 ``NotImplementedError`` naming the ROADMAP item that ports it.  Training
-(``train_loss``) waits for ROADMAP A10, the encoder and the MoE FFN (so
-the reference's ``_run_ffn`` and its auxiliary loss) for A9.  Parameters
+(``train_loss``, and so the MoE's auxiliary loss, which serving does not
+compute: the reference's serving discards it) waits for ROADMAP A10; the hybrid Mamba, the
+encoder and the modality frontends for A9.  Parameters
 keep the reference's tree: per-position leaves stacked over the
 ``num_blocks`` identical blocks ``[nb, ...]``, run here by a Python loop
 over the blocks (no remat: there is no backward).  Attention
@@ -40,10 +42,10 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 def _check_supported(cfg: ModelConfig) -> None:
     """Raise for what this slice of the port does not cover."""
-    if cfg.family not in ("dense", "ssm") or cfg.num_experts or cfg.attn_every:
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.attn_every:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (MoE, hybrid Mamba, encdec, "
-            "vlm) is not ported yet: ROADMAP A9")
+            f"{cfg.name}: the {cfg.family} family (hybrid Mamba, encdec, vlm) "
+            "is not ported yet: ROADMAP A9")
     if cfg.encoder_layers or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: encoders and modality frontends are not ported yet: "
@@ -80,7 +82,15 @@ def _attn_init(gen, cfg: ModelConfig, dtype, device) -> Params:
     }
 
 
-def _block_position_init(gen, cfg: ModelConfig, mixer: str, dtype,
+def _ffn_init(gen, cfg: ModelConfig, kind: str, dtype, device) -> Params:
+    if kind == "moe":
+        return ffn_lib.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.num_experts,
+                                cfg.num_shared_experts, dtype=dtype, device=device)
+    return ffn_lib.dense_ffn_init(gen, cfg.d_model, cfg.d_ff, dtype=dtype,
+                                  device=device)
+
+
+def _block_position_init(gen, cfg: ModelConfig, mixer: str, fkind: str, dtype,
                          device) -> Params:
     p: Params = {"norm1": nn.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)}
     if mixer == "rwkv":
@@ -89,8 +99,7 @@ def _block_position_init(gen, cfg: ModelConfig, mixer: str, dtype,
                                     cfg.rwkv_head_size, dtype=dtype, device=device)
     else:
         p["mixer"] = _attn_init(gen, cfg, dtype, device)
-        p["ffn"] = ffn_lib.dense_ffn_init(gen, cfg.d_model, cfg.d_ff,
-                                          dtype=dtype, device=device)
+        p["ffn"] = _ffn_init(gen, cfg, fkind, dtype, device)
     p["norm2"] = nn.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
     return p
 
@@ -107,10 +116,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     dtype = _dt(cfg)
     nb = cfg.num_blocks
     layers = {}
-    for pos, (mixer, _) in enumerate(cfg.block_program()):
+    for pos, (mixer, fkind) in enumerate(cfg.block_program()):
         stacked = None
         for b in range(nb):
-            one = _block_position_init(gen, cfg, mixer, dtype, device)
+            one = _block_position_init(gen, cfg, mixer, fkind, dtype, device)
             if stacked is None:
                 stacked = _tree_map(
                     lambda a: torch.empty((nb, *a.shape), dtype=a.dtype,
@@ -146,7 +155,18 @@ def _run_attn(p: Params, x, cfg: ModelConfig, positions):
     return nn.linear(p["wo"], o.reshape(B, S, h * hd))
 
 
-def _position_forward(cfg: ModelConfig, p: Params, mixer: str, x, positions):
+def _run_ffn(p: Params, x, cfg: ModelConfig, kind: str):
+    """The position's FFN output.  Serving reads no aux loss, so the MoE's
+    is not computed (``ffn.moe_aux`` gives it to training, ROADMAP A10)."""
+    if kind == "moe":
+        r = ffn_lib.moe_route(p, x, experts_per_token=cfg.experts_per_token,
+                              capacity_factor=cfg.capacity_factor)
+        return ffn_lib.moe_apply(p, x, r)
+    return ffn_lib.dense_ffn(p, x)
+
+
+def _position_forward(cfg: ModelConfig, p: Params, mixer: str, fkind: str, x,
+                      positions):
     """One sub-layer position within a block."""
     if mixer == "rwkv":
         x = x + ssm.rwkv6_time_mix(
@@ -157,10 +177,11 @@ def _position_forward(cfg: ModelConfig, p: Params, mixer: str, x, positions):
     if cfg.parallel_block:
         hshared = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
         a = _run_attn(p["mixer"], hshared, cfg, positions)
-        return x + a + ffn_lib.dense_ffn(p["ffn"], hshared)
+        return x + a + _run_ffn(p["ffn"], hshared, cfg, fkind)
     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + _run_attn(p["mixer"], h, cfg, positions)
-    return x + ffn_lib.dense_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps), cfg,
+                        fkind)
 
 
 # ===========================================================================
@@ -198,7 +219,7 @@ def prefill_forward(cfg: ModelConfig):
         taps: dict = {}
         for b in range(cfg.num_blocks):
             block_params = _block(params["layers"], b)
-            for pos, (mixer, _) in enumerate(cfg.block_program()):
+            for pos, (mixer, fkind) in enumerate(cfg.block_program()):
                 p = block_params[f"pos{pos}"]
                 if mixer == "attn":
                     # tap the post-RoPE K/V of this layer for the cache
@@ -210,7 +231,7 @@ def prefill_forward(cfg: ModelConfig):
                     tap = taps.setdefault(f"pos{pos}", {"k": [], "v": []})
                     tap["k"].append(k)
                     tap["v"].append(v)
-                x = _position_forward(cfg, p, mixer, x, positions)
+                x = _position_forward(cfg, p, mixer, fkind, x, positions)
         kv = {name: {kk: torch.stack(vs) for kk, vs in tap.items()}
               for name, tap in taps.items()}
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -276,7 +297,7 @@ def serve_step(cfg: ModelConfig):
         x = nn.embed(params["embed"], tokens)          # [B,1,d]
         for b in range(cfg.num_blocks):
             block_params = _block(params["layers"], b)
-            for pos, (mixer, _) in enumerate(cfg.block_program()):
+            for pos, (mixer, fkind) in enumerate(cfg.block_program()):
                 p = block_params[f"pos{pos}"]
                 c = cache[f"pos{pos}"]
                 if mixer == "rwkv":
@@ -298,10 +319,11 @@ def serve_step(cfg: ModelConfig):
                 h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
                 a = _decode_attn(p["mixer"], h, cfg, c["k"][b], c["v"][b], t)
                 if cfg.parallel_block:
-                    x = x + a + ffn_lib.dense_ffn(p["ffn"], h)
+                    x = x + a + _run_ffn(p["ffn"], h, cfg, fkind)
                     continue
                 x = x + a
-                x = x + ffn_lib.dense_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
+                x = x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                                 cfg, fkind)
         cache["len"] = t + 1
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = (x[:, 0] @ _head_table_T(cfg, params)).float()

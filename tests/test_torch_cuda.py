@@ -17,6 +17,7 @@ from repro_torch.kernels.knn_topk import ops, row_top2_regret_ref  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import edge_rows        # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops     # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_ref           # noqa: E402
+from torch_lm_cases import BATCHER_SCENARIOS, smoke_lm        # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -409,7 +410,8 @@ def test_flash_pads_head_dims_between_native_ones(cuda_device, hd, native, dtype
 
 
 # -- wkv6: tests/test_kernels.py's cases, a carried state, one step, bf16,
-# the rwkv6-7b head size and heads, and a T one past a chunk (32 steps at
+# the rwkv6-7b head size and heads (its decode and batcher steps), and a T
+# one past a chunk (32 steps at
 # hd <= 64, 16 at hd = 128)
 WKV_CASES = [
     (2, 64, 2, 16, torch.float32, False),
@@ -418,6 +420,7 @@ WKV_CASES = [
     (2, 64, 2, 16, torch.bfloat16, False),
     (2, 75, 3, 32, torch.float32, True),
     (4, 1, 64, 64, torch.bfloat16, True),          # rwkv6-7b decode step
+    (8, 1, 64, 64, torch.bfloat16, True),          # the batcher's step, 8 slots
     (2, 300, 4, 64, torch.float32, True),
     (1, 40, 2, 128, torch.float32, True),
     (1, 2048, 4, 64, torch.bfloat16, False),       # rwkv6-7b prefill length
@@ -873,3 +876,86 @@ def test_elastic_run_on_the_card_equals_the_cpu(cuda_device):
     np.testing.assert_array_equal(card.history.final_assignment,
                                   cpu.history.final_assignment)
     np.testing.assert_allclose(card.history.latencies, cpu.history.latencies, rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# LM serving beyond llama3-8b, the MoE dispatch and the continuous batcher
+# on the card, against the CPU on the same float32 weights
+# --------------------------------------------------------------------------
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "command-r-plus-104b", "qwen1.5-110b",
+                                  "granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
+def test_lm_config_on_the_card_equals_the_cpu(cuda_device, arch):
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine
+
+    cfg, cpu = smoke_lm(arch, 24)
+    toks = torch.randint(1, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+    got = {}
+    for where, params in (("cpu", cpu), ("card", _to(cpu, cuda_device))):
+        d = "cpu" if where == "cpu" else cuda_device
+        logits, _ = lm.prefill_forward(cfg)(params, {"tokens": toks.to(d)})
+        out = Engine(cfg, params, max_seq=40, batch_size=2, device=d).generate(None, toks, 12)
+        got[where] = logits.cpu(), out.cpu()
+    assert float((got["card"][0] - got["cpu"][0]).abs().max()) <= 1e-4
+    assert torch.equal(got["card"][1], got["cpu"][1])
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b"])
+def test_moe_dispatch_on_the_card_equals_the_cpu(cuda_device, arch):
+    """Expert ids, slots and keep exact, the output within 1e-5 in float32
+    (a capacity factor that drops tokens); in bf16 two card runs give the
+    same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ffn
+
+    cfg = get_config(arch, smoke=True)
+    p = ffn.moe_init(torch.Generator().manual_seed(3), cfg.d_model, cfg.d_ff,
+                     cfg.num_experts, cfg.num_shared_experts, dtype=torch.float32,
+                     device="cpu")
+    x = torch.randn(3, 40, cfg.d_model, generator=torch.Generator().manual_seed(4))
+    kw = dict(experts_per_token=cfg.experts_per_token, capacity_factor=0.75)
+    card_p = _to(p, cuda_device)
+    want = ffn.moe_route(p, x, **kw)
+    got = ffn.moe_route(card_p, x.to(cuda_device), **kw)
+    assert int((~want.keep).sum()) > 0
+    for name in ("expert", "slot", "keep"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+    out, aux = ffn.moe_ffn(card_p, x.to(cuda_device), **kw)
+    out_cpu, aux_cpu = ffn.moe_ffn(p, x, **kw)
+    assert float((out.cpu() - out_cpu).abs().max()) <= 1e-5
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-6
+    p16 = _to(ffn.moe_init(torch.Generator().manual_seed(3), cfg.d_model, cfg.d_ff,
+                           cfg.num_experts, cfg.num_shared_experts, device="cpu"),
+              cuda_device)
+    x16 = x.to(cuda_device).bfloat16()
+    a, _ = ffn.moe_ffn(p16, x16, **kw)
+    b, _ = ffn.moe_ffn(p16, x16, **kw)
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-7b", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("scenario", sorted(BATCHER_SCENARIOS))
+def test_batcher_on_the_card_equals_the_cpu(cuda_device, arch, scenario):
+    from repro_torch.kernels.rwkv6_scan import ops as wkv
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg, cpu = smoke_lm(arch, 24)
+    n_slots, max_seq, reqs = BATCHER_SCENARIOS[scenario]
+    got = {}
+    for where, params in (("cpu", cpu), ("card", _to(cpu, cuda_device))):
+        cb = ContinuousBatcher(cfg, params, max_seq=max_seq, n_slots=n_slots,
+                               eos_id=-1, device="cpu" if where == "cpu" else cuda_device)
+        for rid, (prompt, new) in enumerate(reqs):
+            cb.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=new))
+        before = wkv.LAUNCHES
+        got[where] = [(r.rid, r.out) for r in cb.run(None)]
+        steps = cb.cache["len"]
+    assert got["card"] == got["cpu"]
+    # one WKV launch a layer a step on the card (none on the CPU)
+    assert wkv.LAUNCHES - before == (cfg.num_layers * steps if cfg.family == "ssm" else 0)

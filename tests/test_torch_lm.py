@@ -1,6 +1,9 @@
-"""The port's LM serving path against the reference, on both ported smoke
-configs (llama3-8b: dense GQA; rwkv6-7b: Finch), with the reference's
-weights carried across by ``lm_params_from_numpy``.
+"""The port's LM serving path against the reference, on the seven ported
+smoke configs (the dense GQA transformers llama3-8b, command-r-plus-104b
+with its parallel block and tied embeddings, qwen1.5-110b with its qkv
+bias, yi-34b with 7 heads of head_dim 8; rwkv6-7b: Finch; the MoE
+granite-moe-3b-a800m and qwen2-moe-a2.7b with shared experts), with the
+reference's weights carried across by ``lm_params_from_numpy``.
 
 In float32 (``dataclasses.replace(SMOKE, dtype="float32")``) the
 algorithm is held tight: logits within 1e-4, greedy tokens identical.  In
@@ -33,7 +36,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import lm_params_from_numpy
 from repro_torch.serve import Engine, SamplingParams, sample_token
 
-ARCHS = ["llama3-8b", "rwkv6-7b"]
+ARCHS = ["llama3-8b", "rwkv6-7b", "command-r-plus-104b", "qwen1.5-110b", "yi-34b",
+         "granite-moe-3b-a800m", "qwen2-moe-a2.7b"]
 DTYPES = ["float32", "bfloat16"]
 F32_LOGITS = dict(atol=1e-4, rtol=0.0)
 BF16 = dict(atol=0.08, rtol=0.05)          # tests/test_serve.py
@@ -92,15 +96,26 @@ def test_every_reference_id_is_ported_or_raises_naming_the_roadmap(arch):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    moe = dataclasses.replace(get_config("llama3-8b", smoke=True), family="moe",
-                              num_experts=4, experts_per_token=2)
+    # the hybrid (jamba: attention every few layers, Mamba between)
+    hybrid = dataclasses.replace(get_config("granite-moe-3b-a800m", smoke=True),
+                                 family="hybrid", attn_every=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        lm.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+        lm.init_params(hybrid, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        lm.serve_step(moe)
+        lm.serve_step(hybrid)
+    encdec = dataclasses.replace(get_config("llama3-8b", smoke=True),
+                                 family="encdec", encoder_layers=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        lm.init_cache(encdec, batch=1, max_seq=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         lm.prefill_forward(dataclasses.replace(
             get_config("llama3-8b", smoke=True), encoder_layers=2))
+    # the MoE family is ported now
+    moe = dataclasses.replace(get_config("llama3-8b", smoke=True), family="moe",
+                              num_experts=4, experts_per_token=2)
+    params = lm.init_params(moe, torch.Generator().manual_seed(0), "cpu")
+    assert params["layers"]["pos0"]["ffn"]["gate"].shape == (2, 4, 64, 128)
+    lm.serve_step(moe)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -124,9 +139,11 @@ def test_init_params_has_the_reference_tree_shapes_and_dtypes(arch):
         key = tuple(p.key for p in path)
         assert tuple(flat[key].shape) == leaf.shape, key
         assert str(flat[key].dtype).replace("torch.", "") == leaf.dtype.name, key
-    # the reference's scales: embeddings 0.02, a linear 1/sqrt(d_in)
+    # the reference's scales: embeddings 0.02, a linear 1/sqrt(d_in) (the
+    # head, or with tied embeddings the first layer's wq)
     assert abs(float(got["embed"]["table"].float().std()) - 0.02) < 2e-3
-    w = got["lm_head"]["w"].float()
+    w = (got["lm_head"]["w"] if "lm_head" in got
+         else got["layers"]["pos0"]["mixer"]["wq"]["w"]).float()
     assert abs(float(w.std()) * np.sqrt(cfg.d_model) - 1.0) < 0.05
 
 
@@ -255,7 +272,7 @@ def test_serve_step_matches_the_reference_over_ten_tokens(model):
         tlog, tc = tstep(tparams, tc, torch.from_numpy(toks[:, t:t + 1]))
         np.testing.assert_allclose(to_numpy(tlog), np.asarray(jlog), **tols(dtype))
     assert tc["len"] == int(jc["len"]) == T
-    state = "k" if jcfg.family == "dense" else "S"
+    state = "S" if jcfg.family == "ssm" else "k"
     np.testing.assert_allclose(
         to_numpy(tc["pos0"][state].float()),
         np.asarray(jc["pos0"][state].astype(jnp.float32)),
@@ -281,8 +298,14 @@ def test_engine_generate_matches_the_reference(model):
 
 def test_engine_prefill_equals_prefill_forward_on_the_port(model):
     """The two prefills of the port (token by token through the decode
-    step, and the full-sequence prefill_forward) give one set of logits."""
+    step, and the full-sequence prefill_forward) give one set of logits.
+    An MoE's capacity grows with the sequence (one token a step never
+    overflows; 12 at once may), so there the capacity factor is raised
+    until no token is dropped, and the two paths compute the same sum."""
     arch, dtype, jcfg, tcfg, jparams, tparams = model
+    if tcfg.num_experts:
+        tcfg = dataclasses.replace(
+            tcfg, capacity_factor=tcfg.num_experts / tcfg.experts_per_token)
     prompts = torch.from_numpy(_tokens(jcfg, 2, 12, seed=8))
     teng = Engine(tcfg, tparams, max_seq=16, batch_size=2, device="cpu")
     _, step_logits = teng.prefill(teng.new_cache(), prompts)
