@@ -84,7 +84,18 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   configs card against CPU (the reference tests' scenarios and a recycled
   slot), then llama3-8b and rwkv6-7b at full size in bf16 serving 32
   requests through 8 slots, the first wave held to ``Engine.generate``
-  token for token, every RWKV step through 32 WKV launches.
+  token for token, every RWKV step through 32 WKV launches;
+* the last three LM families: their float32 smoke configs card against
+  CPU (prefill, generate, the batcher), the flash kernel at seamless's
+  encoder (4096 frames, non-causal) and cross-attention (2048 queries
+  against a 4096-row memory, its key length of its own) shapes in bf16
+  and float32, then in bf16 phi-3-vision-4.2b (576 seeded patch
+  embeddings and 1472 tokens) and seamless-m4t-medium (over 4096 seeded
+  frames) at full size, and jamba-1.5-large-398b at one period-8 block
+  with 12 of its 16 experts (its float32 control at 4): prefill_forward,
+  Engine.generate, the decode step beside its byte bound, the Mamba
+  layers' share of jamba's prefill, and the two prefills held to each
+  other (seamless's at Skv = 4096).
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -130,6 +141,18 @@ DECODE = dict(windows=4, steps=64)
 # 16 layers to fit one 80 GB card; the others at full depth
 LM_MORE = (("yi-34b", None), ("command-r-plus-104b", 16), ("qwen1.5-110b", 16),
            ("granite-moe-3b-a800m", None), ("qwen2-moe-a2.7b", None))
+# the last three LM families (phase 25): phi-3-vision-4.2b and
+# seamless-m4t-medium at full size; jamba-1.5-large-398b cut to one period-8
+# block (8 of its 72 layers) and 12 of its 16 experts a MoE layer, 66.3 GiB
+# of bf16 weights: one block with all 16 is 84.3 GiB, past the card's 79.6.
+# jamba's float32 drift control runs on the same weights cut further, to
+# JAMBA_F32_EXPERTS experts a MoE layer (~16.2 B parameters, 64.8 GB in
+# float32), turned to float32 in place.  seamless's encoder reads
+# ENCDEC_MEMORY_LEN frames, the reference's memory for its decode cells
+LM_NEW = (("phi-3-vision-4.2b", None), ("seamless-m4t-medium", None),
+          ("jamba-1.5-large-398b", dict(num_layers=8, num_experts=12)))
+JAMBA_F32_EXPERTS = 4
+ENCDEC_MEMORY_LEN = 4096
 # the continuous batcher: 8 slots, a 2048-position shared cache, 32 seeded
 # requests, the first 8 of 64 prompt and 32 new tokens, then 24 of 16-128
 # prompt and 16-64 new tokens; greedy, no EOS.  With every request run to
@@ -1811,13 +1834,13 @@ def time_critic_head(res) -> None:
             f"(device, CUDA graph); max |diff| {err:.3g}")
 
 
-def sdpa(q, k, v):
-    """The library call for the flash kernel's work: causal GQA attention on
-    ``[B, S, H, hd]`` inputs."""
+def sdpa(q, k, v, causal: bool = True):
+    """The library call for the flash kernel's work: GQA attention on
+    ``[B, S, H, hd]`` q and ``[B, Skv, Hkv, hd]`` k, v."""
     import torch.nn.functional as F
 
     return F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=causal,
         enable_gqa=True)
 
 
@@ -1930,10 +1953,30 @@ def check_flash(dev) -> dict:
         raise AssertionError("the misaligned bf16 layout was not staged once per "
                              "tensor and run by the bf16 kernel")
     max_err[torch.bfloat16] = max(max_err[torch.bfloat16], err)
+    # non-causal k/v of their own length (cross-attention over a memory):
+    # a memory longer and shorter than q, on the bf16 wgmma route, the
+    # float32 route, bf16 above 128 and the wide form in both dtypes
+    cross = [(2, 64, 256, 4, 4, 64, torch.bfloat16), (2, 200, 37, 4, 2, 128, torch.bfloat16),
+             (2, 64, 256, 4, 4, 64, torch.float32), (1, 37, 300, 4, 2, 96, torch.float32),
+             (2, 100, 70, 4, 2, 192, torch.bfloat16), (2, 100, 70, 4, 2, 320, torch.float32),
+             (1, 37, 130, 2, 1, 512, torch.bfloat16)]
+    cross_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, s, skv, h, hkv, d, dtype in cross:
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(b, skv, hkv, d, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        before = (ops.LAUNCHES, ops.LAUNCHES_WIDE)
+        err = check(q, k, v, False, f"{(b, s, h, hkv, d)} against {skv} keys {dtype}")
+        if (ops.LAUNCHES, ops.LAUNCHES_WIDE) != (before[0] + 1, before[1] + (d > 256)):
+            raise AssertionError(f"flash at {skv} keys against {s} rows: launches "
+                                 f"{before} -> {(ops.LAUNCHES, ops.LAUNCHES_WIDE)}")
+        cross_err[dtype] = max(cross_err[dtype], err)
     log(f"phase 9 flash kernels vs plain version: {len(cases) + 2} cases agree "
         f"(max |err| float32 route {max_err[torch.float32]:.3g}, bfloat16 route "
         f"{max_err[torch.bfloat16]:.3g}; |err| <= 2e-5 |x| + 2e-5 f32, "
-        f"1e-2 |x| + 2e-3 bf16)")
+        f"1e-2 |x| + 2e-3 bf16), and {len(cross)} at a key length of their own "
+        f"(max |err| float32 {cross_err[torch.float32]:.3g}, bfloat16 "
+        f"{cross_err[torch.bfloat16]:.3g})")
 
     q, k, v = inputs
     flops = 4 * B * H * hd * S * (S + 1) // 2            # causal: j <= i
@@ -1978,45 +2021,83 @@ def check_flash(dev) -> dict:
                 phi3=phi3, wide=wide)
 
 
-def time_flash_shape(dev, gen, what: str, H: int, Hkv: int, hd: int) -> dict:
-    """The bf16 route on a prefill shape, q [4, 2048, H, hd] and k/v [4,
-    2048, Hkv, hd], causal: held to its plain version, one native wgmma
-    launch (not padded, staged or on the CUDA cores), and timed beside
-    plain, SDPA and the bound."""
+def time_flash_shape(dev, gen, what: str, H: int, Hkv: int, hd: int,
+                     S: int | None = None, Skv: int | None = None,
+                     causal: bool = True, f32: bool = False) -> dict:
+    """The bf16 route on a prefill shape, q [4, S, H, hd] and k/v [4, Skv,
+    Hkv, hd] (S = Skv = 2048 unless given; causal unless told not): held to
+    its plain version, one native wgmma launch (not padded, staged or on
+    the CUDA cores), and timed beside plain, SDPA and the bound.  With
+    ``f32``, the float32 route at the same shape too (``t["f32"]``)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref, ops
 
-    B, S = LM["batch"], LM["prefill_len"]
-    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev).bfloat16()
-               for n in (H, Hkv, Hkv))
+    B = LM["batch"]
+    S = S or LM["prefill_len"]
+    Skv = Skv or S
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn(B, Skv, Hkv, hd, generator=gen, device=dev).bfloat16()
+            for _ in range(2))
     counts = lambda: (ops.LAUNCHES_BF16, ops.LAUNCHES_PADDED,  # noqa: E731
                       ops.STAGED_COPIES, ops.LAUNCHES_BF16_CUDA_CORES)
     before = counts()
-    got = ops.flash_attention(q, k, v)
+    got = ops.flash_attention(q, k, v, causal=causal)
     if counts() != (before[0] + 1, *before[1:]):
         raise AssertionError(f"{what}: flash counts {before} -> {counts()}, expected "
                              "one native bf16 launch")
-    want = flash_attention_ref(q, k, v)
+    want = flash_attention_ref(q, k, v, causal=causal)
     diff = (got.float() - want.float()).abs()
     err = float(diff.max())
     if bool((diff > 1e-2 * want.float().abs() + 2e-3).any()):
         raise AssertionError(f"{what}: flash off its plain version by {err}")
-    lib_err = float((sdpa(q, k, v).transpose(1, 2).float() - got.float()).abs().max())
+    lib_err = float((sdpa(q, k, v, causal).transpose(1, 2).float() - got.float())
+                    .abs().max())
     del got, want, diff
-    flops = 4 * B * H * hd * S * (S + 1) // 2
-    bytes_moved = 2 * (2 * B * S * H * hd + 2 * B * S * Hkv * hd)       # q, o, k, v
-    t = dict(ms=eager_ms(lambda: ops.flash_attention(q, k, v), iters=20, warmup=3),
-             plain_ms=eager_ms(lambda: flash_attention_ref(q, k, v), iters=3, warmup=1),
-             library_ms=eager_ms(lambda: sdpa(q, k, v), iters=20, warmup=3),
+    flops = 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * Skv)
+    elems = 2 * B * S * H * hd + 2 * B * Skv * Hkv * hd                # q, o, k, v
+    bytes_moved = 2 * elems
+    t = dict(ms=eager_ms(lambda: ops.flash_attention(q, k, v, causal=causal), iters=20,
+                         warmup=3),
+             plain_ms=eager_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                               iters=3, warmup=1),
+             library_ms=eager_ms(lambda: sdpa(q, k, v, causal), iters=20, warmup=3),
              max_abs_err=err)
     t_ops, t_bytes = flops / BF16_TC_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
     t["bound_ms"] = max(t_ops, t_bytes) * 1e3
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"  {what}: q [{B},{S},{H},{hd}] x k/v [{B},{S},{Hkv},{hd}] bf16 causal, "
+    mask = "causal" if causal else "non-causal"
+    log(f"  {what}: q [{B},{S},{H},{hd}] x k/v [{B},{Skv},{Hkv},{hd}] bf16 {mask}, "
         f"bfloat16 route, ms per call: kernel {t['ms']:.6f}  plain {t['plain_ms']:.6f}  "
         f"library (SDPA) {t['library_ms']:.6f}  bound {t['bound_ms']:.6f} "
         f"({t['bound_by']}: {flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); "
         f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; |kernel - plain| max {err:.3g}, "
         f"|kernel - SDPA| max {lib_err:.3g}")
+    if f32:
+        q, k, v = q.float(), k.float(), v.float()
+        before = ops.LAUNCHES_F32
+        got = ops.flash_attention(q, k, v, causal=causal)
+        if ops.LAUNCHES_F32 != before + 1:
+            raise AssertionError(f"{what}: the float32 inputs missed the float32 route")
+        want = flash_attention_ref(q, k, v, causal=causal)
+        diff = (got - want).abs()
+        err32 = float(diff.max())
+        if bool((diff > 2e-5 * want.abs() + 2e-5).any()):
+            raise AssertionError(f"{what}: float32 flash off its plain version by {err32}")
+        del got, want, diff
+        t32 = dict(ms=eager_ms(lambda: ops.flash_attention(q, k, v, causal=causal),
+                               iters=5, warmup=1),
+                   plain_ms=eager_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
+                                     iters=3, warmup=1),
+                   library_ms=eager_ms(lambda: sdpa(q, k, v, causal), iters=5, warmup=1),
+                   max_abs_err=err32)
+        t_ops, t_bytes = flops / F32_OPS_PER_S, 4 * elems / HBM_BYTES_PER_S
+        t32["bound_ms"] = max(t_ops, t_bytes) * 1e3
+        t32["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        log(f"  {what}, float32 route (flash_attention.cu), ms per call: kernel "
+            f"{t32['ms']:.6f}  plain {t32['plain_ms']:.6f}  library (SDPA, float32) "
+            f"{t32['library_ms']:.6f}  bound {t32['bound_ms']:.6f} ({t32['bound_by']} "
+            f"at 67 TFLOP/s, 3.35 TB/s); {flops / t32['ms'] / 1e9:.1f} TFLOP/s; "
+            f"|kernel - plain| max {err32:.3g} (<= 2e-5 |x| + 2e-5)")
+        t["f32"] = t32
     del q, k, v
     torch.cuda.empty_cache()
     return t
@@ -2159,16 +2240,17 @@ LM_ARCHS = ("llama3-8b", "rwkv6-7b", "yi-34b", "command-r-plus-104b", "qwen1.5-1
 
 
 @contextlib.contextmanager
-def recorded_routes(into: list):
-    """Every MoE layer's routing (expert ids, keep mask) appended to
-    ``into`` as it is computed, on the host."""
+def recorded_routes(into: list, probs: bool = False):
+    """Every MoE layer's routing (expert ids, keep mask, and with
+    ``probs`` the router's probabilities) appended to ``into`` as it is
+    computed, on the host."""
     from repro_torch.models import ffn
 
     route = ffn.moe_route
 
     def recording(*args, **kwargs):
         r = route(*args, **kwargs)
-        into.append((r.expert.cpu(), r.keep.cpu()))
+        into.append((r.expert.cpu(), r.keep.cpu(), *((r.probs.cpu(),) if probs else ())))
         return r
     ffn.moe_route = recording
     try:
@@ -2177,29 +2259,40 @@ def recorded_routes(into: list):
         ffn.moe_route = route
 
 
-def check_lm_smoke(dev) -> None:
-    """Phase 11: the seven ported smoke configs in float32, card against
-    CPU, on the same weights: prefill_forward logits, Engine.generate's
-    greedy tokens, and every MoE layer's expert ids and keep mask."""
-    from torch_lm_cases import smoke_lm
+def check_lm_smoke(dev, archs=LM_ARCHS, phase: int = 11) -> None:
+    """Phases 11 and 25: the smoke configs of ``archs`` in float32, card
+    against CPU, on the same weights: prefill_forward logits,
+    Engine.generate's greedy tokens, and every MoE layer's expert ids and
+    keep mask.  A vlm's prefill takes its seeded patch embeddings; an
+    encdec's prefill and generate read 48 seeded frames against the
+    24-token prompt, so its cross-attention runs the float32 kernel at
+    Skv = 48 against S = 24 (counted)."""
+    from torch_lm_cases import frontend_inputs, smoke_lm
 
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import lm
     from repro_torch.serve import Engine
 
-    worst, routed = 0.0, 0
-    for arch in LM_ARCHS:
+    worst, routed, cross, want_cross = 0.0, 0, 0, 0
+    for arch in archs:
         cfg, cpu = smoke_lm(arch, 11)
+        want_cross += cfg.num_layers if cfg.encoder_layers else 0
         card = _tree_map(lambda t: t.to(dev), cpu)
         toks = torch.randint(1, cfg.vocab_size, (2, 24),
                              generator=torch.Generator().manual_seed(13))
+        more = {k: torch.from_numpy(v) for k, v in frontend_inputs(cfg, 2, 25, 48).items()}
         logits, gens, routes = {}, {}, {}
         for where, params in (("cpu", cpu), ("card", card)):
             d = "cpu" if where == "cpu" else dev
             routes[where] = []
+            fa_ops.LAUNCHES_BY_SHAPE.clear()
             with recorded_routes(routes[where]):
-                logits[where], _ = lm.prefill_forward(cfg)(params, {"tokens": toks.to(d)})
-                eng = Engine(cfg, params, max_seq=48, batch_size=2, device=d)
-                gens[where] = eng.generate(None, toks, 16).cpu()
+                logits[where], _ = lm.prefill_forward(cfg)(
+                    params, {"tokens": toks.to(d), **{k: v.to(d) for k, v in more.items()}})
+                eng = Engine(cfg, params, max_seq=48, batch_size=2, device=d, enc_len=48)
+                gens[where] = eng.generate(None, toks, 16, frames=more.get("frames")).cpu()
+            if where == "card":
+                cross += fa_ops.LAUNCHES_BY_SHAPE.get("24x48 full float32", 0)
         # float32 on both sides with TF32 off: the matmuls and the kernels sum
         # in another order than the CPU, ~1e-6 relative on logits of O(1)
         err = float((logits["card"].cpu() - logits["cpu"]).abs().max())
@@ -2216,9 +2309,14 @@ def check_lm_smoke(dev) -> None:
         if cfg.num_experts and not routes["card"]:
             raise AssertionError(f"{arch} smoke: no MoE layer ran")
         routed += len(routes["card"])
-    log(f"phase 11 smoke configs ({', '.join(LM_ARCHS)}) float32: card == CPU "
+    if cross != want_cross:
+        raise AssertionError(f"phase {phase}: {cross} flash calls at Skv != S on the card, "
+                             f"expected {want_cross} (the encdec cross-attention layers)")
+    log(f"phase {phase} smoke configs ({', '.join(archs)}) float32: card == CPU "
         f"(prefill logits within 1e-4, max |err| {worst:.3g}; 16 greedy tokens "
-        f"identical; {routed} MoE routings with expert ids and keep masks identical)")
+        f"identical; {routed} MoE routings with expert ids and keep masks identical"
+        + (f"; {cross} cross-attention launches at Skv 48 against S 24" if cross else "")
+        + ")")
 
 
 def busy_share(run, steps: int, what: str) -> dict:
@@ -2247,13 +2345,18 @@ def busy_share(run, steps: int, what: str) -> dict:
 
 
 def run_lm_path(dev, arch: str, layers: int | None = None,
-                batcher: bool = False) -> dict:
-    """Phases 12, 13 and 23: ``arch`` at full width in bfloat16 (at
-    ``layers`` of its layers where given, else at full depth), random
-    weights from a seeded generator: prefill_forward, then Engine.generate,
+                batcher: bool = False, over: dict | None = None) -> dict:
+    """Phases 12, 13, 23 and 25: ``arch`` at full width in bfloat16 (at
+    ``layers`` of its layers where given, else at full depth; ``over``
+    replaces further fields, as jamba's expert count), random weights from
+    a seeded generator: prefill_forward (a vlm with its seeded patch
+    embeddings in front of the tokens, an encdec over ENCDEC_MEMORY_LEN
+    seeded frames), then Engine.generate (an encdec with the same frames),
     with the path's kernel launches counted; the decode step timed; then
     (phase 24, ``batcher``) the continuous batcher on the same weights."""
     import dataclasses
+
+    from torch_lm_cases import frontend_inputs
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -2263,8 +2366,10 @@ def run_lm_path(dev, arch: str, layers: int | None = None,
     from repro_torch.serve import Engine
 
     full = get_config(arch)
-    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
-    phase = {"llama3-8b": 12, "rwkv6-7b": 13}.get(arch, 23)
+    cfg = dataclasses.replace(full, **({"num_layers": layers} if layers else {}),
+                              **(over or {}))
+    phase = {"llama3-8b": 12, "rwkv6-7b": 13}.get(
+        arch, 25 if cfg.family in ("hybrid", "vlm", "encdec") else 23)
     attn = cfg.family != "ssm"
     B, S, P, N = LM["batch"], LM["prefill_len"], LM["prompt_len"], LM["new_tokens"]
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -2276,29 +2381,44 @@ def run_lm_path(dev, arch: str, layers: int | None = None,
         u.copy_(torch.randn(u.shape, generator=gen, device=dev) * 0.5)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"phase {phase} {arch}: {cfg.num_layers} of {full.num_layers} layers, "
-        f"d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} kv) of "
+    cuts = ", ".join(f"{k} {v} of {getattr(full, k)}" for k, v in (over or {}).items())
+    log(f"phase {phase} {arch}: {cfg.num_layers} of {full.num_layers} layers"
+        + (f" + {cfg.encoder_layers} encoder layers" if cfg.encoder_layers else "")
+        + f", d_model {cfg.d_model}, {cfg.num_heads} heads ({cfg.num_kv_heads} kv) of "
         f"{cfg.head_dim}, vocab {cfg.vocab_size}"
         + (f", {cfg.num_experts} experts top-{cfg.experts_per_token}"
            f" + {cfg.num_shared_experts} shared" if cfg.num_experts else "")
+        + (f"; cut: {cuts}" if cuts else "")
         + f"; {n_params / 1e9:.3f} B params bf16 "
         f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB), "
         f"init {time.perf_counter() - t0:.2f} s"
         + ("; the bonus u filled with seeded values" if cfg.family == "ssm" else ""))
-    want = cfg.num_layers                  # one launch per layer
+    mixers = [m for m, _ in cfg.block_program()]
+    attn_layers = mixers.count("attn") * cfg.num_blocks
+    # one launch a layer: WKV for rwkv; flash for each attention layer, and
+    # an encdec's encoder layers and decoder cross-attentions
+    want = cfg.num_layers if not attn else attn_layers + (
+        cfg.encoder_layers + cfg.num_layers if cfg.encoder_layers else 0)
     count = fa_ops if attn else wkv_ops
 
+    # a vlm's patch embeddings take the first positions of the 2048; an
+    # encdec's frames are the encoder's input, beside 2048 decoder tokens
+    more = {k: torch.from_numpy(v).to(dev).bfloat16() for k, v in
+            frontend_inputs(cfg, B, 25, ENCDEC_MEMORY_LEN).items()}
+    n_fe = cfg.frontend_positions if "frontend_embeds" in more else 0
+    frames = more.get("frames")
     prefill = lm.prefill_forward(cfg)
-    toks = torch.randint(1, cfg.vocab_size, (B, S), generator=gen, device=dev)
-    prefill(params, {"tokens": toks[:, :256]})           # warm the libraries
+    toks = torch.randint(1, cfg.vocab_size, (B, S - n_fe), generator=gen, device=dev)
+    prefill(params, {"tokens": toks[:, :256], **more})  # warm the libraries
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa_ops.LAUNCHES = wkv_ops.LAUNCHES = knn_ops.LAUNCHES = 0
     fa_ops.LAUNCHES_BF16 = fa_ops.LAUNCHES_F32 = 0
     fa_ops.LAUNCHES_PADDED = fa_ops.STAGED_COPIES = 0
     fa_ops.LAUNCHES_BF16_CUDA_CORES = fa_ops.LAUNCHES_WIDE = 0
+    fa_ops.LAUNCHES_BY_SHAPE.clear()
     t0 = time.perf_counter()
-    logits, kv = prefill(params, {"tokens": toks})
+    logits, kv = prefill(params, {"tokens": toks, **more})
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     launches_prefill = count.LAUNCHES
@@ -2310,10 +2430,12 @@ def run_lm_path(dev, arch: str, layers: int | None = None,
                              f"{fa_ops.LAUNCHES_F32} float32 flash launches, expected "
                              f"{want} and 0")
     launches_f32, launches_wide = fa_ops.LAUNCHES_F32, fa_ops.LAUNCHES_WIDE
+    by_shape = dict(fa_ops.LAUNCHES_BY_SHAPE)
     if attn:
-        log(f"  prefill_forward flash: {fa_ops.LAUNCHES_PADDED} padded launches, "
-            f"{fa_ops.STAGED_COPIES} staged copies (head_dim {cfg.head_dim}, "
-            "fused-projection views)")
+        log(f"  prefill_forward flash: {fa_ops.LAUNCHES_BF16} bf16 (wgmma) and "
+            f"{fa_ops.LAUNCHES_F32} float32 launches, {fa_ops.LAUNCHES_PADDED} padded, "
+            f"{fa_ops.STAGED_COPIES} staged copies, {fa_ops.LAUNCHES_BF16_CUDA_CORES} "
+            f"on the CUDA cores (head_dim {cfg.head_dim}); by shape {by_shape}")
         if fa_ops.LAUNCHES_PADDED or fa_ops.STAGED_COPIES:
             raise AssertionError(f"{arch} prefill padded or staged its flash inputs")
         if fa_ops.LAUNCHES_BF16_CUDA_CORES:
@@ -2326,22 +2448,33 @@ def run_lm_path(dev, arch: str, layers: int | None = None,
         if tap["k"].shape != (cfg.num_blocks, B, S, cfg.num_kv_heads, cfg.head_dim):
             raise AssertionError(f"{arch} K/V tap shape {tuple(tap['k'].shape)}")
     del logits, kv
-    log(f"  prefill_forward [{B},{S}]: {t_prefill:.3f} s = "
-        f"{B * S / t_prefill:.1f} tokens/s; {launches_prefill} "
+    log(f"  prefill_forward [{B},{S}]"
+        + (f" ({n_fe} patch embeddings + {S - n_fe} tokens)" if n_fe else "")
+        + (f" over {ENCDEC_MEMORY_LEN} frames" if frames is not None else "")
+        + f": {t_prefill:.3f} s = {B * S / t_prefill:.1f} tokens/s; {launches_prefill} "
         f"{'bf16 flash' if attn else 'wkv'} launches (one per layer); peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    prefill_prof = None
+    if phase == 25:
+        prefill_prof = profile_prefill(prefill, params, {"tokens": toks, **more})
 
-    eng = Engine(cfg, params, max_seq=LM["max_seq"], batch_size=B, device=dev)
+    eng = Engine(cfg, params, max_seq=LM["max_seq"], batch_size=B, device=dev,
+                 enc_len=ENCDEC_MEMORY_LEN if frames is not None else 0)
     prompts = toks[:, :P]
     base = count.LAUNCHES
+    fa_ops.LAUNCHES_BY_SHAPE.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = eng.generate(None, prompts, N)
+    out = eng.generate(None, prompts, N, frames=frames)
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches_gen = count.LAUNCHES - base
+    for key, n in fa_ops.LAUNCHES_BY_SHAPE.items():
+        by_shape[key] = by_shape.get(key, 0) + n
     steps = P + N                          # prompt steps + one per new token
-    want_gen = steps * cfg.num_layers if cfg.family == "ssm" else 0
+    # the decode step attends by a plain masked softmax; an encdec's
+    # prefill_encoder runs the encoder through the kernel
+    want_gen = steps * cfg.num_layers if cfg.family == "ssm" else cfg.encoder_layers
     if launches_gen != want_gen:
         raise AssertionError(f"{arch} generate launched its kernel {launches_gen} "
                              f"times, expected {want_gen}")
@@ -2349,34 +2482,55 @@ def run_lm_path(dev, arch: str, layers: int | None = None,
         raise AssertionError(f"{arch} generate: bad tokens, shape {tuple(out.shape)}")
     if knn_ops.LAUNCHES:
         raise AssertionError("the K-NN kernel ran on the LM path")
-    launches = count.LAUNCHES
-    log(f"  Engine.generate {B} x ({P} prompt + {N} new) tokens: {t_gen:.3f} s, "
-        f"{launches_gen} {'wkv' if cfg.family == 'ssm' else 'flash'} launches "
-        f"({steps} steps x {cfg.num_layers} layers)")
+    launches = launches_prefill + launches_gen     # not the Mamba profile's prefill
+    if attn and sum(by_shape.values()) != launches:
+        raise AssertionError(f"{arch}: flash launches by shape {by_shape} do not sum "
+                             f"to the path's {launches}")
+    log(f"  Engine.generate {B} x ({P} prompt + {N} new) tokens"
+        + (f" over {ENCDEC_MEMORY_LEN} frames" if frames is not None else "")
+        + f": {t_gen:.3f} s, {launches_gen} {'wkv' if cfg.family == 'ssm' else 'flash'} "
+        f"launches ({steps} steps x {cfg.num_layers} layers"
+        + (f"; the encoder's {cfg.encoder_layers} in prefill_encoder" if frames is not None
+           else "") + ")"
+        + (f"; the path's flash launches by shape {by_shape}" if attn else ""))
     if cfg.num_experts:
         # the dispatch writes kept rows by plain indexing and combines in a
         # fixed order: a second run gives the same tokens
-        again = eng.generate(None, prompts, N)
+        again = eng.generate(None, prompts, N, frames=frames)
         if not torch.equal(again, out):
             raise AssertionError(f"{arch}: two card runs of generate differ")
         log(f"  Engine.generate run twice: {N} x {B} tokens identical")
 
     drift = None
-    if phase != 23:
+    agree = phase in (12, 13) or (phase == 25 and not cfg.num_experts)
+    if agree:
         # the Engine's token-by-token prefill against prefill_forward on the
-        # same 64-token prompts; the float32 pair on the same weights follows
-        _, step_logits = eng.prefill(eng.new_cache(), prompts)
-        full_logits, _ = prefill(params, {"tokens": prompts})
+        # same 64-token prompts (an encdec's over the whole memory: the
+        # kernel at Skv = ENCDEC_MEMORY_LEN against S = 64); the float32
+        # pair on the same weights follows
+        cache = eng.new_cache()
+        if frames is not None:
+            cache = lm.prefill_encoder(cfg, params, cache, frames)
+        _, step_logits = eng.prefill(cache, prompts)
+        full_logits, _ = prefill(params, {"tokens": prompts, **more_frames(frames)})
+        del cache
     del eng
-    decode = time_decode(cfg, params, out[:, -1:])
-    if phase != 23:
-        drift = check_prefills_agree(cfg, params, prompts, step_logits, full_logits)
+    decode = time_decode(cfg, params, out[:, -1:], frames=frames)
+    if agree:
+        drift = check_prefills_agree(cfg, params, prompts, step_logits, full_logits,
+                                     frames=frames)
+    elif phase == 25:
+        # it cuts the experts and turns the weights to float32 in place:
+        # nothing runs after it
+        drift = check_hybrid_drift(cfg, params, torch.randint(
+            1, cfg.vocab_size, (32, P), generator=gen, device=dev))
     elif cfg.num_experts:
         # it turns the weights to float32 in place: nothing runs after it
         drift = check_moe_drift(cfg, params, gen)
     res = dict(launches=launches, launches_f32=launches_f32,
                launches_wide=launches_wide, layers=cfg.num_layers,
-               prefill_tok_s=B * S / t_prefill, decode=decode, drift=drift)
+               prefill_tok_s=B * S / t_prefill, decode=decode, drift=drift,
+               by_shape=by_shape, prefill_profile=prefill_prof)
     if batcher:
         res["batcher"] = run_batcher(dev, cfg, params)
     del params
@@ -2384,36 +2538,107 @@ def run_lm_path(dev, arch: str, layers: int | None = None,
     return res
 
 
-def decode_bytes(cfg, params, B: int, t: int, routed: int | None = None) -> int:
+def seamless_launches(new: dict, shape: str) -> int:
+    """seamless's bf16 flash launches at ``shape`` ("S x Skv causal|full")
+    on its main path, prefill_forward and Engine.generate (phase 25), as
+    the wrapper counts them where it launches."""
+    return new["seamless-m4t-medium"]["by_shape"].get(f"{shape} bfloat16", 0)
+
+
+def more_frames(frames) -> dict:
+    return {} if frames is None else {"frames": frames}
+
+
+def profile_prefill(prefill, params, batch) -> dict:
+    """Phase 25: one more prefill_forward under ``torch.profiler``: the
+    device's busy time (its kernels' and copies'), the kernels that take
+    most of it, and, every ``ssm.mamba_forward`` call in a
+    ``record_function`` range, the Mamba layers' share of it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import ssm
+
+    forward = ssm.mamba_forward
+
+    def ranged(*args, **kwargs):
+        with record_function("mamba_forward"):
+            return forward(*args, **kwargs)
+    ssm.mamba_forward = ranged
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prefill(params, batch)
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssm.mamba_forward = forward
+    events = prof.events()
+    by_name: dict = {}
+    for e in events:
+        if str(e.device_type).endswith("CUDA") and e.name != "mamba_forward":
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values()) or float("nan")
+    mamba = [e for e in events
+             if e.name == "mamba_forward" and not str(e.device_type).endswith("CUDA")]
+    mamba_us = sum(getattr(e, "device_time_total", 0) for e in mamba)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  prefill_forward profile: wall {wall_ms:.3f} ms profiled, device busy "
+        f"{busy_us / 1e3:.3f} ms; most: "
+        + "; ".join(f"{name[:60]} {us / 1e3:.3f} ms ({us / busy_us:.1%})"
+                    for name, us in top)
+        + (f"; the {len(mamba)} Mamba layers' kernels {mamba_us / 1e3:.3f} ms = "
+           f"{mamba_us / busy_us:.1%} of the busy time" if mamba else ""))
+    return dict(busy_ms=busy_us / 1e3, wall_ms=wall_ms,
+                mamba_ms=mamba_us / 1e3 if mamba else None,
+                mamba_share=mamba_us / busy_us if mamba else None)
+
+
+def decode_bytes(cfg, params, B: int, t: int, routed: dict | None = None,
+                 enc_len: int = 0) -> int:
     """What one decode step at batch ``B`` and position ``t`` moves: every
-    weight once (an untied embedding only its B rows), the K/V rows 0..t
-    of each attention layer read and row t written, the RWKV states read
-    and written.  An MoE's experts: with ``routed`` None, all of them, as
-    this formulation reads them (capacity 1, ``bmm`` over every expert);
-    else ``routed`` experts' weights, the distinct experts the step's
-    layers route to (at most B·K a layer): the function's bound."""
+    weight once (an untied embedding only its B rows; an encoder's weights
+    and, with ``enc_len``, the cross-attention's ``wk``/``wv`` not at all:
+    the step does not run the encoder, and prefill_encoder already turned
+    the memory into ``ck``/``cv``), the K/V rows 0..t of each
+    attention layer read and row t written, an encdec's ``enc_len`` rows of
+    cross-attention K/V read in every decoder layer, the RWKV and Mamba
+    states read and written.  An MoE's experts: with ``routed`` None, all
+    of them, as this formulation reads them (capacity 1, ``bmm`` over every
+    expert); else, for each MoE position, ``routed[pos]`` experts' weights,
+    the distinct experts the step's layers at that position route to,
+    summed over the blocks (at most B·K a layer): the function's bound."""
     total = 0
     for name, leaf in _named_leaves(params):
+        if name[0].startswith("enc_") or (enc_len and name[-3:-1] in (
+                ("cross", "wk"), ("cross", "wv"))):
+            continue
         if name == ("embed", "table") and not cfg.tie_embeddings:
             total += B * leaf.shape[1] * leaf.element_size()
         elif routed is not None and name[-2] == "ffn" and name[-1] in ("gate", "up", "down"):
             # the stacked experts [num_blocks, E, ...]
-            total += routed * leaf[0, 0].numel() * leaf.element_size()
+            total += routed[name[-3]] * leaf[0, 0].numel() * leaf.element_size()
         else:
             total += leaf.numel() * leaf.element_size()
     if cfg.family == "ssm":
         state = cfg.rwkv_heads * cfg.rwkv_head_size ** 2 * 4 + 2 * cfg.d_model * 2
         return total + 2 * cfg.num_layers * B * state
+    mixers = [m for m, _ in cfg.block_program()]
     row = 2 * cfg.num_kv_heads * cfg.head_dim * 2          # k and v, bf16
-    return total + cfg.num_layers * B * row * (t + 2)
+    total += mixers.count("attn") * cfg.num_blocks * B * row * (t + 2)
+    total += cfg.num_layers * B * row * enc_len if cfg.encoder_layers else 0
+    di = cfg.mamba_d_inner
+    state = di * cfg.mamba_d_state * 4 + (cfg.mamba_d_conv - 1) * di * 2   # h, conv
+    return total + 2 * mixers.count("mamba") * cfg.num_blocks * B * state
 
 
-def time_decode(cfg, params, tok) -> dict:
-    """Decode throughput at batch ``B``: ``serve_step`` on a fresh cache,
-    timed over DECODE["windows"] back-to-back windows of DECODE["steps"]
-    steps each (host time, synchronized at each window's end), so that the
-    host's noise averages out; then the device's busy share, and the byte
-    bound of a step at the windows' middle position."""
+def time_decode(cfg, params, tok, frames=None) -> dict:
+    """Decode throughput at batch ``B``: ``serve_step`` on a fresh cache
+    (an encdec's holding the cross-attention K/V of ``frames``), timed over
+    DECODE["windows"] back-to-back windows of DECODE["steps"] steps each
+    (host time, synchronized at each window's end), so that the host's
+    noise averages out; then the device's busy share, and the byte bound
+    of a step at the windows' middle position."""
     from repro_torch.models import lm
 
     B, n, k = tok.shape[0], DECODE["steps"], DECODE["windows"]
@@ -2421,6 +2646,10 @@ def time_decode(cfg, params, tok) -> dict:
     step = lm.serve_step(cfg)
     cache = lm.init_cache(cfg, batch=B, max_seq=3 + n * k + 2 * prof_steps,
                           device=tok.device)
+    enc_len = 0
+    if frames is not None:
+        cache = lm.prefill_encoder(cfg, params, cache, frames)
+        enc_len = frames.shape[1]
     step(params, cache, tok)                             # warm
     torch.cuda.synchronize()
     window_ms = []
@@ -2431,7 +2660,7 @@ def time_decode(cfg, params, tok) -> dict:
         torch.cuda.synchronize()
         window_ms.append((time.perf_counter() - t0) / n * 1e3)
     step_ms = sum(window_ms) / k
-    moved = decode_bytes(cfg, params, B, 1 + n * k // 2)
+    moved = decode_bytes(cfg, params, B, 1 + n * k // 2, enc_len=enc_len)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"  decode step at batch {B}, {k} windows of {n} steps: {step_ms:.3f} ms "
         f"mean = {B / step_ms * 1e3:.1f} tokens/s (windows "
@@ -2439,12 +2668,19 @@ def time_decode(cfg, params, tok) -> dict:
         f"{bound_ms:.3f} ms ({moved / 1e9:.3f} GB at 3.35 TB/s)")
     res = dict(step_ms=step_ms, tok_s=B / step_ms * 1e3, window_ms=window_ms,
                bound_ms=bound_ms, bytes=moved)
-    if cfg.family == "moe":
+    if cfg.num_experts:
         routes = []
         with recorded_routes(routes):
             step(params, cache, tok)
-        routed = sum(len(set(e[keep].tolist())) for e, keep in routes)
-        fn_moved = decode_bytes(cfg, params, B, 1 + n * k // 2, routed=routed)
+        # the step routes its MoE layers block by block, position by position
+        moe_pos = [f"pos{p}" for _ in range(cfg.num_blocks)
+                   for p, (_, f) in enumerate(cfg.block_program()) if f == "moe"]
+        by_pos: dict = {}
+        for pos, (e, keep) in zip(moe_pos, routes, strict=True):
+            by_pos[pos] = by_pos.get(pos, 0) + len(set(e[keep].tolist()))
+        routed = sum(by_pos.values())
+        fn_moved = decode_bytes(cfg, params, B, 1 + n * k // 2, routed=by_pos,
+                                enc_len=enc_len)
         res.update(fn_bound_ms=fn_moved / HBM_BYTES_PER_S * 1e3, routed=routed)
         log(f"  that byte bound is this formulation's (every expert read at "
             f"capacity 1); the function's, with the {routed} experts routed in "
@@ -2479,15 +2715,7 @@ def check_moe_drift(cfg, params, gen) -> dict:
     with plain_kernels():
         plain16, _ = lm.prefill_forward(cfg)(params, {"tokens": prompts})
 
-    def to_f32(tree):
-        for name, leaf in tree.items():
-            if isinstance(leaf, dict):
-                to_f32(leaf)
-            else:
-                tree[name] = leaf.float()
-                del leaf
-    to_f32(params)
-    torch.cuda.empty_cache()
+    to_f32_in_place(params)
     full32, _ = lm.prefill_forward(dataclasses.replace(cfg, dtype="float32"))(
         params, {"tokens": prompts})
     r = dict(full16=rel(full16, full32), control=rel(plain16, full32),
@@ -2499,6 +2727,55 @@ def check_moe_drift(cfg, params, gen) -> dict:
     if not r["full16"] <= 1.5 * r["control"]:
         raise AssertionError(f"{cfg.name}: bf16 drift past 1.5x the control: {r}")
     return r
+
+
+def to_f32_in_place(tree) -> None:
+    """Every leaf of ``tree`` turned to float32 in place, leaf by leaf: the
+    peak is the weights plus one float32 leaf."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            to_f32_in_place(leaf)
+        else:
+            tree[name] = leaf.float()
+            del leaf
+    torch.cuda.empty_cache()
+
+
+def check_hybrid_drift(cfg, params, prompts) -> dict:
+    """Phase 25, jamba: the prefill agreement and the bf16 drift control of
+    check_prefills_agree, on the same weights cut to JAMBA_F32_EXPERTS of
+    their experts a MoE layer (the first ones, and the router's columns for
+    them), since a float32 copy of 12 experts a layer fits nowhere: the cut
+    is ~16.2 B parameters, 64.8 GB in float32, turned in place.  The
+    capacity factor is raised until no token drops (E / K), so the Engine's
+    one token a step and prefill_forward's 64 compute one sum.  ``prompts``
+    are 32 sequences of 64 tokens, over which the router's bf16 jumps
+    average out (as in check_moe_drift)."""
+    import dataclasses
+
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine
+
+    E = JAMBA_F32_EXPERTS
+    for pos, (_, fkind) in enumerate(cfg.block_program()):
+        if fkind != "moe":
+            continue
+        ffn = params["layers"][f"pos{pos}"]["ffn"]
+        ffn["router"]["w"] = ffn["router"]["w"][..., :E].contiguous()
+        for name in ("gate", "up", "down"):
+            ffn[name] = ffn[name][:, :E].contiguous()
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_experts=E, capacity_factor=E / cfg.experts_per_token)
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  drift control on the weights cut to {E} of {cfg.num_experts} experts a MoE "
+        f"layer, capacity factor {cut.capacity_factor}: {n_params / 1e9:.3f} B params")
+    eng = Engine(cut, params, max_seq=LM["max_seq"], batch_size=prompts.shape[0],
+                 device=prompts.device)
+    _, step16 = eng.prefill(eng.new_cache(), prompts)
+    full16, _ = lm.prefill_forward(cut)(params, {"tokens": prompts})
+    del eng
+    r = check_prefills_agree(cut, params, prompts, step16, full16, in_place=True)
+    return dict(r, experts=E, params=n_params)
 
 
 @contextlib.contextmanager
@@ -2518,7 +2795,8 @@ def plain_kernels():
         fa_ops.flash_attention, wkv_ops.wkv6 = saved
 
 
-def check_prefills_agree(cfg, params, prompts, step16, full16) -> dict:
+def check_prefills_agree(cfg, params, prompts, step16, full16, frames=None,
+                         in_place: bool = False) -> dict:
     """The Engine's token-by-token prefill (through the decode step) and
     prefill_forward give the same last-token logits.
 
@@ -2534,7 +2812,18 @@ def check_prefills_agree(cfg, params, prompts, step16, full16) -> dict:
     Each bf16 path of the port must drift from the float32 answer no
     further than 1.5 times the control does, the bound that
     test_torch_lm_bf16.py puts on the port against the reference; the
-    bf16 pair's distance and argmax agreement are readings."""
+    bf16 pair's distance and argmax agreement are readings.  An encdec's
+    two paths read the memory of ``frames``.  With ``in_place`` the weights
+    are turned to float32 in place (where a float32 copy would not fit
+    beside them): nothing runs on them after.
+
+    An MoE's float32 gate reads every sequence whose two float32 paths
+    route every token to the same experts.  A sequence whose routings
+    differ is shown instead to have met a near tie (router_flips): at the
+    first MoE layer where they differ, the two paths' router probabilities
+    agree within 1e-4 over the whole sequence, so the layer's inputs were
+    the same and its sums broke a near tie apart; its gap is logged
+    beside that layer, the tokens and their top-K margins."""
     import dataclasses
 
     from repro_torch.models import lm
@@ -2543,30 +2832,95 @@ def check_prefills_agree(cfg, params, prompts, step16, full16) -> dict:
     def rel(a, b):
         return float((a - b).norm() / b.norm())
 
+    batch = {"tokens": prompts, **more_frames(frames)}
     with plain_kernels():
-        plain16, _ = lm.prefill_forward(cfg)(params, {"tokens": prompts})
+        plain16, _ = lm.prefill_forward(cfg)(params, batch)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    p32 = _tree_map(lambda t: t.float(), params)
+    if in_place:
+        to_f32_in_place(params)
+        p32 = params
+    else:
+        p32 = _tree_map(lambda t: t.float(), params)
     eng = Engine(cfg32, p32, max_seq=LM["max_seq"], batch_size=prompts.shape[0],
                  device=prompts.device)
-    _, step32 = eng.prefill(eng.new_cache(), prompts)
-    full32, _ = lm.prefill_forward(cfg32)(p32, {"tokens": prompts})
-    del eng, p32
-    r = dict(f32=rel(step32, full32), control=rel(plain16, full32),
+    cache = eng.new_cache()
+    if frames is not None:
+        cache = lm.prefill_encoder(cfg32, p32, cache, frames)
+    routes_step, routes_full = [], []
+    with recorded_routes(routes_step, probs=True):
+        _, step32 = eng.prefill(cache, prompts)
+    with recorded_routes(routes_full, probs=True):
+        full32, _ = lm.prefill_forward(cfg32)(p32, batch)
+    del eng, p32, cache
+    flips = router_flips(routes_step, routes_full, prompts.shape[1])
+    seqs = prompts.shape[0]
+    g = [b for b in range(seqs) if b not in flips]
+    for b, f in flips.items():
+        f["f32"] = rel(step32[b], full32[b])
+        log(f"  float32 routing differs in sequence {b}: first at MoE layer {f['layer']}, "
+            f"tokens {f['tokens']}, top-{f['k']} margins {f['margin_step']} (token by "
+            f"token) and {f['margin_full']} (prefill_forward), the router "
+            f"probabilities there within {f['probs_gap']:.3g} over the sequence (median "
+            f"margin of the layer {f['median_margin']:.3g}); the sequence's float32 gap "
+            f"{f['f32']:.3g}")
+    if any(f["probs_gap"] > 1e-4 for f in flips.values()):
+        raise AssertionError(f"{cfg.name}: float32 routings differ past a near tie: {flips}")
+    r = dict(f32=rel(step32[g], full32[g]), control=rel(plain16, full32),
              full16=rel(full16, full32), step16=rel(step16, full32),
              pair16=rel(step16, full16), kernel_vs_plain16=rel(full16, plain16))
     agree = float((step16.argmax(-1) == full16.argmax(-1)).float().mean())
     log(f"  Engine prefill (token by token) vs prefill_forward, last-token "
-        f"logits |diff|/|logits|: float32 {r['f32']:.3g} (tol 1e-4); bf16 "
+        f"logits |diff|/|logits|: float32 {r['f32']:.3g} (tol 1e-4, over {len(g)} of "
+        f"{seqs} sequences"
+        + (f"; the other {len(flips)} met a router near tie" if flips else "")
+        + f"); bf16 "
         f"drift from the float32 answer: prefill_forward {r['full16']:.4f}, "
         f"token by token {r['step16']:.4f}, control with the plain versions "
         f"{r['control']:.4f} (tol 1.5x the control); readings: bf16 pair "
         f"{r['pair16']:.4f}, kernels vs plain versions in bf16 "
         f"{r['kernel_vs_plain16']:.4f}, bf16 argmax agree {agree:.2f}")
+    r.update(f32_sequences=len(g), flips=flips)
     if not (r["f32"] <= 1e-4 and r["full16"] <= 1.5 * r["control"]
             and r["step16"] <= 1.5 * r["control"]):
         raise AssertionError(f"{cfg.name}: the two prefills disagree: {r}")
     return r
+
+
+def router_flips(step: list, full: list, S: int) -> dict:
+    """The sequences whose float32 routings differ between the Engine's
+    token-by-token prefill (``step``: S calls of the model's M MoE layers,
+    one token each) and prefill_forward (``full``: the M layers once), as
+    recorded_routes(probs=True) took them.  For each, at the first MoE
+    layer where the chosen experts differ (as sets): the layer, the
+    tokens, the router's top-K margin (the K-th probability less the
+    next) at them in each path, the two paths' largest router-probability
+    gap over the sequence at that layer, and the layer's median margin."""
+    M = len(full)
+    if len(step) != S * M:
+        raise AssertionError(f"{len(step)} token-by-token routings, expected {S} x {M}")
+    out: dict = {}
+    for m in range(M):
+        e_full, _, p_full = full[m]
+        e_step = torch.cat([step[t * M + m][0] for t in range(S)], 1)
+        p_step = torch.cat([step[t * M + m][2] for t in range(S)], 1)
+        B, E = p_full.shape[0], p_full.shape[-1]
+        K = e_full.shape[1] // S
+
+        def margin(p):
+            top = p.topk(min(K + 1, E), -1).values
+            return top[..., K - 1] - top[..., K]
+        differ = (e_full.view(B, S, K).sort(-1).values
+                  != e_step.view(B, S, K).sort(-1).values).any(-1)
+        for b in differ.any(-1).nonzero()[:, 0].tolist():
+            if b in out:
+                continue
+            toks = differ[b].nonzero()[:, 0].tolist()
+            out[b] = dict(layer=m, tokens=toks, k=K,
+                          margin_step=[f"{x:.3g}" for x in margin(p_step[b, toks]).tolist()],
+                          margin_full=[f"{x:.3g}" for x in margin(p_full[b, toks]).tolist()],
+                          probs_gap=float((p_step[b] - p_full[b]).abs().max()),
+                          median_margin=float(margin(p_full).median()))
+    return out
 
 
 def time_config_flash(dev) -> dict:
@@ -2594,28 +2948,28 @@ def serve_requests(cfg, params, n_slots, max_seq, reqs, device) -> list:
     return [(r.rid, list(r.out)) for r in cb.run(None, max_steps=200)]
 
 
-def check_batcher_vs_cpu(dev) -> None:
-    """Phase 24, first part: the float32 smoke llama3-8b, rwkv6-7b and
-    granite-moe through the continuous batcher, card against CPU: outputs
-    token for token and the finish order."""
+def check_batcher_vs_cpu(dev, archs=("llama3-8b", "rwkv6-7b", "granite-moe-3b-a800m"),
+                         phase: int = 24) -> None:
+    """Phases 24 and 25, first part: the float32 smoke configs of ``archs``
+    through the continuous batcher, card against CPU: outputs token for
+    token and the finish order."""
     from torch_lm_cases import BATCHER_SCENARIOS, smoke_lm
 
-
     distinct = {}
-    for arch in ("llama3-8b", "rwkv6-7b", "granite-moe-3b-a800m"):
+    for arch in archs:
         cfg, cpu = smoke_lm(arch, 24)
         card = _tree_map(lambda t: t.to(dev), cpu)
         for name, (n_slots, max_seq, reqs) in BATCHER_SCENARIOS.items():
             got = serve_requests(cfg, card, n_slots, max_seq, reqs, dev)
             want = serve_requests(cfg, cpu, n_slots, max_seq, reqs, "cpu")
             if got != want:
-                raise AssertionError(f"phase 24 {arch} {name}: card {got} != CPU {want}")
+                raise AssertionError(f"phase {phase} {arch} {name}: card {got} != CPU "
+                                     f"{want}")
             if name == "recycled_slot":
                 distinct[arch] = len({tuple(out) for _, out in got})
-    log("phase 24 ContinuousBatcher smoke configs (llama3-8b, rwkv6-7b, "
-        "granite-moe-3b-a800m) float32, 5 requests on 2 slots, 2 on 1, 3 equal "
-        "prompts through 1 slot: card == CPU (outputs and finish order); distinct "
-        f"outputs of the 3 equal prompts {distinct}")
+    log(f"phase {phase} ContinuousBatcher smoke configs ({', '.join(archs)}) float32, "
+        "5 requests on 2 slots, 2 on 1, 3 equal prompts through 1 slot: card == CPU "
+        f"(outputs and finish order); distinct outputs of the 3 equal prompts {distinct}")
 
 
 def run_batcher(dev, cfg, params) -> dict:
@@ -2703,6 +3057,28 @@ def run_batcher(dev, cfg, params) -> dict:
     del cb
     torch.cuda.empty_cache()
     return res
+
+
+def time_new_flash(dev) -> dict:
+    """Phase 25: the flash kernel at the new configs' shapes, bf16 route and
+    (at seamless's encoder and cross-attention, the shapes the key length
+    of its own opened) the float32 route, each against its plain version,
+    SDPA and the bound."""
+    from repro_torch.configs import get_config
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    log("phase 25 flash at the new configs' shapes")
+    sm = get_config("seamless-m4t-medium")
+    jb = get_config("jamba-1.5-large-398b")
+    heads = (sm.num_heads, sm.num_kv_heads, sm.head_dim)
+    return dict(
+        encoder=time_flash_shape(dev, gen, "seamless encoder", *heads,
+                                 S=ENCDEC_MEMORY_LEN, causal=False, f32=True),
+        cross=time_flash_shape(dev, gen, "seamless cross-attention", *heads,
+                               Skv=ENCDEC_MEMORY_LEN, causal=False, f32=True),
+        decoder=time_flash_shape(dev, gen, "seamless decoder", *heads),
+        jamba=time_flash_shape(dev, gen, "jamba attention", jb.num_heads,
+                               jb.num_kv_heads, jb.head_dim))
 
 
 def log_instantiations(source: str, text: str) -> None:
@@ -2829,6 +3205,13 @@ def main() -> int:
     check_batcher_vs_cpu(dev)
     log(f"phase 24 smoke configs {time.perf_counter() - t0:.1f} s (the full-size "
         "batcher runs beside phases 12 and 13, on their weights)")
+    t0 = time.perf_counter()
+    new_archs = tuple(arch for arch, _ in LM_NEW)
+    check_lm_smoke(dev, new_archs, phase=25)
+    check_batcher_vs_cpu(dev, new_archs, phase=25)
+    new_flash = time_new_flash(dev)
+    new = {arch: run_lm_path(dev, arch, over=over) for arch, over in LM_NEW}
+    log(f"phase 25 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -2876,6 +3259,30 @@ def main() -> int:
             "src/repro/kernels/rwkv6_scan/kernel.py:49",
             rwkv["batcher"]["launches"]["wkv"],
             dict(max_abs_err=wkv["batcher_max_abs_err"]), wkv["timings"]["batcher"]),
+        # phase 25: phi-3-vision's 32 launches at phase 9's hd-96 shape;
+        # seamless's decoder self-attention, its cross-attention at Skv =
+        # 4096 and its encoder (prefill_forward's 12 and prefill_encoder's
+        # 12 in Engine.generate), each counted by the wrapper at its shape;
+        # the float32 route's cross-attention at the same shape, which the
+        # bf16 main path launches no time; jamba's one attention layer
+        row("flash_attention_phi-3-vision-4.2b", flash_sm90, flash_tpu,
+            new["phi-3-vision-4.2b"]["launches"], flash["phi3"], flash["phi3"]),
+        row("flash_attention_seamless_decoder", flash_sm90, flash_tpu,
+            seamless_launches(new, "2048x2048 causal"), new_flash["decoder"],
+            new_flash["decoder"]),
+        row("flash_attention_seamless_cross", flash_sm90, flash_tpu,
+            seamless_launches(new, "2048x4096 full"), new_flash["cross"],
+            new_flash["cross"]),
+        row("flash_attention_f32_seamless_cross",
+            "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu", flash_tpu,
+            new["seamless-m4t-medium"]["launches_f32"], new_flash["cross"]["f32"],
+            new_flash["cross"]["f32"]),
+        row("flash_attention_seamless_encoder", flash_sm90, flash_tpu,
+            seamless_launches(new, f"{ENCDEC_MEMORY_LEN}x{ENCDEC_MEMORY_LEN} full"),
+            new_flash["encoder"], new_flash["encoder"]),
+        row("flash_attention_jamba-1.5-large-398b", flash_sm90, flash_tpu,
+            new["jamba-1.5-large-398b"]["launches"], new_flash["jamba"],
+            new_flash["jamba"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -7,10 +7,11 @@
 // head dims its tensor-core kernel lacks (above 128) to this kernel's
 // bfloat16 instantiation (flash_attention_fwd_cc_bf16: bfloat16 loads and
 // stores, float32 math).  For q [B, S, H, hd]
-// and k, v [B, S, Hkv, hd] (any strides over b, s and h, the
+// and k, v [B, Skv, Hkv, hd] (any strides over b, s and h, the
 // last axis contiguous), query head h reads kv head h / (H / Hkv) and
 //   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(scale_hd),
-// over j <= i when causal and over all j otherwise, written into a
+// over j <= i when causal (which needs Skv == S) and over all j < Skv
+// otherwise (an encoder's memory under cross-attention), written into a
 // contiguous o [B, S, H, hd].  hd is one of the instantiations (16, 32, 64,
 // 96, 128, 192, 256 in float32; 192, 256 in bfloat16) or any hd above 256
 // (the wide form below, both types); scale_hd is the head dim before the
@@ -19,7 +20,8 @@
 //   m_cur = max(m, max_j s_j); alpha = exp(m - m_cur); p_j = exp(s_j - m_cur)
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j;  m = m_cur
 // and o = acc / max(l, 1e-30).  Masked scores are -1e30, as in the Pallas
-// kernel.  Every row is computed: a ragged S is masked here, not dropped.
+// kernel.  Every row is computed: a ragged S is masked here, not dropped,
+// and so is the tail of the last key tile past Skv.
 //
 // Bound on an H100: operations.  At the llama3-8b prefill head layout
 // (B=4, S=2048, H=32, Hkv=8, hd=128, causal) the useful work is
@@ -100,7 +102,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        Strides sq, Strides sk, Strides sv, Strides so,
-                       int S, int H, int group, int BH, float scale) {
+                       int S, int Skv, int H, int group, int BH, float scale) {
   constexpr int KS = HD + 4;                // padded row of the K tile
   constexpr int DPL = HD >= 32 ? HD / 32 : 1;  // output columns per lane
   extern __shared__ float4 smem4[];
@@ -134,13 +136,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
   }
 
-  const int k_end = CAUSAL ? min(S, q0 + kQTile) : S;
+  const int k_end = CAUSAL ? min(S, q0 + kQTile) : Skv;
   for (int k0 = 0; k0 < k_end; k0 += kKTile) {
     __syncthreads();                        // the last tile's readers are done
     for (int i = threadIdx.x; i < kKTile * HD; i += blockDim.x) {
       const int j = i / HD, d = i % HD, key = k0 + j;
-      Ks[j * KS + d] = key < S ? to_f32(kb[key * sk.s + d]) : 0.f;
-      Vs[i] = key < S ? to_f32(vb[key * sv.s + d]) : 0.f;
+      Ks[j * KS + d] = key < Skv ? to_f32(kb[key * sk.s + d]) : 0.f;
+      Vs[i] = key < Skv ? to_f32(vb[key * sv.s + d]) : 0.f;
     }
     __syncthreads();
     if (row0 >= S || (CAUSAL && row0 + kRows - 1 < k0)) continue;
@@ -168,7 +170,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float p[kRows];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      const bool valid = key < S && (!CAUSAL || key <= row0 + r);
+      const bool valid = key < Skv && (!CAUSAL || key <= row0 + r);
       const float sr = valid ? s[r] * scale : kNegInf;
       const float m_cur = fmaxf(m[r], warp_max(sr));
       const float alpha = expf(m[r] - m_cur);
@@ -222,7 +224,8 @@ __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
                             Strides sq, Strides sk, Strides sv, Strides so,
-                            int S, int H, int group, int BH, int HD, float scale) {
+                            int S, int Skv, int H, int group, int BH, int HD,
+                            float scale) {
   constexpr int KS = kWideChunk + 4;        // padded row of the K chunk
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [kQTile][kWideChunk]
@@ -240,7 +243,7 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * sq.b + h * sq.h;
   const T* kb = k + b * sk.b + hk * sk.h;
   const T* vb = v + b * sv.b + hk * sv.h;
-  const int k_end = CAUSAL ? min(S, q0 + kQTile) : S;
+  const int k_end = CAUSAL ? min(S, q0 + kQTile) : Skv;
 
   for (int c0 = 0; c0 < HD; c0 += kWideSlice) {
     float m[kRows], l[kRows], acc[kRows][kWideDPL];
@@ -268,7 +271,7 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
         for (int i = threadIdx.x; i < kKTile * kWideChunk; i += blockDim.x) {
           const int j = i / kWideChunk, dc = i % kWideChunk, d = d0 + dc, key = k0 + j;
-          Ks[j * KS + dc] = key < S && d < HD ? to_f32(kb[key * sk.s + d]) : 0.f;
+          Ks[j * KS + dc] = key < Skv && d < HD ? to_f32(kb[key * sk.s + d]) : 0.f;
         }
         __syncthreads();
         if (!live) continue;
@@ -293,7 +296,7 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();                      // the last tile's P.V readers are done
       for (int i = threadIdx.x; i < kKTile * kWideSlice; i += blockDim.x) {
         const int j = i / kWideSlice, d = c0 + i % kWideSlice, key = k0 + j;
-        Vs[i] = key < S && d < HD ? to_f32(vb[key * sv.s + d]) : 0.f;
+        Vs[i] = key < Skv && d < HD ? to_f32(vb[key * sv.s + d]) : 0.f;
       }
       __syncthreads();
       if (!live) continue;
@@ -302,7 +305,7 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float p[kRows];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const bool valid = key < S && (!CAUSAL || key <= row0 + r);
+        const bool valid = key < Skv && (!CAUSAL || key <= row0 + r);
         const float sr = valid ? s[r] * scale : kNegInf;
         const float m_cur = fmaxf(m[r], warp_max(sr));
         const float alpha = expf(m[r] - m_cur);
@@ -345,8 +348,8 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, bool CAUSAL>
 cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
-                        const Strides* st, int B, int S, int H, int Hkv, int hd,
-                        int scale_hd, cudaStream_t stream) {
+                        const Strides* st, int B, int S, int Skv, int H, int Hkv,
+                        int hd, int scale_hd, cudaStream_t stream) {
   constexpr size_t smem = kWideSmemFloats * sizeof(float);
   auto kernel = flash_attention_wide_kernel<T, CAUSAL>;
   static bool configured = false;           // per instantiation
@@ -361,14 +364,15 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, H, H / Hkv, BH, hd, scale);
+      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, Skv, H, H / Hkv, BH, hd,
+      scale);
   return cudaGetLastError();
 }
 
 template <typename T, int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   const Strides* st, int B, int S, int H, int Hkv, int scale_hd,
-                   cudaStream_t stream) {
+                   const Strides* st, int B, int S, int Skv, int H, int Hkv,
+                   int scale_hd, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<HD>() * sizeof(float);
   auto kernel = flash_attention_kernel<T, HD, CAUSAL>;
   static bool configured = false;           // per instantiation
@@ -383,7 +387,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, H, H / Hkv, BH, scale);
+      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, Skv, H, H / Hkv, BH, scale);
   return cudaGetLastError();
 }
 
@@ -391,22 +395,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // tensor-core kernel's 128.  Any hd above 256 takes the wide form.
 template <typename T, bool CAUSAL>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        const Strides* st, int B, int S, int H, int Hkv, int hd,
-                        int scale_hd, cudaStream_t stream) {
+                        const Strides* st, int B, int S, int Skv, int H, int Hkv,
+                        int hd, int scale_hd, cudaStream_t stream) {
   if (hd > 256)
-    return launch_wide<T, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
+    return launch_wide<T, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd,
+                                  stream);
   switch (hd) {
-    case 192: return launch<T, 192, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 256: return launch<T, 256, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 192: return launch<T, 192, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+    case 256: return launch<T, 256, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
     default: break;
   }
   if constexpr (std::is_same_v<T, float>) {
     switch (hd) {
-      case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-      case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-      case 96: return launch<T, 96, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-      case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+      case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 96: return launch<T, 96, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
       default: break;
     }
   }
@@ -415,32 +420,36 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 
 template <typename T>
 int entry(const void* q, const void* k, const void* v, void* o, int causal, int B,
-          int S, int H, int Hkv, int hd, int scale_hd, const int64_t* strides,
+          int S, int Skv, int H, int Hkv, int hd, int scale_hd, const int64_t* strides,
           cudaStream_t stream) {
   if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
-  if (Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 || scale_hd > hd)
+  if (Skv < 1 || (causal && Skv != S) || Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 ||
+      scale_hd > hd)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaError_t err =
-      causal ? dispatch_hd<T, true>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream)
-             : dispatch_hd<T, false>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
+      causal ? dispatch_hd<T, true>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd, stream)
+             : dispatch_hd<T, false>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd,
+                                     stream);
   return static_cast<int>(err);
 }
 
 }  // namespace
 
 // Launches the float32 kernel on `stream` and returns cudaGetLastError()
-// (0 on success).  hd is an instantiated head dim or above 256, scale_hd in [1, hd] the
+// (0 on success).  Skv >= 1 is k's and v's length, S's own when causal.  hd
+// is an instantiated head dim or above 256, scale_hd in [1, hd] the
 // one whose 1/sqrt scales the scores (the head dim before the wrapper
 // zero-padded it).  strides: 12 element strides, (b, s, h) of q, k, v and
 // o in that order.  S == 0 launches nothing.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
-                                       void* o, int causal, int B, int S, int H,
-                                       int Hkv, int hd, int scale_hd,
+                                       void* o, int causal, int B, int S, int Skv,
+                                       int H, int Hkv, int hd, int scale_hd,
                                        const int64_t* strides, cudaStream_t stream) {
-  return entry<float>(q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd, strides, stream);
+  return entry<float>(q, k, v, o, causal, B, S, Skv, H, Hkv, hd, scale_hd, strides,
+                      stream);
 }
 
 // The same kernel on bfloat16 q, k, v and o, for hd 192, 256 and above 256
@@ -448,9 +457,9 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
 // the math in float32.  flash_attention_fwd_bf16 calls it; it reads plain
 // strided memory, so no TMA alignment applies.
 extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const void* v,
-                                           void* o, int causal, int B, int S, int H,
-                                           int Hkv, int hd, int scale_hd,
+                                           void* o, int causal, int B, int S, int Skv,
+                                           int H, int Hkv, int hd, int scale_hd,
                                            const int64_t* strides, cudaStream_t stream) {
-  return entry<__nv_bfloat16>(q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd, strides,
-                              stream);
+  return entry<__nv_bfloat16>(q, k, v, o, causal, B, S, Skv, H, Hkv, hd, scale_hd,
+                              strides, stream);
 }

@@ -5,18 +5,20 @@
 // src/repro/kernels/flash_attention/kernel.py:74 flash_attention_kernel
 // (Pallas body _fa_kernel :28, pallas_call :97) for bfloat16 inputs; the
 // float32 route stays on flash_attention.cu.  For q [B, S, H, hd] and
-// k, v [B, S, Hkv, hd] in bfloat16 (any strides over b, s and h that are
+// k, v [B, Skv, Hkv, hd] in bfloat16 (any strides over b, s and h that are
 // multiples of 16 bytes, the last axis contiguous, 16-byte-aligned bases),
 // query head h reads kv head h / (H / Hkv) and
 //   o[b, i, h] = sum_j softmax_j(scale * q_i . k_j) v_j,  scale = 1/sqrt(scale_hd),
-// over j <= i when causal and over all j otherwise, written as bfloat16
+// over j <= i when causal (which needs Skv == S) and over all j < Skv
+// otherwise (an encoder's memory under cross-attention), written as bfloat16
 // into o [B, S, H, hd] (strides given).  Online softmax in float32, in the
 // base-2 domain with log2(e) * scale folded into one factor:
 //   m' = max(m, c * max_j s_j); alpha = 2^(m - m'); p_j = 2^(c s_j - m')
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j (big_j + small_j) v_j
 // with big_j = bf16(p_j) and small_j = bf16(p_j - big_j), and
 // o = acc / max(l, 1e-30).  Masked scores are -1e30 (the Pallas kernel's
-// value).  Every row is computed: a ragged S is masked, not dropped.
+// value).  Every row is computed: a ragged S is masked, not dropped, and
+// the keys of the last tile past Skv are masked.
 // scale_hd is the head dim before the wrapper zero-padded it to one of the
 // instantiated HD (16, 32, 64, 96, 128); zero columns leave q . k as it is.  The
 // row sums come from the float32 p.  P enters the bf16 tensor cores as two
@@ -49,7 +51,8 @@
 //   tile is loaded once; K and V tiles of 128 keys go through a ring of two
 //   stages, each completed on its own mbarrier, so S = Q K^T of a tile can
 //   start before its V has landed, and the next tile's loads fly while this
-//   one is computed.  TMA zero-fills rows past S; keys >= S are masked.
+//   one is computed.  K and V's tensor maps take Skv as their extent, q's
+//   S: TMA zero-fills rows past either, and keys >= Skv are masked.
 // * Both products run on wgmma.  S = Q K^T is m64n128k16 with Q and K read
 //   K-major from shared memory.  O += P V is m64n{hd}k16, twice per k16
 //   step (big, then small), with P from registers: the float32 accumulator
@@ -60,8 +63,8 @@
 // * The softmax stays in registers: each row lives on the four threads of a
 //   quad, so a row max costs two shuffles per tile; the row sums are kept
 //   per thread and reduced once at the end.  Only the diagonal tile of a
-//   causal CTA and the last tile of a ragged S are masked; tiles above the
-//   diagonal are not visited.
+//   causal CTA and the last tile of a ragged Skv are masked; tiles above
+//   the diagonal are not visited.
 //
 // Measured by chip_smoke.py (phases 2 and 9) on an H100 80GB HBM3 at
 // 700 W: 0.414-0.420 ms per call at the llama3-8b shape above, 327-332
@@ -149,8 +152,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            __nv_bfloat16* __restrict__ o, Strides so, int S, int H,
-                            int group, int BH, float scale_log2) {
+                            __nv_bfloat16* __restrict__ o, Strides so, int S, int Skv,
+                            int H, int group, int BH, float scale_log2) {
   using G = Geometry<HD>;
   constexpr int kSRegs = kKTile / 2;                // S accumulator: 64 floats per thread
   constexpr int kORegs = HD / 2;                    // O accumulator
@@ -165,7 +168,7 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   const int bh = static_cast<int>(blockIdx.x % BH);
   const int b = bh / H, h = bh % H, hk = h / group;
   const int q0 = qt * kQTile;
-  const int k_end = CAUSAL ? min(S, q0 + kQTile) : S;
+  const int k_end = CAUSAL ? min(S, q0 + kQTile) : Skv;
   const int n_tiles = (k_end + kKTile - 1) / kKTile;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -230,13 +233,13 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
 
-    // mask: the diagonal tile of a causal CTA, and keys past a ragged S
-    if (key0 + kKTile > S || (CAUSAL && key0 + kKTile > q0)) {
+    // mask: the diagonal tile of a causal CTA, and keys past a ragged Skv
+    if (key0 + kKTile > Skv || (CAUSAL && key0 + kKTile > q0)) {
 #pragma unroll
       for (int i = 0; i < kSRegs; ++i) {
         const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
         const int row = row0 + 8 * ((i / 2) % 2);
-        if (key >= S || (CAUSAL && key > row)) sc[i] = kNegInf;
+        if (key >= Skv || (CAUSAL && key > row)) sc[i] = kNegInf;
       }
     }
 
@@ -377,11 +380,12 @@ bool encode(CUtensorMap* map, const void* ptr, const Strides& st, int B, int S, 
 
 template <int HD, bool CAUSAL>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                   int B, int S, int H, int Hkv, int scale_hd, cudaStream_t stream) {
+                   int B, int S, int Skv, int H, int Hkv, int scale_hd,
+                   cudaStream_t stream) {
   using G = Geometry<HD>;
   CUtensorMap tq, tk, tv;
-  if (!encode<HD>(&tq, q, st[0], B, S, H) || !encode<HD>(&tk, k, st[1], B, S, Hkv) ||
-      !encode<HD>(&tv, v, st[2], B, S, Hkv))
+  if (!encode<HD>(&tq, q, st[0], B, S, H) || !encode<HD>(&tk, k, st[1], B, Skv, Hkv) ||
+      !encode<HD>(&tv, v, st[2], B, Skv, Hkv))
     return cudaErrorInvalidValue;
   auto kernel = flash_attention_sm90_kernel<HD, CAUSAL>;
   static bool configured = false;                   // per instantiation
@@ -395,20 +399,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const S
   const int n_qtiles = (S + kQTile - 1) / kQTile;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kThreads, G::kSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], S, H, H / Hkv, BH, scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], S, Skv, H, H / Hkv, BH,
+      scale_log2);
   return cudaGetLastError();
 }
 
 template <bool CAUSAL>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
-                        const Strides* st, int B, int S, int H, int Hkv, int hd,
-                        int scale_hd, cudaStream_t stream) {
+                        const Strides* st, int B, int S, int Skv, int H, int Hkv,
+                        int hd, int scale_hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<16, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 32: return launch<32, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 64: return launch<64, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 96: return launch<96, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
-    case 128: return launch<128, CAUSAL>(q, k, v, o, st, B, S, H, Hkv, scale_hd, stream);
+    case 16:
+      return launch<16, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+    case 32:
+      return launch<32, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+    case 64:
+      return launch<64, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+    case 96:
+      return launch<96, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+    case 128:
+      return launch<128, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -418,32 +428,34 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 // flash_attention.cu's CUDA-core kernel on bfloat16, for hd 192, 256 and
 // above 256.
 extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const void* v,
-                                           void* o, int causal, int B, int S, int H,
-                                           int Hkv, int hd, int scale_hd,
+                                           void* o, int causal, int B, int S, int Skv,
+                                           int H, int Hkv, int hd, int scale_hd,
                                            const int64_t* strides, cudaStream_t stream);
 
 // Launches the bfloat16 kernel on `stream` and returns cudaGetLastError()
 // (0 on success; cudaErrorInvalidValue when a tensor map cannot be
-// encoded).  hd is an instantiated head dim, scale_hd in [1, hd] the one
-// whose 1/sqrt scales the scores.  strides: 12 element strides, (b, s, h)
+// encoded).  Skv >= 1 is k's and v's length, S's own when causal.  hd is
+// an instantiated head dim, scale_hd in [1, hd] the one whose 1/sqrt
+// scales the scores.  strides: 12 element strides, (b, s, h)
 // of q, k, v and o in that order.  S == 0 launches nothing.  hd 192, 256 and
 // any hd above 256 go to flash_attention_fwd_cc_bf16 (CUDA cores, plain
 // strided loads): the wgmma kernel's tiles stop at 128.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                        int causal, int B, int S, int H, int Hkv, int hd,
-                                        int scale_hd, const int64_t* strides,
+                                        int causal, int B, int S, int Skv, int H, int Hkv,
+                                        int hd, int scale_hd, const int64_t* strides,
                                         cudaStream_t stream) {
   if (hd > 128)
-    return flash_attention_fwd_cc_bf16(q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd,
-                                       strides, stream);
+    return flash_attention_fwd_cc_bf16(q, k, v, o, causal, B, S, Skv, H, Hkv, hd,
+                                       scale_hd, strides, stream);
   if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
-  if (Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 || scale_hd > hd)
+  if (Skv < 1 || (causal && Skv != S) || Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 ||
+      scale_hd > hd)
     return static_cast<int>(cudaErrorInvalidValue);
   Strides st[4];
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaError_t err =
-      causal ? dispatch_hd<true>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream)
-             : dispatch_hd<false>(q, k, v, o, st, B, S, H, Hkv, hd, scale_hd, stream);
+      causal ? dispatch_hd<true>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd, stream)
+             : dispatch_hd<false>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd, stream);
   return static_cast<int>(err);
 }

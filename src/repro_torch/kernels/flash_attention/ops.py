@@ -23,6 +23,11 @@ kernel's wide form, whose shared memory and registers do not grow with hd
 (``LAUNCHES_WIDE``).  Padding and staging are copies in front of the same
 kernel, not another route.
 
+Non-causal attention takes k, v of a length ``Skv`` of their own (an
+encoder's memory under cross-attention): every route's key loop runs to
+``Skv`` and masks its tail, and the bfloat16 route's K/V tensor maps take
+``Skv`` as their extent.  Causal attention needs ``Skv == S``.
+
 On CPU tensors it runs the plain version (``ref.py``).  There is no
 fallback from one route to another."""
 from __future__ import annotations
@@ -35,9 +40,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 NAME = "flash_attention"
-# (q, k, v, o, causal, B, S, H, Hkv, hd, scale_hd, strides, stream): hd is
-# the kernel's head dim, scale_hd the one whose 1/sqrt scales the scores
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+# (q, k, v, o, causal, B, S, Skv, H, Hkv, hd, scale_hd, strides, stream): Skv
+# is k's and v's length, hd the kernel's head dim, scale_hd the one whose
+# 1/sqrt scales the scores
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
          + [ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p])
 ENTRY = {torch.float32: "flash_attention_fwd_f32",
          torch.bfloat16: "flash_attention_fwd_bf16"}
@@ -60,6 +66,9 @@ LAUNCHES_BF16_CUDA_CORES = 0
 # launches above the largest native head dim (the CUDA-core kernel's wide
 # form, either dtype)
 LAUNCHES_WIDE = 0
+# launches by shape, keyed "S x Skv causal|full dtype" (as "2048x4096 full
+# bfloat16"): cleared by the caller, as the counts above are reset
+LAUNCHES_BY_SHAPE: dict[str, int] = {}
 
 
 def _check_tma_layout(**tensors: torch.Tensor) -> None:
@@ -96,20 +105,26 @@ def _padded_head_dim(hd: int) -> int:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """q ``[B, S, H, hd]``; k, v ``[B, S, Hkv, hd]``, one dtype (float32 or
+    """q ``[B, S, H, hd]``; k, v ``[B, Skv, Hkv, hd]``, one dtype (float32 or
     bfloat16), H a multiple of Hkv, the last axis contiguous →
-    ``[B, S, H, hd]`` in q's dtype.  Query head h reads kv head
-    ``h // (H // Hkv)``; scores are scaled by ``1/sqrt(hd)``.  On the card
-    hd may be any positive size."""
+    ``[B, S, H, hd]`` in q's dtype.  ``Skv`` ≥ 1 may differ from S when
+    ``causal`` is False; causal attention needs ``Skv == S``.  Query head h
+    reads kv head ``h // (H // Hkv)``; scores are scaled by
+    ``1/sqrt(hd)``.  On the card hd may be any positive size."""
     global LAUNCHES, LAUNCHES_F32, LAUNCHES_BF16, LAUNCHES_PADDED
     global LAUNCHES_BF16_CUDA_CORES, LAUNCHES_WIDE
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q, k, v of rank 4 [B, S, H, hd]")
     B, S, H, hd = q.shape
-    Hkv = k.shape[2]
-    if k.shape != (B, S, Hkv, hd) or v.shape != k.shape or Hkv == 0 or H % Hkv:
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, Hkv, hd) or v.shape != k.shape or Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k "
                          f"{tuple(k.shape)} and v {tuple(v.shape)}")
+    if causal and Skv != S:
+        raise ValueError(f"flash_attention: causal attention needs k and v as long "
+                         f"as q ({S} rows), got {Skv}")
+    if Skv == 0 and q.numel():
+        raise ValueError("flash_attention: q's rows have no key to attend to")
     if q.dtype not in ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -140,11 +155,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            int(causal), B, S, H, Hkv, kd, hd, strides, stream)
+            int(causal), B, S, Skv, H, Hkv, kd, hd, strides, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_WIDE += wide
+    dtype = str(q.dtype).removeprefix("torch.")
+    key = f"{S}x{Skv} {'causal' if causal else 'full'} {dtype}"
+    LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     if q.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
         LAUNCHES_BF16_CUDA_CORES += not tma

@@ -6,7 +6,10 @@ Pallas kernel (same online softmax); here it goes through
 ``kernels/flash_attention``: the hand-written CUDA kernel on the card,
 its plain version on the CPU.  The kernel tiles itself, so the
 reference's ``q_chunk``/``kv_chunk`` have no counterpart, and it masks a
-ragged S instead of asserting it away.  Decode attention is a plain
+ragged S instead of asserting it away.  Non-causal attention takes keys
+of their own length: the reference's twin cuts k/v into chunks by q's
+length, so its cross-attention over a memory longer than q reads only
+the first S rows (ROADMAP C10); here every row is read.  Decode attention is a plain
 masked softmax over the cache, as in the reference.  The
 sequence-parallel variant waits for ``torch.distributed`` (ROADMAP
 A13.7)."""
@@ -23,7 +26,8 @@ NEG_INF = -1e30
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q ``[B, S, H, hd]``; k, v ``[B, S, Hkv, hd]`` → ``[B, S, H, hd]``."""
+    """q ``[B, S, H, hd]``; k, v ``[B, Skv, Hkv, hd]`` (Skv = S when
+    causal) → ``[B, S, H, hd]``."""
     return fa_ops.flash_attention(q, k, v, causal=causal)
 
 

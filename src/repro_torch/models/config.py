@@ -7,7 +7,8 @@ enc-dec / VLM families.  Layers are organized as a repeating *block
 program* of period ``block_period``; parameters are stacked over the
 ``num_blocks`` identical blocks, and the port runs them in a Python loop.
 The execution fields (``scan_blocks``, ``remat``, ``use_pallas``, the
-sharding levers) are kept for the copy's sake and read nowhere here."""
+Mamba and sharding levers) are kept for the copy's sake and read nowhere
+here."""
 from __future__ import annotations
 
 import dataclasses

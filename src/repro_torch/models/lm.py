@@ -4,22 +4,28 @@ One parameter layout and the serving entry points:
 
   init_params(cfg, gen, device)              -> parameter dict
   prefill_forward(cfg)(params, batch)        -> (last logits, K/V taps)
-  init_cache(cfg, batch, max_seq, device)    -> decode state
+  encode(cfg, params, frames)                -> encoder memory   [encdec]
+  init_cache(cfg, batch, max_seq, device, enc_len=0) -> decode state
+  prefill_encoder(cfg, params, cache, frames) -> cache with the memory's K/V
   serve_step(cfg)(params, cache, tokens)     -> (logits, cache)
 
-Ported families: ``dense`` (GQA transformer, with the parallel block),
-``moe`` (the routed top-k FFN of ``ffn.moe_ffn``, shared experts
-included) and ``ssm`` (RWKV6 Finch); a config of another family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  Training
+All six families of the reference are ported: ``dense`` (GQA transformer,
+with the parallel block), ``moe`` (the routed top-k FFN of
+``ffn.moe_ffn``, shared experts included), ``ssm`` (RWKV6 Finch),
+``hybrid`` (Jamba: Mamba layers between the attention ones, MoE every
+other layer), ``vlm`` (a patch-embedding frontend stub: precomputed
+embeddings ``batch["frontend_embeds"]`` in front of the tokens) and
+``encdec`` (seamless-m4t: a bidirectional encoder over precomputed frame
+embeddings, and cross-attention in every decoder layer).  Training
 (``train_loss``, and so the MoE's auxiliary loss, which serving does not
-compute: the reference's serving discards it) waits for ROADMAP A10; the hybrid Mamba, the
-encoder and the modality frontends for A9.  Parameters
-keep the reference's tree: per-position leaves stacked over the
-``num_blocks`` identical blocks ``[nb, ...]``, run here by a Python loop
-over the blocks (no remat: there is no backward).  Attention
-goes through the flash-attention kernel and the RWKV6 recurrence through
-the WKV6 kernel; everything else is plain PyTorch, as the reference left
-it to XLA."""
+compute: the reference's serving discards it) waits for ROADMAP A10.
+Parameters keep the reference's tree: per-position leaves stacked over
+the ``num_blocks`` identical blocks ``[nb, ...]``, run here by a Python
+loop over the blocks (no remat: there is no backward).  Attention goes
+through the flash-attention kernel (cross-attention at the memory's own
+length, over every row of it) and the RWKV6 recurrence through the WKV6
+kernel; everything else is plain PyTorch, as the reference left it to
+XLA."""
 from __future__ import annotations
 
 from typing import Callable
@@ -38,18 +44,6 @@ Batch = dict
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not cover."""
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (hybrid Mamba, encdec, vlm) "
-            "is not ported yet: ROADMAP A9")
-    if cfg.encoder_layers or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders and modality frontends are not ported yet: "
-            "ROADMAP A9")
 
 
 def _tree_map(fn: Callable, tree):
@@ -91,17 +85,42 @@ def _ffn_init(gen, cfg: ModelConfig, kind: str, dtype, device) -> Params:
 
 
 def _block_position_init(gen, cfg: ModelConfig, mixer: str, fkind: str, dtype,
-                         device) -> Params:
+                         device, cross: bool = False) -> Params:
     p: Params = {"norm1": nn.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)}
     if mixer == "rwkv":
         # RWKV folds its FFN (channel-mix) into the mixer params
         p["mixer"] = ssm.rwkv6_init(gen, cfg.d_model, cfg.d_ff,
                                     cfg.rwkv_head_size, dtype=dtype, device=device)
     else:
-        p["mixer"] = _attn_init(gen, cfg, dtype, device)
+        if mixer == "mamba":
+            p["mixer"] = ssm.mamba_init(gen, cfg.d_model, cfg.mamba_d_inner,
+                                        cfg.mamba_d_state, cfg.mamba_d_conv,
+                                        dtype=dtype, device=device)
+        else:
+            p["mixer"] = _attn_init(gen, cfg, dtype, device)
         p["ffn"] = _ffn_init(gen, cfg, fkind, dtype, device)
     p["norm2"] = nn.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
+    if cross:
+        p["norm_cross"] = nn.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
+        p["cross"] = _attn_init(gen, cfg, dtype, device)
     return p
+
+
+def _stacked(n: int, make: Callable[[], Params]) -> Params:
+    """``n`` draws of ``make()`` stacked leaf by leaf ``[n, ...]``, drawn one
+    at a time, so the peak is one draw above the stack (a single draw is
+    not copied)."""
+    if n == 1:
+        return _tree_map(lambda a: a[None], make())
+    stacked = None
+    for b in range(n):
+        one = make()
+        if stacked is None:
+            stacked = _tree_map(
+                lambda a: torch.empty((n, *a.shape), dtype=a.dtype, device=a.device),
+                one)
+        _tree_zip(lambda s, a, b=b: s[b].copy_(a), stacked, one)
+    return stacked
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator,
@@ -111,21 +130,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     GPU).  The draws are not the reference's: carry its weights across
     with ``convert.lm_params_from_numpy``.  Blocks are drawn one at a time
     into the stacked leaves, so the peak is one block above the weights."""
-    _check_supported(cfg)
     device = resolve_device(device)
     dtype = _dt(cfg)
-    nb = cfg.num_blocks
-    layers = {}
-    for pos, (mixer, fkind) in enumerate(cfg.block_program()):
-        stacked = None
-        for b in range(nb):
-            one = _block_position_init(gen, cfg, mixer, fkind, dtype, device)
-            if stacked is None:
-                stacked = _tree_map(
-                    lambda a: torch.empty((nb, *a.shape), dtype=a.dtype,
-                                          device=a.device), one)
-            _tree_zip(lambda s, a, b=b: s[b].copy_(a), stacked, one)
-        layers[f"pos{pos}"] = stacked
+    cross = cfg.encoder_layers > 0
+    layers = {
+        f"pos{pos}": _stacked(cfg.num_blocks, lambda m=mixer, f=fkind: _block_position_init(
+            gen, cfg, m, f, dtype, device, cross))
+        for pos, (mixer, fkind) in enumerate(cfg.block_program())}
     params: Params = {
         "embed": nn.embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype=dtype,
                                    device=device),
@@ -135,23 +146,34 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = nn.linear_init(gen, cfg.d_model, cfg.vocab_size,
                                            dtype=dtype, device=device)
+    if cfg.encoder_layers:
+        params["enc_layers"] = _stacked(cfg.encoder_layers, lambda: _block_position_init(
+            gen, cfg, "attn", "dense", dtype, device))
+        params["enc_final_norm"] = nn.rmsnorm_init(cfg.d_model, dtype=dtype,
+                                                   device=device)
     return params
 
 
 # ===========================================================================
 # Block forward (full sequence)
 # ===========================================================================
-def _run_attn(p: Params, x, cfg: ModelConfig, positions):
-    """Causal self-attention (the reference's bidirectional and cross
-    variants serve the encoder, ROADMAP A9)."""
+def _run_attn(p: Params, x, cfg: ModelConfig, positions, causal: bool = True,
+              memory=None):
+    """Self-attention with rope, causal or bidirectional (the encoder); with
+    ``memory`` ``[B, S_enc, d]``, cross-attention: keys and values from the
+    memory, no rope, non-causal over every memory row, through the kernel
+    at the memory's own length (the reference's pure-JAX twin reads only
+    its first S rows, ROADMAP C10)."""
     B, S, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    src = x if memory is None else memory
     q = nn.linear(p["wq"], x).reshape(B, S, h, hd)
-    k = nn.linear(p["wk"], x).reshape(B, S, hkv, hd)
-    v = nn.linear(p["wv"], x).reshape(B, S, hkv, hd)
-    q = nn.apply_rope(q, positions, cfg.rope_theta)
-    k = nn.apply_rope(k, positions, cfg.rope_theta)
-    o = attn.flash_attention(q, k, v, causal=True)
+    k = nn.linear(p["wk"], src).reshape(B, src.shape[1], hkv, hd)
+    v = nn.linear(p["wv"], src).reshape(B, src.shape[1], hkv, hd)
+    if memory is None:
+        q = nn.apply_rope(q, positions, cfg.rope_theta)
+        k = nn.apply_rope(k, positions, cfg.rope_theta)
+    o = attn.flash_attention(q, k, v, causal=causal and memory is None)
     return nn.linear(p["wo"], o.reshape(B, S, h * hd))
 
 
@@ -166,22 +188,49 @@ def _run_ffn(p: Params, x, cfg: ModelConfig, kind: str):
 
 
 def _position_forward(cfg: ModelConfig, p: Params, mixer: str, fkind: str, x,
-                      positions):
-    """One sub-layer position within a block."""
+                      positions, memory=None):
+    """One sub-layer position within a block; with ``memory``, the
+    position's cross-attention after its mixer."""
     if mixer == "rwkv":
         x = x + ssm.rwkv6_time_mix(
             p["mixer"], nn.rmsnorm(p["norm1"], x, cfg.norm_eps),
             head_size=cfg.rwkv_head_size)
         return x + ssm.rwkv6_channel_mix(
             p["mixer"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
-    if cfg.parallel_block:
+    if cfg.parallel_block and mixer == "attn":
         hshared = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
         a = _run_attn(p["mixer"], hshared, cfg, positions)
         return x + a + _run_ffn(p["ffn"], hshared, cfg, fkind)
     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + _run_attn(p["mixer"], h, cfg, positions)
+    if mixer == "attn":
+        x = x + _run_attn(p["mixer"], h, cfg, positions)
+    else:  # mamba
+        x = x + ssm.mamba_forward(p["mixer"], h, d_state=cfg.mamba_d_state,
+                                  d_conv=cfg.mamba_d_conv)
+    if "cross" in p and memory is not None:
+        hc = nn.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+        x = x + _run_attn(p["cross"], hc, cfg, positions, memory=memory)
     return x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps), cfg,
                         fkind)
+
+
+# ===========================================================================
+# Encoder (enc-dec family)
+# ===========================================================================
+@torch.no_grad()
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """frames ``[B, S_src, d_model]``: precomputed frontend embeddings (the
+    reference's stub) → the memory ``[B, S_src, d_model]``.  Each encoder
+    layer is bidirectional self-attention with rope, then a dense FFN."""
+    S = frames.shape[1]
+    positions = torch.arange(S, device=frames.device)[None, :]
+    x = frames.to(_dt(cfg))
+    for layer in range(cfg.encoder_layers):
+        p = _block(params["enc_layers"], layer)
+        h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        x = x + _run_attn(p["mixer"], h, cfg, positions, causal=False)
+        x = x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, "dense")
+    return nn.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
 # ===========================================================================
@@ -194,12 +243,14 @@ def _head_table_T(cfg: ModelConfig, params: Params):
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Batch):
-    """Returns (x [B,S,d], positions [1,S]).  The reference also returns the
-    targets and loss mask, which only training reads (ROADMAP A10); there
-    is no modality frontend (ROADMAP A9)."""
-    tokens = batch["tokens"]
-    x = nn.embed(params["embed"], tokens)
-    positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+    """Returns (x [B,P+S,d], positions [1,P+S]): a vlm's frontend embeddings
+    ``batch["frontend_embeds"]`` ``[B, P, d]``, where given, in front of the
+    S token embeddings.  The reference also returns the targets and loss
+    mask, which only training reads (ROADMAP A10)."""
+    x = nn.embed(params["embed"], batch["tokens"])
+    if cfg.frontend is not None and "frontend_embeds" in batch:
+        x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], dim=1)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     return x, positions
 
 
@@ -207,12 +258,14 @@ def prefill_forward(cfg: ModelConfig):
     """Returns fn(params, batch) -> (last_logits [B,V] float32, kv_outputs).
 
     kv_outputs: per attention position, the post-RoPE K/V of the whole
-    prompt stacked over blocks ``[nb, B, S, hkv, hd]``; nothing for the
-    RWKV positions, as in the reference."""
-    _check_supported(cfg)
+    prompt (frontend positions included) stacked over blocks ``[nb, B, S,
+    hkv, hd]``; nothing for the RWKV and Mamba positions, as in the
+    reference.  An encdec config reads ``batch["frames"]`` ``[B, S_enc,
+    d]`` and attends to the whole encoded memory."""
 
     @torch.no_grad()
     def fn(params: Params, batch: Batch):
+        memory = encode(cfg, params, batch["frames"]) if cfg.encoder_layers else None
         x, positions = _embed_inputs(cfg, params, batch)
         B, S, _ = x.shape
         hkv, hd = cfg.num_kv_heads, cfg.head_dim
@@ -231,7 +284,7 @@ def prefill_forward(cfg: ModelConfig):
                     tap = taps.setdefault(f"pos{pos}", {"k": [], "v": []})
                     tap["k"].append(k)
                     tap["v"].append(v)
-                x = _position_forward(cfg, p, mixer, fkind, x, positions)
+                x = _position_forward(cfg, p, mixer, fkind, x, positions, memory)
         kv = {name: {kk: torch.stack(vs) for kk, vs in tap.items()}
               for name, tap in taps.items()}
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -245,25 +298,34 @@ def prefill_forward(cfg: ModelConfig):
 # Serving: cache init + single-token decode step
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device: str | torch.device | None = None) -> dict:
+               device: str | torch.device | None = None, enc_len: int = 0) -> dict:
     """Decode state, stacked over blocks per position, on ``device``
     (default CUDA).  ``len`` is a host integer: the step reads it to index
-    the cache without a device round trip."""
-    _check_supported(cfg)
+    the cache without a device round trip.  An encdec config's positions
+    also hold ``enc_len`` rows of cross-attention K/V (``ck``, ``cv``),
+    zeros until ``prefill_encoder`` writes the memory's."""
     device = resolve_device(device)
     dtype = _dt(cfg)
     nb = cfg.num_blocks
     hkv, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(nb, batch, *shape, dtype=dt, device=device)
+
     cache: dict = {"len": 0}
     for pos, (mixer, _) in enumerate(cfg.block_program()):
         if mixer == "attn":
-            c = {"k": torch.zeros(nb, batch, max_seq, hkv, hd, dtype=dtype, device=device),
-                 "v": torch.zeros(nb, batch, max_seq, hkv, hd, dtype=dtype, device=device)}
+            c = {"k": zeros(max_seq, hkv, hd), "v": zeros(max_seq, hkv, hd)}
+        elif mixer == "mamba":
+            c = {"h": zeros(cfg.mamba_d_inner, cfg.mamba_d_state, dt=torch.float32),
+                 "conv": zeros(cfg.mamba_d_conv - 1, cfg.mamba_d_inner)}
         else:  # rwkv
             H, hs = cfg.rwkv_heads, cfg.rwkv_head_size
-            c = {"S": torch.zeros(nb, batch, H, hs, hs, dtype=torch.float32, device=device),
-                 "x_tm": torch.zeros(nb, batch, cfg.d_model, dtype=dtype, device=device),
-                 "x_cm": torch.zeros(nb, batch, cfg.d_model, dtype=dtype, device=device)}
+            c = {"S": zeros(H, hs, hs, dt=torch.float32),
+                 "x_tm": zeros(cfg.d_model), "x_cm": zeros(cfg.d_model)}
+        if cfg.encoder_layers:
+            c["ck"] = zeros(enc_len, hkv, hd)
+            c["cv"] = zeros(enc_len, hkv, hd)
         cache[f"pos{pos}"] = c
     return cache
 
@@ -282,14 +344,25 @@ def _decode_attn(p: Params, x_t, cfg: ModelConfig, kc, vc, t: int):
     return nn.linear(p["wo"], o.reshape(B, 1, h * hd))
 
 
+def _decode_cross_attn(p: Params, x_t, cfg: ModelConfig, ck, cv, enc_len: int):
+    """x_t ``[B,1,d]`` against the memory's K/V ``[B, enc_len, hkv, hd]``:
+    no rope, every row."""
+    B = x_t.shape[0]
+    h, hd = cfg.num_heads, cfg.head_dim
+    q = nn.linear(p["wq"], x_t).reshape(B, 1, h, hd)
+    o = attn.decode_attention(q, ck, cv, enc_len)
+    return nn.linear(p["wo"], o.reshape(B, 1, h * hd))
+
+
 def serve_step(cfg: ModelConfig):
     """Returns step_fn(params, cache, tokens [B,1]) -> (logits [B,V] float32,
     cache).
 
     Unlike the reference, the step updates ``cache`` in place (the K/V
-    rows at position ``len``, the RWKV states, ``len`` itself) and returns
-    it: the caller passes each cache once."""
-    _check_supported(cfg)
+    rows at position ``len``, the RWKV and Mamba states, ``len`` itself)
+    and returns it: the caller passes each cache once.  An encdec config
+    reads the cross-attention K/V that ``prefill_encoder`` wrote (all
+    ``enc_len`` rows; none with ``enc_len`` 0, which adds nothing)."""
 
     @torch.no_grad()
     def step_fn(params: Params, cache: dict, tokens: torch.Tensor):
@@ -313,15 +386,28 @@ def serve_step(cfg: ModelConfig):
                     for name in ("S", "x_tm", "x_cm"):
                         c[name][b].copy_(cm_cache[name])
                     continue
-                if t >= c["k"].shape[2]:
-                    raise ValueError(f"the cache holds {c['k'].shape[2]} positions; "
-                                     f"position {t} does not fit")
                 h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-                a = _decode_attn(p["mixer"], h, cfg, c["k"][b], c["v"][b], t)
-                if cfg.parallel_block:
-                    x = x + a + _run_ffn(p["ffn"], h, cfg, fkind)
-                    continue
-                x = x + a
+                if mixer == "attn":
+                    if t >= c["k"].shape[2]:
+                        raise ValueError(f"the cache holds {c['k'].shape[2]} positions; "
+                                         f"position {t} does not fit")
+                    a = _decode_attn(p["mixer"], h, cfg, c["k"][b], c["v"][b], t)
+                    if cfg.parallel_block:
+                        x = x + a + _run_ffn(p["ffn"], h, cfg, fkind)
+                        continue
+                    x = x + a
+                else:  # mamba
+                    y, mc = ssm.mamba_step(p["mixer"], h, {"h": c["h"][b],
+                                                           "conv": c["conv"][b]},
+                                           d_state=cfg.mamba_d_state,
+                                           d_conv=cfg.mamba_d_conv)
+                    x = x + y
+                    c["h"][b].copy_(mc["h"])
+                    c["conv"][b].copy_(mc["conv"])
+                if "cross" in p and "ck" in c:
+                    hc = nn.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+                    x = x + _decode_cross_attn(p["cross"], hc, cfg, c["ck"][b],
+                                               c["cv"][b], c["ck"].shape[2])
                 x = x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps),
                                  cfg, fkind)
         cache["len"] = t + 1
@@ -330,3 +416,22 @@ def serve_step(cfg: ModelConfig):
         return logits, cache
 
     return step_fn
+
+
+@torch.no_grad()
+def prefill_encoder(cfg: ModelConfig, params: Params, cache: dict,
+                    frames: torch.Tensor) -> dict:
+    """Run the encoder over ``frames`` ``[B, S_enc, d]`` and put each decoder
+    position's cross-attention K/V of the memory into the cache (``ck``,
+    ``cv`` ``[nb, B, S_enc, hkv, hd]``, replacing the ``enc_len`` rows it
+    was built with).  Returns the cache."""
+    memory = encode(cfg, params, frames)
+    B, Se, _ = memory.shape
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    for pos in range(cfg.block_period):
+        cross = params["layers"][f"pos{pos}"]["cross"]
+        kv = {name: torch.stack([
+            nn.linear(_block(cross[w], b), memory).reshape(B, Se, hkv, hd)
+            for b in range(cfg.num_blocks)]) for name, w in (("ck", "wk"), ("cv", "wv"))}
+        cache[f"pos{pos}"].update(kv)
+    return cache

@@ -1,13 +1,22 @@
-"""RWKV6 "Finch" time-mix with data-dependent decay, and channel-mix
-(the RWKV6 half of ``repro/models/ssm.py``).
+"""Recurrent mixers (``repro/models/ssm.py``): the Mamba-1 selective SSM
+(Jamba's backbone) and RWKV6 "Finch" time-mix with data-dependent decay,
+and its channel-mix.
+
+Mamba is plain PyTorch, as the reference's is plain JAX.  Its prefill
+keeps the reference's chunks of 128 steps, so ``[B, T, d_inner,
+d_state]`` is materialized a chunk at a time and never over the whole
+sequence; the last chunk takes whatever is left, so any S runs (the
+reference's reshape refuses an S such as 257, ROADMAP C10).
 
 The WKV recurrence runs through ``kernels/rwkv6_scan``: the hand-written
 CUDA kernel on the card, its plain version on the CPU.  The kernel keeps
 the state on the chip over the whole sequence, so the reference's chunked
 scan (a memory bound for its backward) has no counterpart: the full
 sequence is one launch, and a decode step is one launch with T=1 and the
-carried state.  Mamba waits for the hybrid family (ROADMAP A9)."""
+carried state."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -16,6 +25,105 @@ from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.models import nn
 
 
+# ===========================================================================
+# Mamba-1 selective SSM
+# ===========================================================================
+def mamba_init(gen, d: int, d_inner: int, d_state: int, d_conv: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    dt_rank = max(d // 16, 1)
+    conv_w = torch.randn(d_conv, d_inner, generator=gen, device=device) / math.sqrt(d_conv)
+    A = torch.arange(1, d_state + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": nn.linear_init(gen, d, 2 * d_inner, dtype=dtype, device=device),
+        "conv_w": conv_w.to(dtype),
+        "conv_b": torch.zeros(d_inner, dtype=dtype, device=device),
+        "x_proj": nn.linear_init(gen, d_inner, dt_rank + 2 * d_state, dtype=dtype,
+                                 device=device),
+        "dt_proj": nn.linear_init(gen, dt_rank, d_inner, bias=True, dtype=dtype,
+                                  device=device),
+        "A_log": torch.log(A).repeat(d_inner, 1),                  # [di, ds]
+        "D": torch.ones(d_inner, dtype=torch.float32, device=device),
+        "out_proj": nn.linear_init(gen, d_inner, d, dtype=dtype, device=device),
+    }
+
+
+def _mamba_ssm_inputs(p: dict, x: torch.Tensor, d_state: int):
+    """delta, B, C in float32 from the convolved ``x`` ``[..., di]``."""
+    dbc = nn.linear(p["x_proj"], x)
+    dt_rank = dbc.shape[-1] - 2 * d_state
+    dt, Bm, Cm = dbc.split([dt_rank, d_state, d_state], dim=-1)
+    delta = F.softplus(nn.linear(p["dt_proj"], dt).float())
+    return delta, Bm.float(), Cm.float()
+
+
+def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
+                  chunk: int = 128) -> torch.Tensor:
+    """Full-sequence prefill path.  u: ``[B, S, d]``, any S ≥ 1.
+
+    The reference's two discretizations (its ``fused`` False materializes
+    ``exp(Δ·A)`` and ``Δ·B·x`` per chunk, True per step; the config's
+    ``mamba_fused_discretization`` picks one) give the same numbers, so
+    the port has one: it materializes them a chunk of ``chunk`` steps at a
+    time.  The state of each step is written over that step's ``Δ·B·x``,
+    and the chunk's outputs are one batched product with C."""
+    B, S, d = u.shape
+    x, z = nn.linear(p["in_proj"], u).chunk(2, dim=-1)          # [B,S,di]
+    di = x.shape[-1]
+
+    # causal depthwise conv1d
+    x_pad = F.pad(x, (0, 0, d_conv - 1, 0))
+    x = sum(x_pad[:, i:i + S] * p["conv_w"][i] for i in range(d_conv))
+    x = F.silu(x + p["conv_b"])
+
+    delta, Bm, Cm = _mamba_ssm_inputs(p, x, d_state)           # [B,S,di], [B,S,ds]
+    A = -torch.exp(p["A_log"])                                  # [di, ds]
+    xf = x.float()
+    h = torch.zeros(B, di, d_state, dtype=torch.float32, device=u.device)
+    ys = []
+    for s0 in range(0, S, chunk):
+        sl = slice(s0, s0 + chunk)
+        d_c = delta[:, sl]
+        dA = torch.exp(d_c[..., None] * A)                      # [B,T,di,ds]
+        hs = (d_c * xf[:, sl])[..., None] * Bm[:, sl, None, :]  # dBx, then h_t
+        for t in range(hs.shape[1]):
+            hs[:, t].addcmul_(dA[:, t], h)
+            h = hs[:, t]
+        ys.append(torch.einsum("btds,bts->btd", hs, Cm[:, sl]))
+        h = h.clone()                                           # let hs go
+        del dA, hs
+    y = torch.cat(ys, dim=1) + xf * p["D"]
+    y = y.to(u.dtype) * F.silu(z)
+    return nn.linear(p["out_proj"], y)
+
+
+def mamba_init_cache(B: int, d_inner: int, d_state: int, d_conv: int,
+                     dtype=torch.float32, device=None) -> dict:
+    return {
+        "h": torch.zeros(B, d_inner, d_state, dtype=torch.float32, device=device),
+        "conv": torch.zeros(B, d_conv - 1, d_inner, dtype=dtype, device=device),
+    }
+
+
+def mamba_step(p: dict, u_t: torch.Tensor, cache: dict, *, d_state: int,
+               d_conv: int) -> tuple[torch.Tensor, dict]:
+    """Single-token decode.  u_t: ``[B, 1, d]``."""
+    x, z = nn.linear(p["in_proj"], u_t[:, 0]).chunk(2, dim=-1)   # [B, di]
+    conv_buf = torch.cat([cache["conv"], x[:, None]], dim=1)    # [B,dc,di]
+    x = F.silu(torch.einsum("bcd,cd->bd", conv_buf, p["conv_w"]) + p["conv_b"])
+    delta, Bm, Cm = _mamba_ssm_inputs(p, x, d_state)
+    A = -torch.exp(p["A_log"])
+    dA = torch.exp(delta[..., None] * A)                        # [B,di,ds]
+    dBx = (delta * x.float())[..., None] * Bm[:, None, :]
+    h = dA * cache["h"] + dBx
+    y = torch.einsum("bds,bs->bd", h, Cm) + x.float() * p["D"]
+    y = y.to(u_t.dtype) * F.silu(z)
+    out = nn.linear(p["out_proj"], y)[:, None]
+    return out, {"h": h, "conv": conv_buf[:, 1:]}
+
+
+# ===========================================================================
+# RWKV6 (Finch): time-mix with data-dependent decay + channel-mix
+# ===========================================================================
 def rwkv6_init(gen, d: int, d_ff: int, head_size: int, dtype=torch.bfloat16,
                device=None) -> dict:
     H = d // head_size

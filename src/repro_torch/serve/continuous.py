@@ -12,8 +12,11 @@ advances at every step, idle slots included, and is never reset.  So a
 request admitted into a recycled slot at step t writes its prompt at rows
 t, t+1, ... with rotary positions from t, its attention reads the rows
 its slot's earlier occupants left at 0..t-1, and an RWKV slot carries on
-from their state: three equal prompts served one after another through
-one slot give three different outputs, in both packages (ROADMAP C9).
+from their state (a Mamba slot its ``h`` and ``conv``): three equal
+prompts served one after another through one slot give three different
+outputs, in both packages (ROADMAP C9).  An encdec config is served
+without a memory, as the reference serves it: the cache holds no
+cross-attention rows, so each cross-attention adds nothing.
 For the same reason the batcher's whole life fits in ``max_seq`` steps
 of an attention model, whatever its requests' lengths.  Past that the
 reference's cache write clamps to the last row and its tokens are

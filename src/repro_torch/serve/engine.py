@@ -4,7 +4,10 @@
 A static batch over ``models/lm.serve_step``: all slots advance in
 lockstep.  Prompt prefill steps the decode step over the prompt token by
 token, as the reference does (exact and cache-consistent for every
-family); ``lm.prefill_forward`` is the full-sequence prefill beside it."""
+family); ``lm.prefill_forward`` is the full-sequence prefill beside it.
+An encdec config's memory comes from ``frames`` given to ``generate``,
+which ``lm.prefill_encoder`` runs before the prompt; the engine is
+otherwise text-only, as the reference's is."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,20 +42,25 @@ def sample_token(logits: torch.Tensor, sp: SamplingParams,
 
 class Engine:
     """Prompt prefill through the decode step, then batched autoregressive
-    decode, on ``device`` (default CUDA; raises without a GPU)."""
+    decode, on ``device`` (default CUDA; raises without a GPU).  ``enc_len``
+    is the number of cross-attention rows a fresh encdec cache holds
+    (zeros until ``generate`` is given frames)."""
 
     def __init__(self, cfg: ModelConfig, params, max_seq: int,
-                 batch_size: int, device: str | torch.device | None = None):
+                 batch_size: int, device: str | torch.device | None = None,
+                 enc_len: int = 0):
         self.cfg = cfg
         self.params = params
         self.max_seq = max_seq
         self.batch_size = batch_size
+        self.enc_len = enc_len
         self.device = resolve_device(device)
         self._step = lm.serve_step(cfg)
 
     def new_cache(self) -> dict:
         return lm.init_cache(self.cfg, batch=self.batch_size,
-                             max_seq=self.max_seq, device=self.device)
+                             max_seq=self.max_seq, device=self.device,
+                             enc_len=self.enc_len)
 
     def prefill(self, cache: dict, prompt_tokens: torch.Tensor):
         """prompt_tokens ``[B, T]``, T ≥ 1: step the decode step over the
@@ -66,12 +74,17 @@ class Engine:
 
     def generate(self, generator: torch.Generator | None,
                  prompt_tokens: torch.Tensor, max_new_tokens: int,
-                 sp: SamplingParams | None = None) -> torch.Tensor:
+                 sp: SamplingParams | None = None,
+                 frames: torch.Tensor | None = None) -> torch.Tensor:
         """Returns ``[B, max_new_tokens]`` int32 sampled continuations.  As in
         the reference, each sampled token is fed through one more step, the
-        last one included."""
+        last one included.  An encdec config encodes ``frames`` ``[B, S_enc,
+        d]`` first, where given."""
         sp = sp if sp is not None else SamplingParams()
         cache = self.new_cache()
+        if self.cfg.encoder_layers and frames is not None:
+            cache = lm.prefill_encoder(self.cfg, self.params, cache,
+                                       frames.to(self.device))
         cache, logits = self.prefill(cache, prompt_tokens.to(self.device))
         toks = []
         for _ in range(max_new_tokens):

@@ -17,7 +17,7 @@ from repro_torch.kernels.knn_topk import ops, row_top2_regret_ref  # noqa: E402
 from repro_torch.kernels.knn_topk.ref import edge_rows        # noqa: E402
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops     # noqa: E402
 from repro_torch.kernels.rwkv6_scan import wkv6_ref           # noqa: E402
-from torch_lm_cases import BATCHER_SCENARIOS, smoke_lm        # noqa: E402
+from torch_lm_cases import BATCHER_SCENARIOS, frontend_inputs, smoke_lm  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -361,6 +361,59 @@ def test_flash_wide_form_reads_strided_views(cuda_device):
     want = flash_attention_ref(q.contiguous(), k.contiguous(), v.contiguous())
     rtol, atol = FLASH_TOLS[torch.bfloat16]
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+# non-causal attention at a key length of its own (cross-attention over an
+# encoder's memory): a memory longer and shorter than q, ragged on both,
+# one key, on the bf16 wgmma route, the float32 route, bf16 above 128 on
+# the CUDA cores, a padded hd, and the wide form in both dtypes
+FLASH_CROSS_CASES = [
+    (2, 64, 256, 4, 4, 64, torch.bfloat16),      # seamless's head layout
+    (2, 200, 37, 4, 2, 128, torch.bfloat16),
+    (1, 37, 300, 4, 2, 96, torch.bfloat16),
+    (2, 128, 1, 4, 2, 16, torch.bfloat16),
+    (2, 130, 129, 4, 1, 32, torch.bfloat16),
+    (2, 64, 256, 4, 4, 64, torch.float32),
+    (2, 200, 37, 4, 2, 128, torch.float32),
+    (1, 37, 300, 4, 2, 96, torch.float32),
+    (2, 128, 1, 4, 2, 16, torch.float32),
+    (2, 100, 70, 4, 2, 192, torch.bfloat16),
+    (2, 64, 200, 4, 2, 40, torch.bfloat16),
+    (2, 100, 70, 4, 2, 320, torch.float32),
+    (1, 37, 130, 2, 1, 512, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,Skv,H,Hkv,hd,dtype", FLASH_CROSS_CASES)
+def test_flash_kernel_takes_a_key_length_of_its_own(cuda_device, B, S, Skv, H, Hkv,
+                                                    hd, dtype):
+    """q ``[B, S, H, hd]`` against k, v ``[B, Skv, Hkv, hd]``, non-causal:
+    one launch, counted at its shape, the plain version's answer."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + Skv + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B, Skv, Hkv, hd, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    before = (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE)
+    fa_ops.LAUNCHES_BY_SHAPE.clear()
+    got = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert (fa_ops.LAUNCHES, fa_ops.LAUNCHES_WIDE) == (before[0] + 1,
+                                                       before[1] + (hd > 256))
+    assert fa_ops.LAUNCHES_BY_SHAPE == {
+        f"{S}x{Skv} full {str(dtype).removeprefix('torch.')}": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=False)
+    rtol, atol = FLASH_TOLS[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_kernel_refuses_causal_attention_at_another_key_length(cuda_device):
+    q = torch.randn(1, 64, 4, 64, device=cuda_device).bfloat16()
+    k = torch.randn(1, 128, 4, 64, device=cuda_device).bfloat16()
+    before = fa_ops.LAUNCHES
+    with pytest.raises(ValueError, match="causal attention needs"):
+        fa_ops.flash_attention(q, k, k, causal=True)
+    assert fa_ops.LAUNCHES == before
 
 
 @pytest.mark.parametrize("hd", [136, 192, 256])
@@ -959,3 +1012,54 @@ def test_batcher_on_the_card_equals_the_cpu(cuda_device, arch, scenario):
     assert got["card"] == got["cpu"]
     # one WKV launch a layer a step on the card (none on the CPU)
     assert wkv.LAUNCHES - before == (cfg.num_layers * steps if cfg.family == "ssm" else 0)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-medium"])
+def test_last_three_families_on_the_card_equal_the_cpu(cuda_device, arch):
+    """The float32 smoke configs of the hybrid, vlm and encdec families:
+    prefill_forward logits within 1e-4 (with the vlm's patch embeddings,
+    and seamless's 48 frames against a 20-token prompt, so its
+    cross-attention runs the kernel at Skv = 48), greedy tokens of
+    Engine.generate (seamless with the same frames) identical."""
+    from repro_torch.models import lm
+    from repro_torch.serve import Engine
+
+    cfg, cpu = smoke_lm(arch, 25)
+    toks = torch.randint(1, cfg.vocab_size, (2, 20), generator=torch.Generator().manual_seed(1))
+    more = {k: torch.from_numpy(v) for k, v in frontend_inputs(cfg, 2, 25, 48).items()}
+    got = {}
+    for where, params in (("cpu", cpu), ("card", _to(cpu, cuda_device))):
+        d = "cpu" if where == "cpu" else cuda_device
+        before = fa_ops.LAUNCHES
+        logits, _ = lm.prefill_forward(cfg)(params, {"tokens": toks.to(d),
+                                                     **{k: v.to(d) for k, v in more.items()}})
+        launches = fa_ops.LAUNCHES - before
+        eng = Engine(cfg, params, max_seq=40, batch_size=2, device=d, enc_len=48)
+        out = eng.generate(None, toks, 12, frames=more.get("frames"))
+        got[where] = logits.cpu(), out.cpu(), launches
+    assert float((got["card"][0] - got["cpu"][0]).abs().max()) <= 1e-4
+    assert torch.equal(got["card"][1], got["cpu"][1])
+    attn_layers = sum(m == "attn" for m, _ in cfg.block_program()) * cfg.num_blocks
+    # seamless: its encoder layers and its decoder's cross-attention too
+    want = attn_layers + (cfg.encoder_layers + cfg.num_layers if cfg.encoder_layers else 0)
+    assert (got["cpu"][2], got["card"][2]) == (0, want)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "seamless-m4t-medium"])
+@pytest.mark.parametrize("scenario", sorted(BATCHER_SCENARIOS))
+def test_new_families_batcher_on_the_card_equals_the_cpu(cuda_device, arch, scenario):
+    """jamba's Mamba slots (their inherited h and conv) and seamless without
+    a memory, through the continuous batcher: outputs and finish order."""
+    from repro_torch.serve import ContinuousBatcher, Request
+
+    cfg, cpu = smoke_lm(arch, 24)
+    n_slots, max_seq, reqs = BATCHER_SCENARIOS[scenario]
+    got = {}
+    for where, params in (("cpu", cpu), ("card", _to(cpu, cuda_device))):
+        cb = ContinuousBatcher(cfg, params, max_seq=max_seq, n_slots=n_slots,
+                               eos_id=-1, device="cpu" if where == "cpu" else cuda_device)
+        for rid, (prompt, new) in enumerate(reqs):
+            cb.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=new))
+        got[where] = [(r.rid, r.out) for r in cb.run(None)]
+    assert got["card"] == got["cpu"]

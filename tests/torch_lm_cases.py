@@ -2,6 +2,7 @@
 ``chip_smoke.py``.  Imports nothing of JAX."""
 import dataclasses
 
+import numpy as np
 import torch
 
 # the reference tests' two scenarios (tests/test_serve.py) and a recycled
@@ -26,3 +27,20 @@ def smoke_lm(arch: str, seed: int):
         u.copy_(torch.randn(u.shape, generator=torch.Generator().manual_seed(seed + 1))
                 * 0.5)
     return cfg, cpu
+
+
+def frontend_inputs(cfg, batch: int, seed: int, enc_len: int = 0) -> dict:
+    """A config's inputs beside its tokens, as float32 numpy arrays drawn
+    from one seeded generator at the token embeddings' scale (0.02): a
+    vlm's ``frontend_embeds`` ``[batch, frontend_positions, d]`` (the
+    patch embeddings its frontend stub stands for), an encdec's ``frames``
+    ``[batch, enc_len, d]`` (the encoder's input); nothing for the other
+    families."""
+    rng = np.random.default_rng(seed)
+    if cfg.encoder_layers:
+        return {"frames": (rng.normal(size=(batch, enc_len, cfg.d_model)) * 0.02
+                           ).astype(np.float32)}
+    if cfg.frontend == "patches":
+        shape = (batch, cfg.frontend_positions, cfg.d_model)
+        return {"frontend_embeds": (rng.normal(size=shape) * 0.02).astype(np.float32)}
+    return {}
