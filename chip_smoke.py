@@ -95,7 +95,15 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   with 12 of its 16 experts (its float32 control at 4): prefill_forward,
   Engine.generate, the decode step beside its byte bound, the Mamba
   layers' share of jamba's prefill, and the two prefills held to each
-  other (seamless's at Skv = 4096).
+  other (seamless's at Skv = 4096);
+* the paper's evaluation (``repro_torch.figures``): its pieces at a tiny
+  budget on cq_small card against CPU (the model-based fit and search,
+  the DQN and actor-critic fleets and their deploys, Fig 12's shifted run
+  and refit); the reward curves at the committed artifact's budget held
+  to its seed band; ``compare_all`` on cq_large at ``Budget.quick`` (Fig
+  6's large row: the four latencies, both improvements, the wall seconds
+  of each part) and Fig 12's run, every DDPG select and update through
+  the K-NN kernel (1,150 and 1,399 launches).
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -197,6 +205,14 @@ SYNC_AGENTS = (
     ("structural", "graph_policy", "dag_shapes"),
     *[("placement", a, "mixed") for a in PLACEMENT_AGENTS])
 SEARCH = dict(app="cq_large", fleet=8, rungs=(16, 16, 32), scenario="mixed")
+# the paper's evaluation (phase 26): the CPU tests' tiny budget card against
+# CPU on cq_small; the committed reward artifact's budget (Budget.quick at
+# 60 online epochs, seed 0) held to its band; Fig 6's cq_large row and
+# Fig 12 at Budget.quick
+FIG_TINY = dict(offline_samples=60, offline_updates=10, online_epochs=6,
+                updates_per_epoch=2, mb_samples=60, k_nn=4, n_seeds=2)
+FIG_APP = "cq_large"
+REWARD_ARTIFACT = os.path.join(ROOT, "artifacts", "paper", "reward_cq_small.json")
 
 
 def log(msg: str) -> None:
@@ -447,9 +463,11 @@ def check_beam(dev) -> None:
     log("phase 4 K-NN beam: card == CPU, bit for bit, on 4 shapes")
 
 
-def numpy_draws(rng, F: int, T: int, env, batch: int) -> list:
+def numpy_draws(rng, F: int, T: int, env, batch: int, updates: int = U,
+                size0: int = 0) -> list:
     """``T`` epochs of draws for ``F`` lanes from a numpy generator, for a
-    run on the card and on the CPU alike."""
+    run on the card and on the CPU alike: ``updates`` replay draws an
+    epoch, epoch t's below ``size0 + t + 1`` (the rows stored by then)."""
     from repro_torch.core import EpochDraws
 
     # a DSDPS env measures 5 readings and walks S spout rates; the
@@ -463,7 +481,7 @@ def numpy_draws(rng, F: int, T: int, env, batch: int) -> list:
         explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
         meas_z=torch.as_tensor(rng.normal(size=meas).astype(np.float32)),
         rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
-        replay_idx=torch.as_tensor(rng.integers(0, t + 1, (F, U, batch))),
+        replay_idx=torch.as_tensor(rng.integers(0, size0 + t + 1, (F, updates, batch))),
         explore_move=torch.as_tensor(rng.integers(0, N * M, F)),
     ) for t in range(T)]
     # the Gumbel draws (Stream AC(λ), graph_policy) after all the others
@@ -3081,6 +3099,172 @@ def time_new_flash(dev) -> dict:
                                jb.num_kv_heads, jb.head_dim))
 
 
+# --------------------------------------------------------------------------
+# phase 26: the paper's evaluation (repro_torch.figures)
+# --------------------------------------------------------------------------
+def check_figures_vs_cpu(dev) -> None:
+    """Phase 26a: the figures' pieces at the CPU tests' tiny budget on
+    cq_small, card against CPU from the same states (made on the CPU) and
+    numpy draws: the model-based fit and search, the DQN and actor-critic
+    fleets with their deploys, Fig 12's shifted run and refit."""
+    from repro_torch.core import OfflineDraws, make_agent
+    from repro_torch.core.convert import (ddpg_state_from_numpy, ddpg_state_to_numpy,
+                                          dqn_state_from_numpy, dqn_state_to_numpy)
+    from repro_torch.figures import common, fig12
+
+    budget = common.Budget(**FIG_TINY)
+    F, T, n = budget.n_seeds, budget.online_epochs, budget.offline_samples
+    cpu_env = common.make_env("cq_small", "cpu")
+    N, M, S = cpu_env.N, cpu_env.M, cpu_env.workload.num_spouts
+    gen = torch.Generator().manual_seed(26)
+    dqn0 = dqn_state_to_numpy(make_agent("dqn", cpu_env).init_fleet(gen, F, "cpu"))
+    ddpg = make_agent("ddpg", cpu_env, k_nn=budget.k_nn)
+    ddpg0 = ddpg_state_to_numpy(ddpg.init_fleet(gen, F, "cpu"))
+    B, upd = ddpg.cfg.batch, budget.updates_per_epoch      # DQN's batch is 32 too
+    rng = np.random.default_rng(26)
+    fit = (torch.as_tensor(rng.integers(0, M, (budget.mb_samples, N))),
+           torch.as_tensor(rng.normal(size=(budget.mb_samples, 5)).astype(np.float32)))
+    dqn_draws = numpy_draws(rng, F, T, cpu_env, B, upd)
+    offline = OfflineDraws(
+        torch.as_tensor(rng.integers(0, M, (F, n, N))),
+        torch.as_tensor(rng.normal(size=(F, n, 5)).astype(np.float32)),
+        torch.as_tensor(rng.normal(size=(F, n, S)).astype(np.float32)),
+        torch.as_tensor(rng.integers(0, n, (F, budget.offline_updates, B))))
+    ac_draws = numpy_draws(rng, F, T, cpu_env, B, upd, size0=n)
+    T_shift = max(T // 3, 40)
+    shift_draws = numpy_draws(rng, F, T_shift, cpu_env, B, upd, size0=n + T)
+    out = {}
+    for where in ("cpu", dev):
+        env = common.make_env("cq_small", where)
+        on = lambda ds: [d.to(where) for d in ds]           # noqa: E731
+        A, Z = (x.to(where) for x in fit)
+        mb = common.run_model_based(env, budget, 0, assignments=A, meas_z=Z)
+        dqn = common.run_dqn(env, budget, 0, states=dqn_state_from_numpy(dqn0, where),
+                             draws=on(dqn_draws))
+        ac = common.run_actor_critic(
+            env, budget, 0, states=ddpg_state_from_numpy(ddpg0, where),
+            draws=on(ac_draws), offline_draws=OfflineDraws(*(x.to(where) for x in offline)))
+        states, cfg = ac[2]
+        shifted = fig12.run_shifted(env, cfg, states, budget, 0, draws=on(shift_draws))
+        refit = fig12.refit_model_based(env, budget, 0, assignments=A, meas_z=Z)
+        out[str(where)] = dict(mb=mb, dqn=dqn, ac=ac, shifted=shifted, refit=refit)
+    cpu, gpu = out["cpu"], out[str(dev)]
+    np.testing.assert_array_equal(gpu["mb"][1].cpu(), cpu["mb"][1])
+    np.testing.assert_allclose(gpu["mb"][0], cpu["mb"][0], rtol=1e-4)
+    np.testing.assert_allclose(gpu["refit"], cpu["refit"], rtol=1e-4)
+    moved, rel = {}, [abs(gpu["mb"][0] / cpu["mb"][0] - 1),
+                      abs(gpu["refit"] / cpu["refit"] - 1)]
+    for name in ("dqn", "ac", "shifted"):
+        (lats, hist), (lats_cpu, hist_cpu) = gpu[name][:2], cpu[name][:2]
+        np.testing.assert_array_equal(hist.moved, hist_cpu.moved)
+        np.testing.assert_array_equal(hist.final_assignment, hist_cpu.final_assignment)
+        np.testing.assert_allclose(hist.latencies, hist_cpu.latencies, rtol=1e-4)
+        np.testing.assert_allclose(lats, lats_cpu, rtol=1e-4)
+        moved[name] = int(hist_cpu.moved.sum())
+        rel += [np.abs(hist.latencies / hist_cpu.latencies - 1).max(),
+                np.abs(np.asarray(lats) / np.asarray(lats_cpu) - 1).max()]
+    log(f"phase 26a figures cq_small at the tiny budget (F={F}, T={T}, "
+        f"{n} offline samples, Fig 12 shift {T_shift} epochs): card == CPU "
+        f"(moves {moved} exact, final assignments exact, model-based schedule "
+        f"exact; latencies, deployed and model-based latencies max rel diff "
+        f"{max(rel):.3g}, tol 1e-4)")
+
+
+def band_gap(got: dict, want: dict) -> dict:
+    """For actor-critic and DQN, the largest |mean − mean_ref| − (std +
+    std_ref) over the last fifth of epochs; the bands overlap where it is
+    at most 0."""
+    last = max(want["epochs"] // 5, 1)
+    gaps = {}
+    for name in ("ac", "dqn"):
+        mean, std, mean_ref, std_ref = (
+            np.asarray(d[f"{name}_smoothed_{k}"][-last:])
+            for d in (got, want) for k in ("mean", "std"))
+        gaps[name] = float((np.abs(mean - mean_ref) - (std + std_ref)).max())
+    return gaps
+
+
+def run_figures(dev, card: str) -> dict:
+    """Phase 26b-d: the reward curves at the committed artifact's budget
+    held to its band; ``compare_all`` on cq_large at Budget.quick (Fig 6's
+    large row); Fig 12's run at Budget.quick.  Every DDPG select and update
+    through the K-NN kernel: offline updates + epochs × (1 + U) a run."""
+    import dataclasses
+
+    from repro_torch.figures import common, fig12, reward
+    from repro_torch.kernels.knn_topk import ops
+
+    want = json.loads(open(REWARD_ARTIFACT).read())
+    budget = dataclasses.replace(common.Budget.quick(), online_epochs=want["epochs"])
+    t0 = time.perf_counter()
+    got = reward.run(want["app"], budget, 0, device=dev)
+    gaps = band_gap(got, want)
+    if list(got) != list(want) or not all(g <= 0 for g in gaps.values()):
+        raise AssertionError(f"reward bands do not overlap the artifact's: {gaps}")
+    log(f"phase 26b reward {want['app']} at Budget.quick, {want['epochs']} epochs, "
+        f"{budget.n_seeds} seeds ({card}): {time.perf_counter() - t0:.3f} s; final "
+        f"smoothed reward AC {got['ac_final_avg']:.4f} (artifact "
+        f"{want['ac_final_avg']:.4f}), DQN {got['dqn_final_avg']:.4f} "
+        f"({want['dqn_final_avg']:.4f}); band gap over the last fifth "
+        f"(<= 0 overlaps) AC {gaps['ac']:.4f}, DQN {gaps['dqn']:.4f}")
+
+    quick = common.Budget.quick()
+    per_run = quick.offline_updates + quick.online_epochs * (1 + quick.updates_per_epoch)
+    common.SECONDS.clear()
+    ops.LAUNCHES = 0
+    out = common.compare_all(FIG_APP, quick, 0, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    launches = ops.LAUNCHES
+    parts = dict(common.SECONDS)
+    for name in ("_dqn_hist", "_ac_hist"):
+        hist = out[name]
+        if (hist.rewards.shape != (quick.n_seeds, quick.online_epochs)
+                or not np.isfinite(hist.rewards).all()
+                or not np.array_equal(hist.final_assignment.sum(-1),
+                                      np.ones(hist.final_assignment.shape[:2]))):
+            raise AssertionError(f"compare_all {name}: bad traces or assignments")
+    lats = [out[k] for k in ("default", "model_based", "dqn", "actor_critic")]
+    if not all(np.isfinite(x) and x > 0 for x in lats + out["dqn_seeds"]
+               + out["actor_critic_seeds"]):
+        raise AssertionError(f"compare_all: bad latencies {lats}")
+    if launches != per_run:
+        raise AssertionError(f"row_top2_regret launched {launches} times in "
+                             f"compare_all, expected {per_run}")
+    log(f"phase 26c compare_all {FIG_APP} at Budget.quick ({quick.n_seeds} seeds, "
+        f"{card}): default {out['default']:.4f} ms, model-based "
+        f"{out['model_based']:.4f} ms, DQN {out['dqn']:.4f} ± {out['dqn_std']:.4f} "
+        f"ms, actor-critic {out['actor_critic']:.4f} ± {out['actor_critic_std']:.4f} "
+        f"ms; improvement {out['imp_vs_default']:.2%} vs default, "
+        f"{out['imp_vs_model_based']:.2%} vs model-based; {launches} K-NN launches "
+        f"(= {quick.offline_updates} offline updates + {quick.online_epochs} epochs "
+        f"x (1 select + {quick.updates_per_epoch} updates)); {out['seconds']} s")
+    log("  wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()))
+
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    shift = fig12.run(FIG_APP, quick, 0, device=dev)
+    torch.cuda.synchronize()
+    shift_launches = ops.LAUNCHES
+    want_shift = per_run + max(quick.online_epochs // 3, 40) * (1 + quick.updates_per_epoch)
+    if shift_launches != want_shift:
+        raise AssertionError(f"row_top2_regret launched {shift_launches} times in "
+                             f"fig12.run, expected {want_shift}")
+    if not all(np.isfinite(shift[k]) and shift[k] > 0 for k in
+               ("ac_before", "mb_before", "ac_after_shift", "mb_after_shift")):
+        raise AssertionError(f"fig12: bad latencies {shift}")
+    log(f"phase 26d fig12 {FIG_APP} at Budget.quick ({card}): AC "
+        f"{shift['ac_before']:.4f} ± {shift['ac_before_std']:.4f} -> "
+        f"{shift['ac_after_shift']:.4f} ± {shift['ac_after_shift_std']:.4f} ms, "
+        f"model-based {shift['mb_before']:.4f} -> {shift['mb_after_shift']:.4f} ms "
+        f"after +{shift['shift_factor'] - 1:.0%}; {shift_launches} K-NN launches "
+        f"(= {per_run} + {max(quick.online_epochs // 3, 40)} shifted epochs x "
+        f"{1 + quick.updates_per_epoch}); {time.perf_counter() - t0:.3f} s "
+        f"(shifted run {common.SECONDS['shifted']:.3f}, refit "
+        f"{common.SECONDS['mb_refit']:.3f})")
+    return dict(compare_all=out, fig12=shift, launches=launches,
+                shift_launches=shift_launches)
+
+
 def log_instantiations(source: str, text: str) -> None:
     """Phase 2: registers and spill stores of every kernel instantiation in
     ``source``'s ``-Xptxas -v`` log, by demangled name."""
@@ -3212,6 +3396,10 @@ def main() -> int:
     new_flash = time_new_flash(dev)
     new = {arch: run_lm_path(dev, arch, over=over) for arch, over in LM_NEW}
     log(f"phase 25 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_figures_vs_cpu(dev)
+    run_figures(dev, card)
+    log(f"phase 26 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,

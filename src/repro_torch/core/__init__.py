@@ -4,7 +4,8 @@ from repro_torch.core.api import (Agent, EpochDraws, agent_names, make_agent,
                                   make_epoch_step, register_agent)
 from repro_torch.core.ddpg import (DDPGConfig, DDPGState, OfflineDraws,
                                    init_state as ddpg_init)
-from repro_torch.core.agent import History, run_online_fleet
+from repro_torch.core.agent import (History, greedy_assignment_ddpg,
+                                    run_online_fleet)
 from repro_torch.core.knn_projection import (distance_to, knn_actions,
                                              knn_actions_exact,
                                              knn_assignments_exact,
@@ -15,7 +16,7 @@ from repro_torch.core.placement import (ExpertPlacementEnv, PlacementParams,
 __all__ = [
     "Agent", "EpochDraws", "agent_names", "make_agent", "make_epoch_step",
     "register_agent", "DDPGConfig", "DDPGState", "OfflineDraws", "ddpg_init",
-    "History", "run_online_fleet", "distance_to", "knn_actions",
-    "knn_actions_exact", "knn_assignments_exact", "nearest_assignment",
+    "History", "greedy_assignment_ddpg", "run_online_fleet", "distance_to",
+    "knn_actions", "knn_actions_exact", "knn_assignments_exact", "nearest_assignment",
     "ExpertPlacementEnv", "PlacementParams", "jamba_placement_env",
 ]

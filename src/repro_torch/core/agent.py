@@ -6,7 +6,8 @@ leading ``[F]`` axis, one epoch at a time (the reference's vmapped scan),
 each lane under one shared scenario or its own, cut into chunks on a
 checkpoint's cadence, the carries swept for non-finite values after each
 chunk inside a ``diagnostics.guards`` region; ``lifecycle=`` hands the run
-to the elastic lane lifecycle (``fleet/lifecycle.py``).  Mesh sharding
+to the elastic lane lifecycle (``fleet/lifecycle.py``); and the deploy-time
+action of a trained DDPG fleet, ``greedy_assignment_ddpg``.  Mesh sharding
 waits for a later slice."""
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch
 from scipy.signal import butter, filtfilt
 
 from repro_torch.core.api import Agent, EpochDraws, make_epoch_step
+from repro_torch.core.ddpg import DDPGConfig, DDPGState, select_action
 from repro_torch.diagnostics import lifted, maybe_check_finite, steady
 from repro_torch.dsdps.simulator import params_lanes
 
@@ -198,3 +200,12 @@ def run_online_fleet(
         X = env_state.X.cpu().numpy()
     return states, History(rewards=rewards, latencies=lats, moved=moved,
                            final_assignment=X)
+
+
+def greedy_assignment_ddpg(env, cfg: DDPGConfig, state: DDPGState,
+                           env_state) -> torch.Tensor:
+    """Deploy-time action of a trained fleet (no exploration): each lane's
+    critic-best of its ``cfg.k_nn`` exact nearest assignments, ``[F, N,
+    M]``.  The reference's takes a key it never draws from."""
+    return select_action(state, cfg, env.state_vector(env_state),
+                         explore=False, exact_host_knn=True)

@@ -8,7 +8,8 @@ import numpy as np
 import pytest
 
 from test_torch_parity import (assert_exact, assert_f32, assert_tree_f32,
-                               env_pair, jax_epoch_draws, jax_tree_numpy,
+                               env_pair, jax_epoch_draws, jax_fit_draws,
+                               jax_tree_numpy,
                                numpy_epoch_draws, to_numpy, to_torch, torch)
 
 from repro.core import dqn as jdqn
@@ -222,17 +223,6 @@ def test_dqn_fleet_matches_reference_run_online_fleet(envs):
 # --------------------------------------------------------------------------
 # model-based [25]
 # --------------------------------------------------------------------------
-def _fit_draws(key, n, N, M):
-    """fit_theta(key, ...)'s draws: split(key, n), each split into the
-    assignment key and the measurement key."""
-    A, Z = [], []
-    for k in jax.random.split(key, n):
-        k_a, k_n = jax.random.split(k)
-        A.append(np.asarray(jax.random.randint(k_a, (N,), 0, M)))
-        Z.append(np.asarray(jax.random.normal(k_n, (5,))))
-    return to_torch(np.stack(A)), to_torch(np.stack(Z))
-
-
 @pytest.fixture(scope="module")
 def mb(envs):
     """A reference fit on a one_slow_machine fleet's lane 1 (60 samples),
@@ -281,7 +271,7 @@ def test_fit_theta_from_the_same_samples(envs, mb):
     is ill-conditioned (5M + 8 = 58 unknowns from 60 samples), and the
     two float32 solves differ by ~0.3% of |theta| there."""
     jenv, tenv = envs
-    A, Z = _fit_draws(mb["key"], 60, jenv.N, jenv.M)
+    A, Z = jax_fit_draws(mb["key"], 60, jenv.N, jenv.M)
     ttheta = tmb.fit_theta(tenv, 60, 1e-3, mb["tp1"], assignments=A, meas_z=Z)
     assert ttheta.shape == (5 * jenv.M + 8,)
     X = np.eye(jenv.M, dtype=np.float32)[to_numpy(A)]

@@ -164,7 +164,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files = sorted(pkg.rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    # the LM serving slice and the baselines are among the files checked
+    # the LM serving slice, the baselines and the paper figures are among
+    # the files checked
     names = {p.relative_to(pkg).as_posix() for p in files[:-1]}
     assert {"models/config.py", "models/nn.py", "models/attention.py",
             "models/ffn.py", "models/ssm.py", "models/lm.py",
@@ -173,8 +174,11 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "kernels/flash_attention/ops.py", "kernels/flash_attention/ref.py",
             "kernels/rwkv6_scan/ops.py", "kernels/rwkv6_scan/ref.py",
             "core/dqn.py", "core/round_robin.py", "core/model_based.py",
-            "dsdps/scenarios.py"} <= names
+            "dsdps/scenarios.py", "figures/common.py", "figures/reward.py",
+            "figures/fig6.py", "figures/fig8_10.py", "figures/fig12.py",
+            "figures/storm_control.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "ml_dtypes", "repro"), (path, mod)
+            assert top not in ("jax", "jaxlib", "ml_dtypes", "repro",
+                               "benchmarks", "examples"), (path, mod)

@@ -4,7 +4,8 @@ The port (``repro_torch``) and the JAX reference (``repro``) run in one
 CPU process on the same numpy inputs.  Torch cannot replay the reference's
 threefry draws, so :func:`jax_epoch_draws` / :func:`jax_offline_draws`
 replay the reference's key discipline with ``jax.random`` and hand the
-resulting numbers to the port as ``EpochDraws`` / ``OfflineDraws``:
+resulting numbers to the port as ``EpochDraws`` / ``OfflineDraws`` (and
+:func:`jax_fit_draws` the model-based fit's):
 
   * ``run_online_fleet``: each lane key splits into (reset key, loop key)
     (core/agent.py prepare_fleet); every epoch
@@ -25,7 +26,9 @@ resulting numbers to the port as ``EpochDraws`` / ``OfflineDraws``:
     (core/replay.py);
   * ``offline_pretrain``: ``k_env, k_upd = split(key)``, one
     ``split(k_env, n)`` key per sample, split into (assignment, step), and
-    ``split(k_upd, n_updates)`` replay keys (core/ddpg.py).
+    ``split(k_upd, n_updates)`` replay keys (core/ddpg.py);
+  * the model-based ``fit_theta``: one ``split(key, n)`` key per sample,
+    split into (assignment, measurement) (core/model_based.py).
 
 Other test files import these helpers as ``from test_torch_parity import
 ...``."""
@@ -195,6 +198,18 @@ def jax_offline_draws(keys, n: int, n_updates: int, B: int, N: int, M: int,
         lanes.append([np.stack([np.asarray(x) for x in xs])
                       for xs in (assign, meas, rate, idx)])
     return OfflineDraws(*(to_torch(np.stack(c)) for c in zip(*lanes)))
+
+
+def jax_fit_draws(key, n, N, M):
+    """The model-based ``fit_theta(key, ...)``'s draws: ``split(key, n)``,
+    each split into the assignment key and the measurement key.  Returns
+    ``(assignments [n, N], meas_z [n, 5])``."""
+    A, Z = [], []
+    for k in jax.random.split(key, n):
+        k_a, k_n = jax.random.split(k)
+        A.append(np.asarray(jax.random.randint(k_a, (N,), 0, M)))
+        Z.append(np.asarray(jax.random.normal(k_n, (N_MEAS,))))
+    return to_torch(np.stack(A)), to_torch(np.stack(Z))
 
 
 def numpy_epoch_draws(rng, F, T, U, B, N, M, S):
