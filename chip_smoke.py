@@ -103,7 +103,13 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   to its seed band; ``compare_all`` on cq_large at ``Budget.quick`` (Fig
   6's large row: the four latencies, both improvements, the wall seconds
   of each part) and Fig 12's run, every DDPG select and update through
-  the K-NN kernel (1,150 and 1,399 launches).
+  the K-NN kernel (1,150 and 1,399 launches);
+* the single-run entry and the examples' twins
+  (``repro_torch.examples``): ``run_online_agent`` card against CPU, then
+  the quickstart, expert-placement (with its straggler mitigation),
+  scenario-fleet and serve-LM twins at their reference scripts' budgets,
+  every DDPG select and update through the K-NN kernel, counted at the
+  single run's shapes.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -213,6 +219,13 @@ FIG_TINY = dict(offline_samples=60, offline_updates=10, online_epochs=6,
                 updates_per_epoch=2, mb_samples=60, k_nn=4, n_seeds=2)
 FIG_APP = "cq_large"
 REWARD_ARTIFACT = os.path.join(ROOT, "artifacts", "paper", "reward_cq_small.json")
+# the single-run entry and the examples' twins (phase 27), each twin at its
+# reference script's budget (its run()'s defaults): the K-NN rows of a single
+# run's select [N, M] and update [32·N, M] on cq_small (20 executors on 10
+# machines) and on the placement env (16 experts on 16 devices), and of the
+# scenario-fleet example's 8 lanes
+SINGLE_SHAPES = ((20, 10), (640, 10), (16, 16), (512, 16), (160, 10), (5120, 10))
+SINGLE_CHECK = dict(T=5, seed=27)
 
 
 def log(msg: str) -> None:
@@ -351,7 +364,7 @@ def check_kernel(dev) -> dict:
     # [F·100, 10] and update [F·32·100, 10]
     compacted = [(f * rows, 10) for f in range(1, 8) for rows in (100, 3200)]
     shapes = [(800, 10), (25600, 10), (7, 3), (1, 2), (513, 16),
-              (300, 33)] + compacted + placement_shapes
+              (300, 33)] + compacted + placement_shapes + list(SINGLE_SHAPES)
     cases = [(str(s), torch.rand(s, generator=gen, device=dev)) for s in shapes]
     # quantized rows: ties everywhere, incl. a best value held by several
     # columns and rows that are constant
@@ -377,7 +390,7 @@ def check_kernel(dev) -> dict:
             k = min(n, len(names))
             p[-k:] = rows[:k].to(dev)
             cases.append((f"[{n},{m}] at offset {off}", p))
-    max_err = placement_err = 0.0
+    max_err = placement_err = single_err = 0.0
     for what, proto in cases:
         b, s, r = row_top2_regret(proto)
         rb, rs, rr = row_top2_regret_ref(proto)
@@ -390,10 +403,13 @@ def check_kernel(dev) -> dict:
         max_err = max(max_err, err)
         if what in map(str, placement_shapes):
             placement_err = max(placement_err, err)
+        if what in map(str, SINGLE_SHAPES):
+            single_err = max(single_err, err)
     log(f"phase 3 kernel vs plain version: {len(cases)} cases agree, edge rows "
         f"and offsets 1-3 among them (indices exact, NaN and inf at the same "
         f"places, max |regret err| {max_err}; at the placement shapes "
-        f"{placement_shapes} {placement_err}; the compacted cq_large shapes "
+        f"{placement_shapes} {placement_err}; at the single-run shapes "
+        f"{list(SINGLE_SHAPES)} {single_err}; the compacted cq_large shapes "
         f"{compacted} among them)")
 
     one = torch.zeros(1, device=dev)
@@ -401,9 +417,10 @@ def check_kernel(dev) -> dict:
     log(f"  launch floor: a 1-element fill_ in the same CUDA graph harness "
         f"{floor:.6f} ms per call; eager {eager_ms(lambda: one.fill_(1.0)):.6f}")
     timings = {}
-    # the cq_large update and select shapes, and the placement select shape
-    # (8 lanes x 16 experts, m = 16 devices)
-    for rows, width in ((25600, 10), (800, 10), (128, 16)):
+    # the cq_large update and select shapes, the placement select shape
+    # (8 lanes x 16 experts, m = 16 devices), and a single run's update on
+    # cq_small (32 samples x 20 executors, phase 27)
+    for rows, width in ((25600, 10), (800, 10), (128, 16), (640, 10)):
         proto = torch.rand(rows, width, generator=gen, device=dev)
         m = proto.shape[1]
 
@@ -443,7 +460,7 @@ def check_kernel(dev) -> dict:
     log("  eager host us per call at [25600,10] (perf_counter, 3000 calls a "
         "step): " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
     return dict(max_abs_err=max_err, placement_max_abs_err=placement_err,
-                timings=timings, host_us=us)
+                single_max_abs_err=single_err, timings=timings, host_us=us)
 
 
 def check_beam(dev) -> None:
@@ -472,7 +489,7 @@ def numpy_draws(rng, F: int, T: int, env, batch: int, updates: int = U,
 
     # a DSDPS env measures 5 readings and walks S spout rates; the
     # placement env one step time and E expert loads
-    dsdps = hasattr(env, "workload")
+    dsdps = env.family == "scheduling"
     N, M = env.N, env.M
     S = env.workload.num_spouts if dsdps else env.N
     meas = (F, 5) if dsdps else (F,)
@@ -809,25 +826,29 @@ def streaming_io(name: str):
                              convert.graph_policy_state_from_numpy)}[name]
 
 
-def profile_fleet(env, agent, states, params, epochs: int = 5) -> dict:
-    """Wall ms per online epoch without and with ``torch.profiler`` (after
-    two warm epochs), and from the trace the device's busy ms, kernels per
-    epoch and the six kernels that take the most device time (phases 7,
-    18, 19)."""
+def profile_fleet(env, agent, states, params, epochs: int = 5,
+                  updates: int = 1) -> dict:
+    """Wall ms per online epoch (``updates`` updates each) without and with
+    ``torch.profiler`` (after two warm epochs), and from the trace the
+    device's busy ms, kernels per epoch and the six kernels that take the
+    most device time (phases 7, 18, 19, 27)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import run_online_fleet
 
     gen = torch.Generator(device=env.device).manual_seed(3)
-    run_online_fleet(gen, env, agent, states, 2, env_params=params)      # warm
+    run_online_fleet(gen, env, agent, states, 2, updates_per_epoch=updates,
+                     env_params=params)      # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run_online_fleet(gen, env, agent, states, epochs, env_params=params)
+    run_online_fleet(gen, env, agent, states, epochs, updates_per_epoch=updates,
+                     env_params=params)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / epochs
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_online_fleet(gen, env, agent, states, epochs, env_params=params)
+        run_online_fleet(gen, env, agent, states, epochs, updates_per_epoch=updates,
+                         env_params=params)
         torch.cuda.synchronize()
         wall_prof = (time.perf_counter() - t0) / epochs
     kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
@@ -872,12 +893,11 @@ def check_fleet_result(what: str, res: dict, F: int, T: int) -> None:
     for f in range(F):
         lane_p = lane_params(params, env.default_params(), f)
         rows = hist.final_assignment[f].sum(-1)
-        want = lane_p.node_mask.cpu().numpy() if hasattr(lane_p, "node_mask") \
-            else np.ones(env.N)
+        want = lane_p.node_mask.cpu().numpy() if env.structural else np.ones(env.N)
         if not np.array_equal(rows, want):
             raise AssertionError(f"{what}: lane {f}'s final assignment is not "
                                  "one-hot on its real executors")
-        own = float(env.evaluate(rr, nominal_load(lane_p), params=lane_p))
+        own = float(env.evaluate(rr, nominal_load(env, lane_p), params=lane_p))
         if not abs(res["rrs"][f] / own - 1) <= 1e-6:
             raise AssertionError(f"{what}: lane {f}'s round-robin score "
                                  f"{res['rrs'][f]} is not its own {own}")
@@ -3265,6 +3285,169 @@ def run_figures(dev, card: str) -> dict:
                 shift_launches=shift_launches)
 
 
+# --------------------------------------------------------------------------
+# phase 27: the single-run entry and the examples' twins (repro_torch.examples)
+# --------------------------------------------------------------------------
+def check_single_run_vs_cpu(dev) -> None:
+    """Phase 27a: ``run_online_agent`` on cq_small, DDPG at T 5, card against
+    CPU from one state (made on the CPU) and the same numpy draws."""
+    from repro_torch.core import make_agent, run_online_agent
+    from repro_torch.core.convert import ddpg_state_from_numpy, ddpg_state_to_numpy
+    from repro_torch.dsdps import SchedulingEnv, apps
+    from repro_torch.dsdps.apps import default_workload
+
+    T, seed = SINGLE_CHECK["T"], SINGLE_CHECK["seed"]
+    topo = apps.continuous_queries("small")
+    histories, init = {}, None
+    for where in ("cpu", dev):
+        env = SchedulingEnv(topo, default_workload(topo), device=where)
+        agent = make_agent("ddpg", env, k_nn=8)
+        if init is None:
+            init = ddpg_state_to_numpy(
+                agent.init_fleet(torch.Generator().manual_seed(seed), 1, "cpu"))
+        draws = [d.to(where) for d in numpy_draws(
+            np.random.default_rng(seed), 1, T, env, agent.cfg.batch, updates=2)]
+        _, histories[str(where)] = run_online_agent(
+            0, env, agent, ddpg_state_from_numpy(init, where), T,
+            updates_per_epoch=2, draws=draws)
+    cpu, gpu = histories["cpu"], histories[str(dev)]
+    if gpu.rewards.shape != (T,) or gpu.final_assignment.shape != (20, 10):
+        raise AssertionError(f"run_online_agent: bad shapes {gpu.rewards.shape}, "
+                             f"{gpu.final_assignment.shape}")
+    np.testing.assert_array_equal(gpu.moved, cpu.moved)
+    np.testing.assert_array_equal(gpu.final_assignment, cpu.final_assignment)
+    np.testing.assert_allclose(gpu.latencies, cpu.latencies, rtol=1e-4)
+    log(f"phase 27a run_online_agent cq_small DDPG T={T} U=2: card == CPU "
+        f"(moved {int(cpu.moved.sum())} exact, final assignment exact, "
+        f"latencies max rel diff {np.abs(gpu.latencies / cpu.latencies - 1).max():.3g}, "
+        f"tol 1e-4)")
+
+
+def _one_hot(X) -> bool:
+    return bool(np.array_equal(np.asarray(X).sum(-1), np.ones(np.asarray(X).shape[:-1])))
+
+
+def run_twins(dev, card: str) -> dict:
+    """Phase 27b-e: the quickstart, expert-placement, scenario-fleet and
+    serve-LM twins at their reference scripts' budgets on the card, each
+    printing the reference's lines; every DDPG select and update through the
+    K-NN kernel, counted at the single run's shapes (the straggler
+    mitigation takes the host's exact k-best set: no launch), and no kernel
+    launch in the LM example's decode-only serving."""
+    from repro_torch.examples import expert_placement, quickstart, scenario_fleet, serve_lm
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.knn_topk import ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+
+    def single(N, M, epochs, U=1, offline=0, F=1, runs=1):
+        """The launches a DDPG run makes at each shape: epochs selects of
+        [F·N, M], offline + epochs·U updates of [F·32·N, M]."""
+        return {(F * N, M): runs * epochs,
+                (F * 32 * N, M): runs * epochs * U + offline}
+
+    qb, eb, fb = quickstart, expert_placement, scenario_fleet
+    q_want = single(20, 10, qb.EPOCHS, qb.UPDATES_PER_EPOCH, qb.OFFLINE_UPDATES)
+    e_want = single(16, 16, eb.EPOCHS, eb.UPDATES_PER_EPOCH, eb.OFFLINE_UPDATES)
+    f_want = single(20, 10, fb.EPOCHS, F=fb.FLEET, runs=2)
+    twins = (("quickstart", quickstart.run, q_want),
+             ("expert_placement", expert_placement.run, e_want),
+             ("scenario_fleet", scenario_fleet.run, f_want))
+    out, seconds = {}, {}
+    ops.LAUNCHES = 0
+    ops.LAUNCHES_BY_SHAPE.clear()
+    for name, run, want in twins:
+        before = dict(ops.LAUNCHES_BY_SHAPE)
+        t0 = time.perf_counter()
+        out[name] = run(device=dev)
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        new = {k: v - before.get(k, 0) for k, v in ops.LAUNCHES_BY_SHAPE.items()
+               if v != before.get(k, 0)}
+        if new != want:
+            raise AssertionError(f"{name}: K-NN launches by shape {new}, "
+                                 f"expected {want}")
+    launches = ops.LAUNCHES
+    if launches != sum(ops.LAUNCHES_BY_SHAPE.values()):
+        raise AssertionError(f"K-NN launch counts disagree: {launches} in all, "
+                             f"{dict(ops.LAUNCHES_BY_SHAPE)} by shape")
+
+    q = out["quickstart"]
+    if not (q["history"].rewards.shape == (qb.EPOCHS,)
+            and np.isfinite(q["history"].latencies).all()
+            and _one_hot(q["history"].final_assignment)
+            and np.isfinite([q["default"], q["learned"]]).all()):
+        raise AssertionError(f"quickstart: bad result {q}")
+    log(f"phase 27b quickstart cq_small ({card}): Storm default {q['default']:.4f} "
+        f"ms, DRL-learned {q['learned']:.4f} ms, improvement {q['improvement']:.2%}; "
+        f"{seconds['quickstart']:.3f} s wall ({qb.OFFLINE_SAMPLES} offline samples, "
+        f"{qb.OFFLINE_UPDATES} updates, {qb.EPOCHS} epochs x "
+        f"{qb.UPDATES_PER_EPOCH} updates); K-NN launches "
+        f"{q_want}")
+    e = out["expert_placement"]
+    X = e["reassignment"].cpu().numpy()
+    if not (e["stragglers"] == [eb.STRAGGLER] and _one_hot(X)
+            and _one_hot(e["history"].final_assignment)
+            and np.isfinite([e["round_robin"], e["learned"], e["before"],
+                             e["after"]]).all()):
+        raise AssertionError(f"expert_placement: bad result {e}")
+    log(f"phase 27c expert placement 16 x 16 ({card}): round-robin "
+        f"{e['round_robin']:.4f} ms/step, DRL {e['learned']:.4f} ms/step "
+        f"({1 - e['learned'] / e['round_robin']:+.2%}); straggler "
+        f"{e['stragglers']} at {eb.SLOWDOWN}x: re-assigned {e['moved']} experts, "
+        f"{e['before']:.4f} -> {e['after']:.4f} ms (host k-best, no launch); "
+        f"{seconds['expert_placement']:.3f} s wall; K-NN launches "
+        f"{e_want}")
+    f = out["scenario_fleet"]
+    F, T = fb.FLEET, fb.EPOCHS
+    for hist in (f["history"], f["shifted"]):
+        if not (hist.latencies.shape == (F, T) and np.isfinite(hist.latencies).all()
+                and _one_hot(hist.final_assignment)):
+            raise AssertionError("scenario_fleet: bad traces")
+    if not np.isfinite(f["finals"]).all():
+        raise AssertionError(f"scenario_fleet: bad finals {f['finals']}")
+    log(f"phase 27d scenario fleet cq_small F={F} x {T} epochs under "
+        f"{fb.SCENARIO!r} ({card}): {f['seconds']['train']:.3f} s "
+        f"({F * T / f['seconds']['train']:.1f} lane-epochs/s), mean latency "
+        f"{f['history'].latencies.mean():.4f} ms, finals "
+        f"{np.mean(f['finals']):.4f} ± {np.std(f['finals']):.4f} ms; +50% re-run "
+        f"{f['seconds']['shifted']:.3f} s, mean latency "
+        f"{f['shifted'].latencies.mean():.4f} ms; {seconds['scenario_fleet']:.3f} s "
+        f"wall; K-NN launches {f_want}")
+
+    before = (ops.LAUNCHES, fa_ops.LAUNCHES, wkv_ops.LAUNCHES)
+    t0 = time.perf_counter()
+    s = serve_lm.run(device=dev)
+    torch.cuda.synchronize()
+    seconds["serve_lm"] = time.perf_counter() - t0
+    if (ops.LAUNCHES, fa_ops.LAUNCHES, wkv_ops.LAUNCHES) != before:
+        raise AssertionError("serve_lm: a kernel launched in decode-only serving")
+    if not (s["tokens"].shape == (4, 16) and sorted(r.rid for r in s["done"]) ==
+            list(range(8)) and all(len(r.out) == 4 + r.rid % 3 for r in s["done"])):
+        raise AssertionError("serve_lm: bad tokens or requests")
+    log(f"phase 27e serve_lm llama3-8b smoke ({card}): {tuple(s['tokens'].shape)} "
+        f"tokens in {s['seconds']:.3f} s, 8 requests through 3 slots served; "
+        f"{seconds['serve_lm']:.3f} s wall; 0 flash, 0 WKV, 0 K-NN launches")
+
+    # where a single run's wall goes: the quickstart's online epoch (one
+    # lane, U updates) under the profiler
+    from repro_torch.core import make_agent
+    from repro_torch.dsdps import SchedulingEnv, apps
+    from repro_torch.dsdps.apps import default_workload
+    topo = apps.continuous_queries("small")
+    env = SchedulingEnv(topo, default_workload(topo), device=dev)
+    agent = make_agent("ddpg", env, k_nn=qb.K_NN)
+    states = agent.init_fleet(torch.Generator(device=dev).manual_seed(0), 1, dev)
+    epochs = 20
+    p = profile_fleet(env, agent, states, None, epochs=epochs,
+                      updates=qb.UPDATES_PER_EPOCH)
+    log(f"phase 27f quickstart online epoch cq_small F=1 U={qb.UPDATES_PER_EPOCH} "
+        f"({card}): {p['wall_ms']:.3f} ms unprofiled ({p['wall_prof_ms']:.3f} "
+        f"profiled), {p['kernels']:.0f} kernels/epoch, device busy "
+        f"{p['busy_ms']:.3f} ms/epoch = {p['busy_share']:.1%}; most: "
+        + "; ".join(f"{n[:48]} {us / epochs / 1e3:.4f} ms" for n, us in p["top"][:3]))
+    return dict(launches=launches, seconds=seconds, profile=p)
+
+
 def log_instantiations(source: str, text: str) -> None:
     """Phase 2: registers and spill stores of every kernel instantiation in
     ``source``'s ``-Xptxas -v`` log, by demangled name."""
@@ -3400,6 +3583,10 @@ def main() -> int:
     check_figures_vs_cpu(dev)
     run_figures(dev, card)
     log(f"phase 26 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_single_run_vs_cpu(dev)
+    twins = run_twins(dev, card)
+    log(f"phase 27 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -3426,6 +3613,14 @@ def main() -> int:
             "src/repro/kernels/knn_topk/kernel.py:37", placement["knn_launches"],
             dict(max_abs_err=kernel["placement_max_abs_err"]),
             kernel["timings"][128]),
+        # phase 27: the examples' twins (the quickstart's, the expert
+        # placement's and the scenario fleet's launches), timed at the
+        # quickstart's update shape [640, 10]
+        row("row_top2_regret_single",
+            "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
+            "src/repro/kernels/knn_topk/kernel.py:37", twins["launches"],
+            dict(max_abs_err=kernel["single_max_abs_err"]),
+            kernel["timings"][640]),
         row("flash_attention",
             "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu",
             "src/repro/kernels/flash_attention/kernel.py:74", llama["launches"],

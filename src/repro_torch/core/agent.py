@@ -1,6 +1,7 @@
 """The online-learning control loop over a fleet of lanes.
 
-Port of ``repro/core/agent.py``'s ``History`` and ``run_online_fleet``:
+Port of ``repro/core/agent.py``'s ``History``, ``run_online_fleet`` and
+``run_online_agent`` (one run: a fleet of one, through the same loop):
 ``F`` independent runs step together, every per-lane tensor carrying the
 leading ``[F]`` axis, one epoch at a time (the reference's vmapped scan),
 each lane under one shared scenario or its own, cut into chunks on a
@@ -18,7 +19,8 @@ import numpy as np
 import torch
 from scipy.signal import butter, filtfilt
 
-from repro_torch.core.api import Agent, EpochDraws, make_epoch_step
+from repro_torch.core.api import (Agent, EpochDraws, make_epoch_step,
+                                  params_are_stacked)
 from repro_torch.core.ddpg import DDPGConfig, DDPGState, select_action
 from repro_torch.diagnostics import lifted, maybe_check_finite, steady
 from repro_torch.dsdps.simulator import params_lanes
@@ -26,8 +28,8 @@ from repro_torch.dsdps.simulator import params_lanes
 
 @dataclasses.dataclass
 class History:
-    """Reward / latency / movement traces of a fleet of runs ([F, T]);
-    final_assignment is [F, N, M]."""
+    """Reward / latency / movement traces of one run ([T]) or of a fleet of
+    runs ([F, T]); final_assignment is [N, M] or [F, N, M]."""
 
     rewards: np.ndarray
     latencies: np.ndarray
@@ -200,6 +202,43 @@ def run_online_fleet(
         X = env_state.X.cpu().numpy()
     return states, History(rewards=rewards, latencies=lats, moved=moved,
                            final_assignment=X)
+
+
+def run_online_agent(
+    gen_or_seed: torch.Generator | int,
+    env,
+    agent: Agent,
+    state,
+    T: int,
+    updates_per_epoch: int = 1,
+    explore: bool = True,
+    env_params=None,
+    draws: Sequence[EpochDraws] | None = None,
+):
+    """One online run of any registry agent over ``T`` decision epochs: the
+    reference's single run, here a fleet of one through
+    :func:`run_online_fleet`'s loop.
+
+    ``state`` holds one lane (``agent.init_fleet(gen, 1)``, optionally
+    pretrained); the env starts from ``env.reset``, as the reference's
+    splits its key once for the reset.  ``env_params`` is one scenario
+    (``env.default_params()`` when None), never a lane-stacked fleet.
+    ``draws`` holds one :class:`EpochDraws` of one lane per epoch; without
+    it every draw comes from the generator (or one on ``env.device`` seeded
+    with the int).  The run is on ``env.device``.  Returns ``(state,
+    History)`` with ``[T]`` traces and an ``[N, M]`` final assignment."""
+    fleet = state.shape[0] if isinstance(state, torch.Tensor) else state.fleet
+    if fleet != 1:
+        raise ValueError(f"run_online_agent runs one lane; the state holds "
+                         f"{fleet} (use run_online_fleet)")
+    if env_params is not None and params_are_stacked(env, env_params):
+        raise ValueError("run_online_agent takes one scenario; env_params is "
+                         "lane-stacked (use run_online_fleet)")
+    state, hist = run_online_fleet(gen_or_seed, env, agent, state, T,
+                                   updates_per_epoch=updates_per_epoch,
+                                   explore=explore, env_params=env_params,
+                                   draws=draws)
+    return state, hist.lane(0)
 
 
 def greedy_assignment_ddpg(env, cfg: DDPGConfig, state: DDPGState,

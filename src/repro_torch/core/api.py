@@ -16,13 +16,14 @@ Every tensor carries the fleet axis ``[F]``.  ``draws`` is one epoch's
 scenario fleet (``dsdps.scenarios.build_for``: EnvParams on a DSDPS env,
 PlacementParams on the expert-placement env); learning agents ignore it, the
 model-based baseline profiles and searches each lane's own cluster with
-it.  Registered: ``ddpg``, ``dqn``, ``graph_policy``, ``model_based``,
-``round_robin``, ``stream_ac`` and ``stream_q``, which step an env, and
-the serving-only decision policies ``rate_control``
-and ``auto_tune`` (``core/control_policies.py``), whose actions are not
-placements and never reach ``env.step``: :func:`agent_names` and the fleet
-runner leave those out, and the serving control plane
-(``serve/control.py``) runs them."""
+it.  Every agent declares the env families (:data:`ENV_FAMILIES`) its
+actions are valid for: ``ddpg``, ``dqn``, ``round_robin``, ``stream_ac``
+and ``stream_q`` both, ``graph_policy`` and ``model_based`` the DSDPS
+``"scheduling"`` family alone, and the serving-only decision policies
+``rate_control`` and ``auto_tune`` (``core/control_policies.py``) none:
+their actions are not placements and never reach ``env.step``, so
+:func:`agent_names` and the fleet runner leave them out, and the serving
+control plane (``serve/control.py``) runs them."""
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
@@ -82,7 +83,7 @@ def make_epoch_step(env, agent: Agent, env_params=None,
 
     Returns ``epoch_step(state, env_state, gen=None, draws=None) ->
     (state, env_state, (reward [F], latency_ms [F], moved [F]))``."""
-    if agent.name in _SERVING_ONLY:
+    if agent.name in _FAMILIES and not _FAMILIES[agent.name]:
         raise ValueError(f"{agent.name} is a serving-only decision policy: its "
                          f"actions are not placements and never step an env "
                          f"(serve it through repro_torch.serve.control)")
@@ -109,25 +110,41 @@ def make_epoch_step(env, agent: Agent, env_params=None,
     return epoch_step
 
 
+def params_are_stacked(env, env_params) -> bool:
+    """True when ``env_params`` carries a leading lane axis (a field with one
+    more dimension than in the env's single-scenario defaults)."""
+    from repro_torch.dsdps.simulator import params_stacked
+    return params_stacked(env_params, env.default_params())
+
+
 # --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
 _REGISTRY: dict[str, Callable[..., Agent]] = {}
-_SERVING_ONLY: set[str] = set()
+_FAMILIES: dict[str, tuple[str, ...]] = {}
+
+# the two env families sharing the functional surface (reset / step /
+# state_vector / default_params and N / M / state_dim): the DSDPS
+# SchedulingEnv, plain or structural, and the expert-placement env.  Each
+# env class names its own in a ``family`` class attribute.
+ENV_FAMILIES = ("scheduling", "placement")
 
 
 def register_agent(name: str, factory: Callable[..., Agent],
-                   serving_only: bool = False) -> None:
+                   families: tuple[str, ...] = ENV_FAMILIES) -> None:
     """Register ``factory(env, **overrides) -> Agent`` under ``name``.
 
-    ``serving_only`` marks a policy whose actions never reach ``env.step``
-    (the reference's ``families=()``): :func:`make_agent` builds it, but
-    :func:`agent_names` and the fleet runner do not offer it."""
+    ``families`` declares the env families (a subset of
+    :data:`ENV_FAMILIES`) the agent's actions are valid for; it is empty for
+    a serving-only policy whose actions never reach ``env.step``:
+    :func:`make_agent` builds it, but :func:`agent_names` and the fleet
+    runner do not offer it."""
+    unknown = set(families) - set(ENV_FAMILIES)
+    if unknown:
+        raise ValueError(f"unknown env families {sorted(unknown)}; "
+                         f"known: {ENV_FAMILIES}")
     _REGISTRY[name] = factory
-    if serving_only:
-        _SERVING_ONLY.add(name)
-    else:
-        _SERVING_ONLY.discard(name)
+    _FAMILIES[name] = tuple(families)
 
 
 def _load_builtins() -> None:
@@ -144,9 +161,20 @@ def _load_builtins() -> None:
 
 def agent_names() -> tuple[str, ...]:
     """Registered agents that step an env (the launcher's ``--agent``
-    choices)."""
+    choices): every name with at least one env family."""
     _load_builtins()
-    return tuple(sorted(n for n in _REGISTRY if n not in _SERVING_ONLY))
+    return tuple(sorted(n for n in _REGISTRY if _FAMILIES[n]))
+
+
+def agent_families(name: str) -> tuple[str, ...]:
+    """Env families ``name`` declared at registration (see
+    :func:`register_agent`); empty tuple = serving-only."""
+    _load_builtins()
+    try:
+        return _FAMILIES[name]
+    except KeyError:
+        raise KeyError(f"unknown agent {name!r}; "
+                       f"known: {sorted(_REGISTRY)}") from None
 
 
 def make_agent(name: str, env, **overrides) -> Agent:

@@ -94,8 +94,8 @@ def rate_control_factory(env, **overrides) -> api.Agent:
 
 
 # serving-only: rate actions are [S, L] level choices, not executor→machine
-# placements — they never reach env.step
-api.register_agent("rate_control", rate_control_factory, serving_only=True)
+# placements — they never reach env.step (families=())
+api.register_agent("rate_control", rate_control_factory, families=())
 
 
 # --------------------------------------------------------------------------
@@ -144,4 +144,4 @@ def auto_tune_factory(env, **overrides) -> api.Agent:
 
 
 # serving-only, like rate_control: actions index the tuning grid
-api.register_agent("auto_tune", auto_tune_factory, serving_only=True)
+api.register_agent("auto_tune", auto_tune_factory, families=())

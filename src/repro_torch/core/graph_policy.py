@@ -360,12 +360,13 @@ def agent_factory(env, **overrides) -> api.Agent:
     """Registry hook: a structural env contributes its padding envelope; a
     plain ``SchedulingEnv`` puts its one graph into the config."""
     cfg = overrides.pop("cfg", None)
+    family = getattr(env, "family", None)      # None: not an env of ENV_FAMILIES
     if cfg is None:
-        if hasattr(env, "envelope"):           # StructuralSchedulingEnv
+        if family == "scheduling" and env.structural:
             cfg = GraphPolicyConfig(
                 n_executors=env.N, n_machines=env.M,
                 n_spouts=env.envelope.max_spouts, **overrides)
-        elif hasattr(env, "topo"):             # plain SchedulingEnv
+        elif family == "scheduling":           # plain SchedulingEnv
             topo = env.topo
             n_edges = int(np.count_nonzero(topo.routing_matrix(env.seed)))
             gobs = topo.to_graph_obs(topo.num_executors, n_edges, seed=env.seed)
@@ -384,4 +385,4 @@ def agent_factory(env, **overrides) -> api.Agent:
     return as_agent(cfg)
 
 
-api.register_agent("graph_policy", agent_factory)
+api.register_agent("graph_policy", agent_factory, families=("scheduling",))

@@ -244,4 +244,6 @@ def agent_factory(env, **overrides) -> api.Agent:
     return as_agent(cfg)
 
 
-api.register_agent("model_based", agent_factory)
+# scheduling-only: the queueing model it profiles and searches is the DSDPS
+# simulator's; it has no placement-env counterpart
+api.register_agent("model_based", agent_factory, families=("scheduling",))

@@ -26,7 +26,7 @@ normal — as arguments, or draws them from a ``torch.Generator``; so do
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import numpy as np
 import torch
@@ -70,6 +70,8 @@ class PlacementParams(NamedTuple):
 class ExpertPlacementEnv:
     """MoE expert placement on a ring interconnect, on one device."""
 
+    family: ClassVar[str] = "placement"        # of core.api.ENV_FAMILIES
+    structural: ClassVar[bool] = False
     num_experts: int
     num_devices: int
     flops_per_token: float            # 2 * d_model * d_ff * 3 (gated FFN)

@@ -6,12 +6,14 @@ from repro_torch.dsdps.simulator import (EnvParams, SimParams,
                                          build_sim_params,
                                          lane_params,
                                          measured_latency_from_params,
+                                         measured_latency_ms,
                                          params_in_axes, params_stacked,
                                          perturb_rates, perturb_service,
                                          scale_rates, stack_env_params,
                                          to_env_params, with_noise_sigma,
                                          with_speed, with_straggler)
-from repro_torch.dsdps.workload import NEVER_SHIFT, WorkloadProcess, step_rates
+from repro_torch.dsdps.workload import (NEVER_SHIFT, WorkloadProcess, constant,
+                                        step_rates)
 from repro_torch.dsdps.env import EnvState, SchedulingEnv, StepOut
 from repro_torch.dsdps.structural import (Envelope, GraphEnvParams,
                                           StructuralSchedulingEnv,
@@ -23,10 +25,10 @@ __all__ = [
     "Component", "Edge", "GraphObs", "Topology", "ClusterSpec", "PAPER_CLUSTER",
     "SimParams", "EnvParams", "average_tuple_time_ms",
     "average_tuple_time_from_params", "build_sim_params",
-    "measured_latency_from_params", "to_env_params", "scale_rates",
+    "measured_latency_from_params", "measured_latency_ms", "to_env_params", "scale_rates",
     "with_noise_sigma", "with_speed", "with_straggler", "perturb_service",
     "perturb_rates", "stack_env_params", "params_in_axes", "params_stacked",
-    "lane_params", "NEVER_SHIFT", "WorkloadProcess", "step_rates",
+    "lane_params", "NEVER_SHIFT", "WorkloadProcess", "constant", "step_rates",
     "EnvState", "SchedulingEnv", "StepOut", "Envelope", "GraphEnvParams",
     "StructuralSchedulingEnv", "graph_latency_ms",
     "measured_graph_latency_ms", "apps", "scenarios",

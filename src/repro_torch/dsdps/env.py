@@ -14,7 +14,7 @@ arguments, or draws them from a ``torch.Generator``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import ClassVar, NamedTuple
 
 import numpy as np
 import torch
@@ -49,6 +49,8 @@ class StepOut(NamedTuple):
 class SchedulingEnv:
     """Static spec of one DSDPS control problem, on one device."""
 
+    family: ClassVar[str] = "scheduling"       # of core.api.ENV_FAMILIES
+    structural: ClassVar[bool] = False         # one topology for all lanes
     topo: Topology
     workload: WorkloadProcess
     cluster: ClusterSpec = PAPER_CLUSTER

@@ -109,7 +109,7 @@ def dag_shapes(env, fleet: int) -> list:
     padded into the env's envelope (chain, diamond, wide fan-out, ...).
     Needs a ``StructuralSchedulingEnv``: a plain ``SchedulingEnv`` fixes one
     topology for all its lanes."""
-    if not hasattr(env, "params_for"):
+    if not env.structural:
         raise TypeError(
             "scenario 'dag_shapes' varies topology structure per lane and "
             "needs a StructuralSchedulingEnv (repro_torch.dsdps.structural); "
@@ -151,7 +151,7 @@ def build_for(env, name: str, fleet: int, broadcast_invariant: bool = False,
     plain or structural (a topology that does not fit a structural env's
     envelope raises ``ValueError`` from ``params_for``), and
     ``placement.build_scenario`` for the expert-placement env."""
-    if hasattr(env, "topo"):
+    if env.family == "scheduling":
         return build(name, env, fleet, broadcast_invariant=broadcast_invariant,
                      **kwargs)
     from repro_torch.core import placement
@@ -193,7 +193,7 @@ def sample_perturbed(env, base=None,
     device (the reference draws them from four keys split off one).  So a
     CPU generator gives the same scenario on any device."""
     p = env.default_params() if base is None else base
-    if not hasattr(env, "topo"):
+    if env.family != "scheduling":
         return _sample_placement(env, p, service_sigma, rate_sigma,
                                  straggler_prob, straggler_factor, skew_z,
                                  load_z, straggler, device, gen)
@@ -253,10 +253,10 @@ def scenario_names(env) -> tuple[str, ...]:
     """Names valid for ``build_for(env, name, ...)``: the structural ones
     only for an env with a padding envelope, the placement ones only (and
     exactly those) for the expert-placement env."""
-    if not hasattr(env, "topo"):
+    if env.family != "scheduling":
         from repro_torch.core import placement
         return tuple(sorted(placement.PLACEMENT_SCENARIOS))
     names = list(SCENARIOS)
-    if hasattr(env, "params_for"):
+    if env.structural:
         names += list(STRUCTURAL_SCENARIOS)
     return tuple(sorted(names))

@@ -459,3 +459,29 @@ def measured_latency_from_params(
                                           n_procs=n_procs)
     sigma = env_params.noise_sigma[..., None]
     return (base[..., None] * torch.exp(z * sigma)).mean(-1)
+
+
+def measured_latency_ms(
+    X: torch.Tensor,
+    w: torch.Tensor,
+    params: SimParams,
+    cluster: ClusterSpec,
+    speed: torch.Tensor | None = None,
+    noise_sigma: float = 0.03,
+    n_measurements: int = 5,
+    same_proc: torch.Tensor | None = None,
+    n_procs: torch.Tensor | None = None,
+    z: torch.Tensor | None = None,
+    gen: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Noisy measurement: mean of ``n_measurements`` lognormal-perturbed
+    readings (the framework averages 5 consecutive 10 s-spaced readings).
+    ``z`` holds the standard-normal draws, ``[n_measurements]`` (``[B,
+    n_measurements]`` for a batch); draws not passed in come from ``gen``
+    on ``X``'s device."""
+    base = average_tuple_time_ms(X, w, params, cluster, speed,
+                                 same_proc=same_proc, n_procs=n_procs)
+    if z is None:
+        z = torch.randn((*base.shape, n_measurements), generator=gen,
+                        device=X.device)
+    return (base[..., None] * torch.exp(z * noise_sigma)).mean(-1)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import NamedTuple, Sequence
+from typing import ClassVar, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -192,6 +192,8 @@ class StructuralSchedulingEnv:
     ``SchedulingEnv``'s API; lane ``f`` of a lane-stacked
     :class:`GraphEnvParams` fleet runs its own DAG."""
 
+    family: ClassVar[str] = "scheduling"       # of core.api.ENV_FAMILIES
+    structural: ClassVar[bool] = True          # a DAG of its own per lane
     topologies: Sequence[Topology]
     workloads: Sequence[WorkloadProcess] | None = None
     envelope: Envelope | None = None

@@ -220,3 +220,17 @@ class Topology:
             node_mask=pad_nodes(np.ones(n, dtype=np.float32)),
             edge_src=edge_src, edge_dst=edge_dst, edge_w=edge_w,
             edge_mask=edge_mask, num_executors=n, num_edges=e)
+
+    def describe(self) -> str:
+        """The topology as text: its executor count, each component's
+        parallelism, cost and selectivity, and each edge's grouping."""
+        lines = [f"topology {self.name}: {self.num_executors} executors"]
+        for c in self.components:
+            kind = "spout" if c.is_spout else "bolt"
+            lines.append(
+                f"  {kind} {c.name}: x{c.parallelism}, {c.cpu_ms_per_tuple}ms/tuple,"
+                f" sel={c.selectivity}"
+            )
+        for e in self.edges:
+            lines.append(f"  {e.src} -[{e.grouping}]-> {e.dst}")
+        return "\n".join(lines)

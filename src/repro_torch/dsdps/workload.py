@@ -48,3 +48,8 @@ class WorkloadProcess:
     @property
     def num_spouts(self) -> int:
         return len(self.base_rates)
+
+
+def constant(rates: tuple[float, ...]) -> WorkloadProcess:
+    """A workload that holds ``rates``: no jitter, full reversion."""
+    return WorkloadProcess(base_rates=rates, jitter=0.0, revert=1.0)

@@ -25,8 +25,10 @@ SIGNATURES = {ENTRY: (
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
      ctypes.c_void_p], ctypes.c_int)}
 
-# kernel launches since the last reset (the plain CPU path does not count)
+# kernel launches since the last reset (the plain CPU path does not count),
+# in all and by (rows, m) shape, the leading axes flattened into rows
 LAUNCHES = 0
+LAUNCHES_BY_SHAPE: dict[tuple[int, int], int] = {}
 _entry = None                 # the C entry point, bound on the first launch
 
 
@@ -74,4 +76,5 @@ def row_top2_regret(proto: torch.Tensor):
     if rc != 0:
         raise RuntimeError(f"knn_row_top2_regret launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    LAUNCHES_BY_SHAPE[rows, m] = LAUNCHES_BY_SHAPE.get((rows, m), 0) + 1
     return best, second, regret

@@ -154,10 +154,10 @@ def refusal(app: str, agent: str, offline: int = 0, serve: int = 0,
     return None
 
 
-def nominal_load(params):
-    """The load a scenario scores under: a DSDPS env's spout base rates, the
-    placement env's per-expert base load."""
-    return params.base_rates if hasattr(params, "base_rates") else params.base_load
+def nominal_load(env, params):
+    """The load a scenario of ``env`` scores under: a DSDPS env's spout base
+    rates, the placement env's per-expert base load."""
+    return params.base_load if env.family == "placement" else params.base_rates
 
 
 def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
@@ -287,7 +287,7 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     # too, so the improvement compares like with like per lane
     lanes = hist.final_assignment.shape[0]
     p = env.default_params() if env_params is None else env_params
-    w = nominal_load(p).expand(lanes, -1)
+    w = nominal_load(env, p).expand(lanes, -1)
     X = torch.as_tensor(hist.final_assignment, device=dev)
     X_rr = env.round_robin_assignment().expand(lanes, env.N, env.M)
     finals = env.evaluate(X, w, params=p).cpu().numpy().astype(np.float64)

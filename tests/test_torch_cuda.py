@@ -1063,3 +1063,81 @@ def test_new_families_batcher_on_the_card_equals_the_cpu(cuda_device, arch, scen
             cb.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=new))
         got[where] = [(r.rid, r.out) for r in cb.run(None)]
     assert got["card"] == got["cpu"]
+
+
+# --------------------------------------------------------------------------
+# the single-run entry and the fault module
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", [(20, 10), (640, 10), (16, 16), (512, 16),
+                                   (160, 10), (5120, 10)])
+def test_kernel_at_the_single_run_shapes(cuda_device, shape):
+    """A single run's select and update rows on cq_small ([20, 10], [640,
+    10]) and on the placement env ([16, 16], [512, 16]), and the
+    scenario-fleet example's at F = 8 ([160, 10], [5120, 10]): one launch,
+    counted at its shape."""
+    g = torch.Generator(device=cuda_device).manual_seed(27)
+    p = torch.rand(shape, generator=g, device=cuda_device)
+    p[::7] = torch.round(p[::7] * 2) / 2                    # tied rows
+    before, by_shape = ops.LAUNCHES, ops.LAUNCHES_BY_SHAPE.get(shape, 0)
+    got = ops.row_top2_regret(p)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1
+    assert ops.LAUNCHES_BY_SHAPE[shape] == by_shape + 1
+    _assert_as_plain(got, row_top2_regret_ref(p))
+
+
+def test_run_online_agent_on_the_card_equals_the_cpu(cuda_device):
+    """DDPG's single run on cq_small, T = 5, U = 2, from one state made on
+    the CPU and the same draws: the same moves and final assignment, every
+    select and update through the K-NN kernel at the single run's shapes."""
+    from repro_torch.core import convert, make_agent, run_online_agent
+    from repro_torch.dsdps import SchedulingEnv, apps
+
+    T, U = 5, 2
+    topo = apps.continuous_queries("small")
+    cpu_env = SchedulingEnv(topo, apps.default_workload(topo), device="cpu")
+    init = convert.ddpg_state_to_numpy(make_agent("ddpg", cpu_env, k_nn=8).init_fleet(
+        torch.Generator().manual_seed(5), 1, "cpu"))
+    draws = _epoch_draws(np.random.default_rng(5), 1, 20, 10, 2, 32, T)
+    draws = [d._replace(replay_idx=d.replay_idx.expand(1, U, 32)) for d in draws]
+    hists = []
+    for dev in ("cpu", cuda_device):
+        env = SchedulingEnv(topo, apps.default_workload(topo), device=dev)
+        before = dict(ops.LAUNCHES_BY_SHAPE)
+        hists.append(run_online_agent(
+            0, env, make_agent("ddpg", env, k_nn=8),
+            convert.ddpg_state_from_numpy(init, dev), T, updates_per_epoch=U,
+            draws=[d.to(dev) for d in draws])[1])
+    torch.cuda.synchronize()
+    new = {s: n - before.get(s, 0) for s, n in ops.LAUNCHES_BY_SHAPE.items()
+           if n != before.get(s, 0)}
+    assert new == {(20, 10): T, (640, 10): U * T}
+    np.testing.assert_array_equal(hists[1].moved, hists[0].moved)
+    np.testing.assert_array_equal(hists[1].final_assignment,
+                                  hists[0].final_assignment)
+    np.testing.assert_allclose(hists[1].latencies, hists[0].latencies, rtol=1e-4)
+
+
+def test_mitigate_with_drl_on_the_card_takes_the_host_route(cuda_device):
+    """The straggler mitigation selects from the host's exact k-best set:
+    no K-NN launch, and the CPU's re-assignment from the same state."""
+    from repro_torch.core import convert, ddpg, jamba_placement_env
+    from repro_torch.fault import StragglerDetector, mitigate_with_drl
+
+    out, init = [], None
+    for dev in ("cpu", cuda_device):
+        env = jamba_placement_env(device=dev)
+        cfg = ddpg.DDPGConfig(n_executors=16, n_machines=16,
+                              state_dim=env.state_dim, k_nn=8)
+        if init is None:
+            init = convert.ddpg_state_to_numpy(ddpg.init_state(
+                torch.Generator().manual_seed(2), cfg, 1, "cpu"))
+        det = StragglerDetector(16)
+        for _ in range(8):
+            for d in range(16):
+                det.observe(d, 2.2 if d == 5 else 1.0)
+        before = ops.LAUNCHES
+        out.append(mitigate_with_drl(det, env, convert.ddpg_state_from_numpy(
+            init, dev), cfg).cpu())
+        assert ops.LAUNCHES == before
+    assert torch.equal(out[0], out[1])
