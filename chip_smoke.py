@@ -109,7 +109,15 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   the quickstart, expert-placement (with its straggler mitigation),
   scenario-fleet and serve-LM twins at their reference scripts' budgets,
   every DDPG select and update through the K-NN kernel, counted at the
-  single run's shapes.
+  single run's shapes;
+* LM training (``repro_torch.train``, ``launch/train.py``): one float32
+  train step card against CPU for a smoke config of each family, the
+  kernels' ``autograd.Function``s' gradients against plain autograd,
+  llama3-8b at every width cut to 4 of its 32 layers in bf16 (8 x 2048 in
+  4 microbatches, steps timed and one profiled, every attention forward
+  and rematerialized recompute through the bf16 flash kernel, counted by
+  shape), and the ``train_lm`` twin at its reference budget, killed and
+  resumed at step 150.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -226,6 +234,16 @@ REWARD_ARTIFACT = os.path.join(ROOT, "artifacts", "paper", "reward_cq_small.json
 # scenario-fleet example's 8 lanes
 SINGLE_SHAPES = ((20, 10), (640, 10), (16, 16), (512, 16), (160, 10), (5120, 10))
 SINGLE_CHECK = dict(T=5, seed=27)
+# LM training (phase 28): one float32 step card against CPU for a smoke
+# config of each family; the kernels' Functions' backward at llama3-8b's
+# prefill shape and seamless's cross-attention shape; llama3-8b at every
+# width cut to 4 of its 32 layers (1.92 B parameters: weights, float32
+# moments and accumulator ~31 GB), bf16, batch 8 x 2048 in 4 microbatches
+# (2 warm-up steps, 5 timed); the train_lm twin at its reference budget
+TRAIN_FAMILIES = ("llama3-8b", "granite-moe-3b-a800m", "rwkv6-7b",
+                  "jamba-1.5-large-398b", "phi-3-vision-4.2b", "seamless-m4t-medium")
+TRAIN = dict(arch="llama3-8b", layers=4, batch=8, seq=2048, micro=4, warmup=2,
+             timed=5, lr=3e-5, seed=28)    # at a 3e-4 peak the loss climbs
 
 
 def log(msg: str) -> None:
@@ -2061,15 +2079,17 @@ def check_flash(dev) -> dict:
 
 def time_flash_shape(dev, gen, what: str, H: int, Hkv: int, hd: int,
                      S: int | None = None, Skv: int | None = None,
-                     causal: bool = True, f32: bool = False) -> dict:
-    """The bf16 route on a prefill shape, q [4, S, H, hd] and k/v [4, Skv,
-    Hkv, hd] (S = Skv = 2048 unless given; causal unless told not): held to
-    its plain version, one native wgmma launch (not padded, staged or on
-    the CUDA cores), and timed beside plain, SDPA and the bound.  With
-    ``f32``, the float32 route at the same shape too (``t["f32"]``)."""
+                     causal: bool = True, f32: bool = False,
+                     B: int | None = None) -> dict:
+    """The bf16 route on a prefill shape, q [B, S, H, hd] and k/v [B, Skv,
+    Hkv, hd] (B = 4 and S = Skv = 2048 unless given; causal unless told
+    not): held to its plain version, one native wgmma launch (not padded,
+    staged or on the CUDA cores), and timed beside plain, SDPA and the
+    bound.  With ``f32``, the float32 route at the same shape too
+    (``t["f32"]``)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref, ops
 
-    B = LM["batch"]
+    B = B or LM["batch"]
     S = S or LM["prefill_len"]
     Skv = Skv or S
     q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
@@ -3448,6 +3468,324 @@ def run_twins(dev, card: str) -> dict:
     return dict(launches=launches, seconds=seconds, profile=p)
 
 
+# --------------------------------------------------------------------------
+# phase 28: LM training (repro_torch.train, launch/train.py, the train_lm twin)
+# --------------------------------------------------------------------------
+def check_train_vs_cpu(dev) -> None:
+    """Phase 28a: one float32 ``make_train_step`` step (2 microbatches, TF32
+    off) of each family's smoke config on the card against the CPU, from
+    the same state, after two steps on the CPU (``warm_train_state``:
+    from zero moments Adam's first update turns the rounding of near-zero
+    gradients into whole steps of the learning rate: jamba's
+    zero-initialized ``conv_b`` came off by 3.6e-3 of its scale),
+    and the same batch: loss and gradient norm within 1e-4 relative, every
+    updated parameter within 1e-4 of its leaf's scale."""
+    from torch_lm_cases import on_device, warm_train_state
+
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import tree_leaves
+
+    setup = trainer.TrainSetup(micro_batches=2, learning_rate=1e-4, warmup_steps=1,
+                               total_steps=10)
+    worst = [0.0, 0.0, 0.0]
+    for arch in TRAIN_FAMILIES:
+        cfg, state, batch = warm_train_state(arch, setup, 2, TRAIN["seed"])
+        step = trainer.make_train_step(cfg, setup)
+        res = {}
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            new, m = step(on_device(state, d), on_device(batch, d))
+            res[where] = new, {k: float(v) for k, v in m.items()}
+        (cs, cm), (gs, gm) = res["cpu"], res["card"]
+        errs = [abs(gm[k] - cm[k]) / abs(cm[k]) for k in ("loss", "grad_norm")]
+        errs.append(max(float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(tree_leaves(gs.params), tree_leaves(cs.params))))
+        if not (np.isfinite(errs).all() and max(errs) <= 1e-4):
+            raise AssertionError(f"{arch}: a train step card vs CPU off by {errs} "
+                                 "(loss, grad norm relative; parameters of leaf scale)")
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    log(f"phase 28a train step card == CPU, float32, 2 microbatches, from a state two "
+        f"steps in, for {', '.join(TRAIN_FAMILIES)}: loss within {worst[0]:.3g}, grad "
+        f"norm {worst[1]:.3g} relative, parameters {worst[2]:.3g} of their leaf's scale "
+        "(bound 1e-4 each)")
+
+
+def check_train_functions(dev) -> dict:
+    """Phase 28b: the kernels' ``autograd.Function``s on the card against
+    plain autograd of the plain versions: flash in bf16 at llama3-8b's
+    prefill shape (q [1,2048,32,128], 8 kv heads, causal) and seamless's
+    cross-attention (q [1,2048,16,64] against k/v [1,4096,16,64]),
+    gradients within 1e-2·|x| + 2e-3; WKV in float32 at [2,128,4,64] with
+    a carried state, within 1e-5·(1 + max|x|).  One launch a forward, none
+    in the backward, every gradient nonzero."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import wkv6_ref
+
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"])
+    out = {}
+    for what, (S, Skv, H, Hkv, hd, causal) in {
+            "llama3-8b": (2048, 2048, 32, 8, 128, True),
+            "seamless_cross": (2048, 4096, 16, 16, 64, False)}.items():
+        q = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(1, Skv, Hkv, hd, generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        go = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fa_ops.LAUNCHES
+        o = fa_ops.flash_attention(*leaves, causal=causal)
+        got = torch.autograd.grad(o, leaves, go)
+        torch.cuda.synchronize()
+        if fa_ops.LAUNCHES != before + 1 or o.grad_fn is None:
+            raise AssertionError(f"{what}: the Function launched "
+                                 f"{fa_ops.LAUNCHES - before} kernels (expected 1)")
+        plain = [t.float().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(flash_attention_ref(*plain, causal=causal), plain,
+                                   go.float())
+        err = 0.0
+        for name, a, b in zip("qkv", got, want):
+            diff = (a.float() - b).abs()
+            if a.dtype != torch.bfloat16 or not float(a.abs().max()) > 0 or bool(
+                    (diff > 1e-2 * b.abs() + 2e-3).any()):
+                raise AssertionError(f"{what}: d{name} off plain autograd by "
+                                     f"{float(diff.max())} or zero")
+            err = max(err, float(diff.max()))
+        out[what] = err
+        del q, k, v, go, leaves, o, got, plain, want
+    B, T, H, hd = 2, 128, 4, 64
+    w = torch.rand(B, T, H, hd, generator=gen, device=dev) * 0.5 + 0.45
+    r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=dev) for _ in range(3))
+    u = torch.randn(H, hd, generator=gen, device=dev)
+    S0 = torch.randn(B, H, hd, hd, generator=gen, device=dev)
+    go = torch.randn(B, T, H, hd, generator=gen, device=dev)
+    gs = torch.randn(B, H, hd, hd, generator=gen, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (w, r, k, v, u, S0)]
+    before = wkv_ops.LAUNCHES
+    o, S_T = wkv_ops.wkv6(*leaves)
+    got = torch.autograd.grad((o, S_T), leaves, (go, gs))
+    torch.cuda.synchronize()
+    if wkv_ops.LAUNCHES != before + 1 or o.grad_fn is None:
+        raise AssertionError("wkv6: the Function did not launch the kernel once")
+    plain = [t.clone().requires_grad_() for t in (w, r, k, v, u, S0)]
+    want = torch.autograd.grad(wkv6_ref(*plain), plain, (go, gs))
+    err = 0.0
+    for name, a, b in zip(("w", "r", "k", "v", "u", "S0"), got, want):
+        e = float((a - b).abs().max())
+        if not (float(a.abs().max()) > 0 and e <= 1e-5 * (1 + float(b.abs().max()))):
+            raise AssertionError(f"wkv6: d{name} off plain autograd by {e} or zero")
+        err = max(err, e)
+    out["wkv6"] = err
+    log(f"phase 28b the Functions' gradients on the card against plain autograd: flash "
+        f"bf16 llama3-8b [1,2048,32,128] kv 8 causal max |err| {out['llama3-8b']:.3g}, "
+        f"seamless cross q 2048 x k/v 4096 {out['seamless_cross']:.3g} (bound "
+        f"1e-2|x| + 2e-3); wkv6 float32 [2,128,4,64] with S0 {out['wkv6']:.3g} (bound "
+        "1e-5(1 + max|x|)); one launch a forward, none a backward, all nonzero")
+    return out
+
+
+def train_step_flops(cfg, tokens: int, seq: int) -> float:
+    """The work of one rematerialized train step: the matmul weights' 2·N
+    FLOP a token forward, 4·N backward and 2·N again for the recompute of
+    each checkpointed block and cross-entropy chunk; causal attention's
+    4·S·hd·H/2 a token, forward, recompute and twice backward."""
+    d, h, hkv, hd, ff = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    layer = d * h * hd * 2 + d * hkv * hd * 2 + 3 * d * ff
+    n_matmul = cfg.num_layers * layer + d * cfg.vocab_size
+    attn = cfg.num_layers * 4 * (seq / 2) * hd * h
+    return 8 * n_matmul * tokens + 4 * attn * tokens
+
+
+def profile_train_step(step, state, batch) -> dict:
+    """Phase 28c: one more step under ``torch.profiler``: the device's busy
+    time, the kernels that take most of it, and, each
+    ``FlashAttentionFn.backward`` in a ``record_function`` range, the plain
+    attention backward's share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    backward = fa_ops.FlashAttentionFn.backward
+
+    def ranged(ctx, grad_out):
+        with record_function("flash_backward"):
+            return backward(ctx, grad_out)
+    fa_ops.FlashAttentionFn.backward = staticmethod(ranged)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            new, m = step(state, batch)
+            float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        fa_ops.FlashAttentionFn.backward = staticmethod(backward)
+    del new
+    events = prof.events()
+    by_name: dict = {}
+    for e in events:
+        if str(e.device_type).endswith("CUDA") and e.name != "flash_backward":
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values()) or float("nan")
+    bwd = [e for e in events
+           if e.name == "flash_backward" and not str(e.device_type).endswith("CUDA")]
+    bwd_us = sum(getattr(e, "device_time_total", 0) for e in bwd)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    n_kernels = sum(1 for e in events if str(e.device_type).endswith("CUDA"))
+    log(f"  train step profile: wall {wall_ms:.3f} ms profiled, device busy "
+        f"{busy_us / 1e3:.3f} ms = {busy_us / 1e3 / wall_ms:.1%}, {n_kernels} device "
+        f"events; the {len(bwd)} plain attention backwards "
+        f"{bwd_us / 1e3:.3f} ms = {bwd_us / busy_us:.1%}; most: "
+        + "; ".join(f"{name[:56]} {us / 1e3:.3f} ms ({us / busy_us:.1%})"
+                    for name, us in top))
+    return dict(busy_ms=busy_us / 1e3, wall_ms=wall_ms, flash_backward_ms=bwd_us / 1e3,
+                flash_backward_share=bwd_us / busy_us, kernels=n_kernels)
+
+
+def run_train_full(dev, card: str) -> dict:
+    """Phase 28c: llama3-8b at every width cut to 4 of its 32 layers, bf16,
+    the pipeline's batches of 8 x 2048 in 4 microbatches, warmup-cosine:
+    2 warm-up steps then 5 timed (ms a step, tokens/s, peak GiB, the flash
+    launches of each step by shape: 4 layers x 4 microbatches x (forward +
+    the rematerialized recompute) = 32), the loss finite and falling; one
+    more step profiled; the flash kernel at the microbatch's shape beside
+    its Function's forward + plain backward and SDPA's."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.train import trainer
+
+    T = TRAIN
+    cfg = dataclasses.replace(get_config(T["arch"]), num_layers=T["layers"])
+    steps = T["warmup"] + T["timed"]
+    setup = trainer.TrainSetup(micro_batches=T["micro"], learning_rate=T["lr"],
+                               warmup_steps=T["warmup"], total_steps=steps)
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_train_state(cfg, setup, torch.Generator(device=dev).manual_seed(
+        T["seed"]), dev)
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    step = trainer.make_train_step(cfg, setup)
+    data = DataConfig(cfg.vocab_size, T["seq"], T["batch"], seed=T["seed"])
+    tokens = T["batch"] * T["seq"]
+    shape = f"{T['seq']}x{T['seq']} causal bfloat16"
+    want = {shape: cfg.num_layers * T["micro"] * 2}
+    losses, times, launches = [], [], 0
+    for i in range(steps):
+        batch = {k: v.to(dev) for k, v in batch_at(data, i).items()}
+        fa_ops.LAUNCHES_BY_SHAPE.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        got = dict(fa_ops.LAUNCHES_BY_SHAPE)
+        if got != want:
+            raise AssertionError(f"train step {i}: flash launches {got}, expected {want}")
+        launches += got[shape]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"llama3-8b training: losses {losses} not finite and falling "
+                             f"(steps {times} s)")
+    timed = times[T["warmup"]:]
+    ms = 1e3 * float(np.mean(timed))
+    flops = train_step_flops(cfg, tokens, T["seq"])
+    bound_ms = flops / BF16_TC_OPS_PER_S * 1e3
+    log(f"phase 28c llama3-8b training ({card}), {cfg.num_layers} of 32 layers at every "
+        f"width ({n_params / 1e9:.3f} B parameters), bf16, batch {T['batch']} x "
+        f"{T['seq']} in {T['micro']} microbatches: {ms:.3f} ms a step (timed steps "
+        + ", ".join(f"{1e3 * t:.3f}" for t in timed)
+        + f"; warm-up {', '.join(f'{1e3 * t:.3f}' for t in times[:T['warmup']])}), "
+        f"{tokens / (ms / 1e3):.1f} tokens/s, peak {peak:.2f} GiB; bound "
+        f"{bound_ms:.3f} ms ({flops / 1e12:.1f} TFLOP at {BF16_TC_OPS_PER_S / 1e12:.0f} "
+        f"TFLOP/s, {bound_ms / ms:.1%} of the step); losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f"; flash launches a step by shape {want} ({launches} in the run)")
+    prof = profile_train_step(step, state,
+                              {k: v.to(dev) for k, v in batch_at(data, steps).items()})
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the flash kernel at the microbatch's shape, and its Function's
+    # forward + backward (the plain recompute) beside SDPA's
+    B = T["batch"] // T["micro"]
+    gen = torch.Generator(device=dev).manual_seed(T["seed"])
+    t = time_flash_shape(dev, gen, f"train microbatch (phase 28c, B {B})", cfg.num_heads,
+                         cfg.num_kv_heads, cfg.head_dim, S=T["seq"], B=B)
+    q = torch.randn(B, T["seq"], cfg.num_heads, cfg.head_dim, generator=gen,
+                    device=dev).bfloat16().requires_grad_()
+    k, v = (torch.randn(B, T["seq"], cfg.num_kv_heads, cfg.head_dim, generator=gen,
+                        device=dev).bfloat16().requires_grad_() for _ in range(2))
+    go = torch.randn_like(q)
+
+    def fn_fwd_bwd():
+        torch.autograd.grad(fa_ops.flash_attention(q, k, v, causal=True), (q, k, v), go)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(q, k, v, True).transpose(1, 2), (q, k, v), go)
+    fwd_bwd_ms = eager_ms(fn_fwd_bwd, iters=3, warmup=1)
+    sdpa_ms = eager_ms(sdpa_fwd_bwd, iters=10, warmup=2)
+    log(f"  flash at the microbatch's shape: kernel forward {t['ms']:.6f} ms; the "
+        f"Function's forward + plain backward {fwd_bwd_ms:.6f} ms; SDPA forward + "
+        f"backward {sdpa_ms:.6f} ms")
+    return dict(ms=ms, tokens_per_s=tokens / (ms / 1e3), peak_gib=peak, losses=losses,
+                launches=launches, bound_ms=bound_ms, flops=flops, timing=t,
+                fwd_bwd_ms=fwd_bwd_ms, sdpa_fwd_bwd_ms=sdpa_ms, profile=prof,
+                n_params=n_params)
+
+
+def run_train_lm_twin(dev, card: str) -> dict:
+    """Phase 28d: the train_lm twin at its reference script's budget
+    (demo-100m, 300 steps at batch 8 x 256 in 2 microbatches, killed and
+    resumed at 150; the twin restores that checkpoint into a fresh state
+    and holds every leaf to the saved one bit for bit): the first and last
+    loss, the wall s, and the flash launches (12 layers x 2 microbatches x
+    (forward + recompute) x 300 = 14,400); the flash kernel timed at its
+    microbatch's shape."""
+    from repro_torch.examples import train_lm
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    cfg = train_lm.hundred_m_config(False)
+    shape = f"{train_lm.SEQ}x{train_lm.SEQ} causal bfloat16"
+    want = {shape: cfg.num_layers * train_lm.MICRO * 2 * train_lm.STEPS}
+    fa_ops.LAUNCHES_BY_SHAPE.clear()
+    t0 = time.perf_counter()
+    out = train_lm.run(device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(fa_ops.LAUNCHES_BY_SHAPE)
+    if got != want:
+        raise AssertionError(f"train_lm: flash launches {got}, expected {want}")
+    first, second = out["first"], out["second"]
+    losses = first["losses"] + second["losses"]
+    if not (len(losses) == train_lm.STEPS and second["start_step"] == train_lm.STEPS // 2
+            and np.isfinite(losses).all() and losses[-1] < losses[0]
+            and out["restored_leaves"] > 0):
+        raise AssertionError(f"train_lm: bad run ({len(losses)} losses, resumed at "
+                             f"{second['start_step']}, {losses[0]} -> {losses[-1]})")
+    gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"] + 1)
+    t = time_flash_shape(dev, gen, "train_lm microbatch (phase 28d)", cfg.num_heads,
+                         cfg.num_kv_heads, cfg.head_dim, S=train_lm.SEQ,
+                         B=train_lm.BATCH // train_lm.MICRO)
+    # where a step of the twin goes: one more step under the profiler
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.train import trainer
+    setup = trainer.TrainSetup(micro_batches=train_lm.MICRO, learning_rate=train_lm.LR,
+                               warmup_steps=train_lm.WARMUP, total_steps=train_lm.STEPS)
+    batch = {k: v.to(dev) for k, v in batch_at(
+        DataConfig(cfg.vocab_size, train_lm.SEQ, train_lm.BATCH), 0).items()}
+    prof = profile_train_step(trainer.make_train_step(cfg, setup),
+                              trainer.init_train_state(cfg, setup, gen, dev), batch)
+    log(f"phase 28d train_lm twin demo-100m ({card}): {train_lm.STEPS} steps at "
+        f"{train_lm.BATCH} x {train_lm.SEQ} in {train_lm.MICRO} microbatches, killed and "
+        f"resumed at {second['start_step']} ({out['restored_leaves']} leaves restored bit "
+        f"for bit); loss {losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.3f} s wall (first "
+        f"run {first['total_s']:.3f} s, second {second['total_s']:.3f} s of steps); "
+        f"flash launches {got}")
+    return dict(launches=got[shape], wall_s=wall, timing=t, first=losses[0],
+                last=losses[-1], profile=prof)
+
+
 def log_instantiations(source: str, text: str) -> None:
     """Phase 2: registers and spill stores of every kernel instantiation in
     ``source``'s ``-Xptxas -v`` log, by demangled name."""
@@ -3587,6 +3925,12 @@ def main() -> int:
     check_single_run_vs_cpu(dev)
     twins = run_twins(dev, card)
     log(f"phase 27 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_train_vs_cpu(dev)
+    check_train_functions(dev)
+    train = run_train_full(dev, card)
+    train_lm_twin = run_train_lm_twin(dev, card)
+    log(f"phase 28 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -3666,6 +4010,14 @@ def main() -> int:
         row("flash_attention_jamba-1.5-large-398b", flash_sm90, flash_tpu,
             new["jamba-1.5-large-398b"]["launches"], new_flash["jamba"],
             new_flash["jamba"]),
+        # phase 28: the training path's forward launches (forward and the
+        # rematerialized recompute; the backward is the Function's plain
+        # recompute, no launch), llama3-8b's 4-layer run at its microbatch's
+        # shape [2, 2048, 32, 128] and the train_lm twin's at [4, 256, 12, 64]
+        row("flash_attention_train_llama3-8b", flash_sm90, flash_tpu, train["launches"],
+            train["timing"], train["timing"]),
+        row("flash_attention_train_lm", flash_sm90, flash_tpu, train_lm_twin["launches"],
+            train_lm_twin["timing"], train_lm_twin["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -29,7 +29,13 @@ encoder's memory under cross-attention): every route's key loop runs to
 ``Skv`` as their extent.  Causal attention needs ``Skv == S``.
 
 On CPU tensors it runs the plain version (``ref.py``).  There is no
-fallback from one route to another."""
+fallback from one route to another.
+
+``flash_attention`` goes through ``FlashAttentionFn``, a
+``torch.autograd.Function``: its forward is the kernel on the card and the
+plain version on the CPU, as above; its backward recomputes the plain
+version in float32 and differentiates it (no kernel launch), until a
+hand-written backward kernel takes its place (ROADMAP B2 item 1)."""
 from __future__ import annotations
 
 import ctypes
@@ -110,7 +116,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``[B, S, H, hd]`` in q's dtype.  ``Skv`` ≥ 1 may differ from S when
     ``causal`` is False; causal attention needs ``Skv == S``.  Query head h
     reads kv head ``h // (H // Hkv)``; scores are scaled by
-    ``1/sqrt(hd)``.  On the card hd may be any positive size."""
+    ``1/sqrt(hd)``.  On the card hd may be any positive size.
+    Differentiable through ``FlashAttentionFn``."""
+    return FlashAttentionFn.apply(q, k, v, causal)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient.  Forward: the kernel on CUDA
+    tensors, the plain version on CPU tensors.  Backward: a plain
+    recompute, the reference function (``ref.py``) rerun in float32 from
+    the saved q, k, v and differentiated by autograd, its gradients
+    returned in the inputs' dtypes.  It materializes the ``[B, H, S, Skv]``
+    scores, so it is the memory bound of a training step's attention,
+    until B2 item 1 brings a backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_() for t in (q, k, v)]
+            o = flash_attention_ref(*leaves, causal=ctx.causal)
+            grads = torch.autograd.grad(o, leaves, grad_out.float())
+        return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))), None)
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool) -> torch.Tensor:
+    """The forward of ``flash_attention``: checks, then the kernel on the
+    card or the plain version on the CPU."""
     global LAUNCHES, LAUNCHES_F32, LAUNCHES_BF16, LAUNCHES_PADDED
     global LAUNCHES_BF16_CUDA_CORES, LAUNCHES_WIDE
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:

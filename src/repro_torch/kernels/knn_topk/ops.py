@@ -8,7 +8,12 @@ The loop that calls it waits on the host, so a call does little there: one
 allocation for the three outputs, the entry point bound once, the raw
 stream handle in place of a ``torch.cuda.Stream`` object (which took longer
 to make than the launch; chip_smoke.py's phase 3 times every step), and
-the device switched only when the tensor is not on the current one."""
+the device switched only when the tensor is not on the current one.
+
+When autograd records and ``proto`` requires grad, the call goes through
+``RowTop2RegretFn``, whose backward gives the regret's gradient by a plain
+recompute (the K-NN projection's callers run under ``no_grad``, so the
+loop's calls take the direct route and pay nothing for it)."""
 from __future__ import annotations
 
 import ctypes
@@ -47,7 +52,38 @@ def row_top2_regret(proto: torch.Tensor):
 
     All leading axes are flattened into rows, so a fleet's whole select
     (``[F, N, M]``) or update (``[F, B, N, M]``) is one launch.  On the card
-    the three are rows of one ``[3, ...]`` buffer, each contiguous."""
+    the three are rows of one ``[3, ...]`` buffer, each contiguous.  The
+    regret is differentiable in ``proto`` (``RowTop2RegretFn``)."""
+    if proto.requires_grad and torch.is_grad_enabled():
+        return RowTop2RegretFn.apply(proto)
+    return _forward(proto)
+
+
+class RowTop2RegretFn(torch.autograd.Function):
+    """The K-NN reduction with the regret's gradient.  Forward: the kernel
+    on CUDA tensors, the plain version on CPU tensors (copies of the three
+    outputs, the indices non-differentiable).  Backward: the plain version
+    rerun from the saved ``proto`` and differentiated by autograd."""
+
+    @staticmethod
+    def forward(ctx, proto):
+        ctx.save_for_backward(proto)
+        best, second, regret = (t.clone() for t in _forward(proto))
+        ctx.mark_non_differentiable(best, second)
+        return best, second, regret
+
+    @staticmethod
+    def backward(ctx, g_best, g_second, g_regret):
+        proto, = ctx.saved_tensors
+        with torch.enable_grad():
+            leaf = proto.detach().requires_grad_()
+            regret = row_top2_regret_ref(leaf)[2]
+            return torch.autograd.grad(regret, leaf, g_regret)[0]
+
+
+def _forward(proto: torch.Tensor):
+    """The forward of ``row_top2_regret``: checks, then the kernel on the
+    card or the plain version on the CPU."""
     global LAUNCHES
     if proto.dtype != torch.float32:
         raise TypeError(f"row_top2_regret takes float32, got {proto.dtype}")

@@ -2,7 +2,13 @@
 
 On CUDA tensors it launches the hand-written kernel (``csrc/wkv6.cu``) on
 the current stream; on CPU tensors it runs the plain version
-(``ref.py``).  There is no fallback from one to the other."""
+(``ref.py``).  There is no fallback from one to the other.
+
+``wkv6`` goes through ``WKV6Fn``, a ``torch.autograd.Function``: its
+forward is the kernel on the card and the plain version on the CPU; its
+backward recomputes the plain version in float32 and differentiates it
+(no kernel launch), until a hand-written backward kernel takes its place
+(ROADMAP B3 item 2)."""
 from __future__ import annotations
 
 import ctypes
@@ -28,7 +34,43 @@ def wkv6(w: torch.Tensor, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """w float32 and r, k, v (float32 or bfloat16, one dtype), all
     ``[B, T, H, hd]`` with the last axis contiguous; u float32 ``[H, hd]``;
     S0 float32 ``[B, H, hd, hd]`` or None for a zero state.  Returns
-    (out float32 ``[B, T, H, hd]``, S_T float32 ``[B, H, hd, hd]``)."""
+    (out float32 ``[B, T, H, hd]``, S_T float32 ``[B, H, hd, hd]``).
+    Differentiable in every input through ``WKV6Fn``."""
+    return WKV6Fn.apply(w, r, k, v, u, S0)
+
+
+class WKV6Fn(torch.autograd.Function):
+    """WKV6 with a gradient.  Forward: the kernel on CUDA tensors, the
+    plain version on CPU tensors.  Backward: a plain recompute, the
+    reference recurrence (``ref.py``) rerun in float32 from the saved
+    inputs and differentiated by autograd (a loop over T), giving the
+    gradients of w, r, k, v, u and of S0 in their dtypes, until B3 item 2
+    brings a backward kernel."""
+
+    @staticmethod
+    def forward(ctx, w, r, k, v, u, S0):
+        ctx.save_for_backward(w, r, k, v, u, S0)
+        return _forward(w, r, k, v, u, S0)
+
+    @staticmethod
+    def backward(ctx, g_out, g_S):
+        inputs = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().float().requires_grad_(need)
+                      for t, need in zip(inputs, ctx.needs_input_grad)]
+            out, S_T = wkv6_ref(*leaves)
+            wanted = [x for x in leaves if x is not None and x.requires_grad]
+            grads = iter(torch.autograd.grad((out, S_T), wanted,
+                                             (g_out.float(), g_S.float()),
+                                             allow_unused=True))
+        picked = [next(grads) if x is not None and x.requires_grad else None
+                  for x in leaves]
+        return tuple(None if g is None else g.to(t.dtype) for g, t in zip(picked, inputs))
+
+
+def _forward(w, r, k, v, u, S0):
+    """The forward of ``wkv6``: checks, then the kernel on the card or the
+    plain version on the CPU."""
     global LAUNCHES
     if r.dim() != 4:
         raise ValueError("wkv6 takes w, r, k, v of rank 4 [B, T, H, hd]")

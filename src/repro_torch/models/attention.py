@@ -4,7 +4,8 @@ through the flash-attention kernel, and the cached decode step.
 ``flash_attention`` is where the reference calls its pure-JAX twin of the
 Pallas kernel (same online softmax); here it goes through
 ``kernels/flash_attention``: the hand-written CUDA kernel on the card,
-its plain version on the CPU.  The kernel tiles itself, so the
+its plain version on the CPU; its gradient is ``FlashAttentionFn``'s
+plain float32 recompute.  The kernel tiles itself, so the
 reference's ``q_chunk``/``kv_chunk`` have no counterpart, and it masks a
 ragged S instead of asserting it away.  Non-causal attention takes keys
 of their own length: the reference's twin cuts k/v into chunks by q's

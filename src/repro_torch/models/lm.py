@@ -1,8 +1,9 @@
-"""Language-model builder, forward only (``repro/models/lm.py``).
+"""Language models: parameters, training loss and serving (``repro/models/lm.py``).
 
-One parameter layout and the serving entry points:
+One parameter layout, the training loss and the serving entry points:
 
   init_params(cfg, gen, device)              -> parameter dict
+  train_loss(cfg)(params, batch)             -> (loss, {"ce", "aux"})
   prefill_forward(cfg)(params, batch)        -> (last logits, K/V taps)
   encode(cfg, params, frames)                -> encoder memory   [encdec]
   init_cache(cfg, batch, max_seq, device, enc_len=0) -> decode state
@@ -16,21 +17,24 @@ with the parallel block), ``moe`` (the routed top-k FFN of
 other layer), ``vlm`` (a patch-embedding frontend stub: precomputed
 embeddings ``batch["frontend_embeds"]`` in front of the tokens) and
 ``encdec`` (seamless-m4t: a bidirectional encoder over precomputed frame
-embeddings, and cross-attention in every decoder layer).  Training
-(``train_loss``, and so the MoE's auxiliary loss, which serving does not
-compute: the reference's serving discards it) waits for ROADMAP A10.
-Parameters keep the reference's tree: per-position leaves stacked over
-the ``num_blocks`` identical blocks ``[nb, ...]``, run here by a Python
-loop over the blocks (no remat: there is no backward).  Attention goes
-through the flash-attention kernel (cross-attention at the memory's own
-length, over every row of it) and the RWKV6 recurrence through the WKV6
-kernel; everything else is plain PyTorch, as the reference left it to
-XLA."""
+embeddings, and cross-attention in every decoder layer).  Training adds
+the MoE's auxiliary loss (``ffn.moe_ffn``); serving does not compute it,
+as the reference's serving discards it.  Parameters keep the reference's
+tree: per-position leaves stacked over the ``num_blocks`` identical
+blocks ``[nb, ...]``, run here by a Python loop over the blocks; in
+training (grad mode) with ``cfg.remat`` each block, and each encoder
+layer, runs under ``torch.utils.checkpoint``, as the reference
+rematerializes them.  Attention goes through the flash-attention kernel
+(cross-attention at the memory's own length, over every row of it) and
+the RWKV6 recurrence through the WKV6 kernel, their gradients through
+the kernels' ``autograd.Function``s (a plain recompute); everything else
+is plain PyTorch, as the reference left it to XLA."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -61,6 +65,23 @@ def _tree_zip(fn: Callable, a, b):
 def _block(layers: Params, b: int) -> Params:
     """Block ``b``'s parameters (or cache): views into the stacked leaves."""
     return _tree_map(lambda a: a[b], layers)
+
+
+def _blocks(layers: Params, n: int) -> list[Params]:
+    """The ``n`` blocks' parameters, views into the stacked leaves taken by
+    one ``unbind`` a leaf, so a backward stacks each leaf's gradient once
+    (``_block``'s select would scatter into a zero leaf a block)."""
+    split = _tree_map(lambda a: a.unbind(0), layers)
+    return [_tree_map(lambda parts, b=b: parts[b], split) for b in range(n)]
+
+
+def _recompute(fn: Callable, *args, remat: bool = True):
+    """``fn(*args)``; under ``torch.utils.checkpoint`` when ``remat`` and
+    autograd records, so the backward keeps only the arguments and
+    recomputes the rest (nothing in ``fn`` draws at random)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 # ===========================================================================
@@ -178,8 +199,8 @@ def _run_attn(p: Params, x, cfg: ModelConfig, positions, causal: bool = True,
 
 
 def _run_ffn(p: Params, x, cfg: ModelConfig, kind: str):
-    """The position's FFN output.  Serving reads no aux loss, so the MoE's
-    is not computed (``ffn.moe_aux`` gives it to training, ROADMAP A10)."""
+    """The position's FFN output in serving.  Serving reads no aux loss, so
+    the MoE's is not computed (``_train_ffn`` gives it to training)."""
     if kind == "moe":
         r = ffn_lib.moe_route(p, x, experts_per_token=cfg.experts_per_token,
                               capacity_factor=cfg.capacity_factor)
@@ -187,20 +208,37 @@ def _run_ffn(p: Params, x, cfg: ModelConfig, kind: str):
     return ffn_lib.dense_ffn(p, x)
 
 
+def _train_ffn(p: Params, x, cfg: ModelConfig, kind: str):
+    """(the position's FFN output, the MoE's aux loss or None) in training:
+    ``ffn.moe_ffn`` returns the Switch aux loss, as the reference's
+    ``_run_ffn`` does.  A dense FFN has none."""
+    if kind == "moe":
+        return ffn_lib.moe_ffn(p, x, experts_per_token=cfg.experts_per_token,
+                               capacity_factor=cfg.capacity_factor,
+                               router_aux_coef=cfg.router_aux_coef)
+    return ffn_lib.dense_ffn(p, x), None
+
+
+def _ffn(p: Params, x, cfg: ModelConfig, kind: str, train: bool):
+    return _train_ffn(p, x, cfg, kind) if train else (_run_ffn(p, x, cfg, kind), None)
+
+
 def _position_forward(cfg: ModelConfig, p: Params, mixer: str, fkind: str, x,
-                      positions, memory=None):
+                      positions, memory=None, train: bool = False):
     """One sub-layer position within a block; with ``memory``, the
-    position's cross-attention after its mixer."""
+    position's cross-attention after its mixer.  Returns (x, the MoE's aux
+    loss or None; ``train`` computes it)."""
     if mixer == "rwkv":
         x = x + ssm.rwkv6_time_mix(
             p["mixer"], nn.rmsnorm(p["norm1"], x, cfg.norm_eps),
             head_size=cfg.rwkv_head_size)
         return x + ssm.rwkv6_channel_mix(
-            p["mixer"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
+            p["mixer"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps)), None
     if cfg.parallel_block and mixer == "attn":
         hshared = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
         a = _run_attn(p["mixer"], hshared, cfg, positions)
-        return x + a + _run_ffn(p["ffn"], hshared, cfg, fkind)
+        f, aux = _ffn(p["ffn"], hshared, cfg, fkind, train)
+        return x + a + f, aux
     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if mixer == "attn":
         x = x + _run_attn(p["mixer"], h, cfg, positions)
@@ -210,26 +248,54 @@ def _position_forward(cfg: ModelConfig, p: Params, mixer: str, fkind: str, x,
     if "cross" in p and memory is not None:
         hc = nn.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
         x = x + _run_attn(p["cross"], hc, cfg, positions, memory=memory)
-    return x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps), cfg,
-                        fkind)
+    f, aux = _ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, fkind, train)
+    return x + f, aux
+
+
+def _block_forward(cfg: ModelConfig, block_params: Params, x, positions,
+                   memory=None):
+    """One block (``cfg.block_period`` sub-layers) in training.  Returns (x,
+    the block's aux loss, a float32 scalar)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pos, (mixer, fkind) in enumerate(cfg.block_program()):
+        x, aux = _position_forward(cfg, block_params[f"pos{pos}"], mixer, fkind, x,
+                                   positions, memory, train=True)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _scan_blocks(cfg: ModelConfig, layers: Params, x, positions, memory=None):
+    """Every block in turn, each rematerialized under ``cfg.remat``.
+    Returns (x, the summed aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for block_params in _blocks(layers, cfg.num_blocks):
+        x, aux_b = _recompute(_block_forward, cfg, block_params, x, positions, memory,
+                              remat=cfg.remat)
+        aux = aux + aux_b
+    return x, aux
 
 
 # ===========================================================================
 # Encoder (enc-dec family)
 # ===========================================================================
-@torch.no_grad()
+def _encoder_layer(cfg: ModelConfig, p: Params, x, positions):
+    h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + _run_attn(p["mixer"], h, cfg, positions, causal=False)
+    return x + ffn_lib.dense_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
+
+
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
     """frames ``[B, S_src, d_model]``: precomputed frontend embeddings (the
     reference's stub) → the memory ``[B, S_src, d_model]``.  Each encoder
-    layer is bidirectional self-attention with rope, then a dense FFN."""
+    layer is bidirectional self-attention with rope, then a dense FFN;
+    differentiable, each layer rematerialized in training under
+    ``cfg.remat`` (serving calls it under ``no_grad``)."""
     S = frames.shape[1]
     positions = torch.arange(S, device=frames.device)[None, :]
     x = frames.to(_dt(cfg))
-    for layer in range(cfg.encoder_layers):
-        p = _block(params["enc_layers"], layer)
-        h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-        x = x + _run_attn(p["mixer"], h, cfg, positions, causal=False)
-        x = x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, "dense")
+    for p in _blocks(params["enc_layers"], cfg.encoder_layers):
+        x = _recompute(_encoder_layer, cfg, p, x, positions, remat=cfg.remat)
     return nn.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
 
 
@@ -243,15 +309,74 @@ def _head_table_T(cfg: ModelConfig, params: Params):
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params, batch: Batch):
-    """Returns (x [B,P+S,d], positions [1,P+S]): a vlm's frontend embeddings
+    """Returns (x [B,P+S,d], targets [B,P+S], mask [B,P+S] float32,
+    positions [1,P+S]): a vlm's frontend embeddings
     ``batch["frontend_embeds"]`` ``[B, P, d]``, where given, in front of the
-    S token embeddings.  The reference also returns the targets and loss
-    mask, which only training reads (ROADMAP A10)."""
-    x = nn.embed(params["embed"], batch["tokens"])
+    S token embeddings, their positions at target 0 and mask 0.  The mask
+    defaults to ones.  Serving's batches carry no ``targets``: then targets
+    and mask are None."""
+    tokens = batch["tokens"]
+    x = nn.embed(params["embed"], tokens)
+    targets, mask = batch.get("targets"), None
+    if targets is not None:
+        mask = batch.get("mask")
+        mask = (torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
+                if mask is None else mask.float())
     if cfg.frontend is not None and "frontend_embeds" in batch:
-        x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], dim=1)
+        fe = batch["frontend_embeds"].to(x.dtype)
+        x = torch.cat([fe, x], dim=1)
+        if targets is not None:
+            pad = (tokens.shape[0], fe.shape[1])
+            targets = torch.cat([targets.new_zeros(pad), targets], dim=1)
+            mask = torch.cat([mask.new_zeros(pad), mask], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    return x, positions
+    return x, targets, mask, positions
+
+
+# ===========================================================================
+# Training loss
+# ===========================================================================
+def _chunk_loss(xc, table_T, tc, mc):
+    logits = (xc @ table_T).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return ((lse - gold) * mc).sum(), mc.sum()
+
+
+def chunked_cross_entropy(x, table_T, targets, mask, chunk: int = 512):
+    """Mean per-token cross-entropy against a ``[d, V]`` head without
+    materializing ``[B, S, V]``: x ``[B, S, d]`` final hidden, targets and
+    mask ``[B, S]``.  Chunks of ``chunk`` positions, each rematerialized in
+    the backward; the last chunk takes what is left, so every token counts
+    (the reference's ``S // (S // chunk)`` chunks drop a tail of S mod
+    that size, ROADMAP C11)."""
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, x.shape[1], chunk):
+        sl = slice(s0, s0 + chunk)
+        l, c = _recompute(_chunk_loss, x[:, sl], table_T, targets[:, sl], mask[:, sl])
+        tot, cnt = tot + l, cnt + c
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def train_loss(cfg: ModelConfig):
+    """Returns loss_fn(params, batch) -> (loss, {"ce", "aux"}), float32
+    scalars: the cross-entropy over ``batch["targets"]`` (weighted by
+    ``batch["mask"]``, default ones) plus the MoE's aux loss.  ``batch``
+    holds ``tokens`` and ``targets`` ``[B, S]``, and a vlm's
+    ``frontend_embeds`` or an encdec's ``frames`` as serving's do.
+    Cross-attention reads every memory row (the reference's reads only the
+    first S, ROADMAP C10)."""
+
+    def loss_fn(params: Params, batch: Batch):
+        memory = encode(cfg, params, batch["frames"]) if cfg.encoder_layers else None
+        x, targets, mask, positions = _embed_inputs(cfg, params, batch)
+        x, aux = _scan_blocks(cfg, params["layers"], x, positions, memory)
+        x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        ce = chunked_cross_entropy(x, _head_table_T(cfg, params), targets, mask)
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    return loss_fn
 
 
 def prefill_forward(cfg: ModelConfig):
@@ -266,7 +391,7 @@ def prefill_forward(cfg: ModelConfig):
     @torch.no_grad()
     def fn(params: Params, batch: Batch):
         memory = encode(cfg, params, batch["frames"]) if cfg.encoder_layers else None
-        x, positions = _embed_inputs(cfg, params, batch)
+        x, _, _, positions = _embed_inputs(cfg, params, batch)
         B, S, _ = x.shape
         hkv, hd = cfg.num_kv_heads, cfg.head_dim
         taps: dict = {}
@@ -284,7 +409,7 @@ def prefill_forward(cfg: ModelConfig):
                     tap = taps.setdefault(f"pos{pos}", {"k": [], "v": []})
                     tap["k"].append(k)
                     tap["v"].append(v)
-                x = _position_forward(cfg, p, mixer, fkind, x, positions, memory)
+                x, _ = _position_forward(cfg, p, mixer, fkind, x, positions, memory)
         kv = {name: {kk: torch.stack(vs) for kk, vs in tap.items()}
               for name, tap in taps.items()}
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)

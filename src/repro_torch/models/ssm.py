@@ -8,18 +8,25 @@ d_state]`` is materialized a chunk at a time and never over the whole
 sequence; the last chunk takes whatever is left, so any S runs (the
 reference's reshape refuses an S such as 257, ROADMAP C10).
 
+Under grad mode (training) Mamba takes an out-of-place route: each
+chunk's step chain runs under ``torch.utils.checkpoint``, as the
+reference checkpoints its chunk, so the backward keeps only the chunk
+boundaries' states and recomputes a chunk at a time.  Without grad the
+in-place route above runs; the route is chosen by grad mode alone.
+
 The WKV recurrence runs through ``kernels/rwkv6_scan``: the hand-written
-CUDA kernel on the card, its plain version on the CPU.  The kernel keeps
-the state on the chip over the whole sequence, so the reference's chunked
-scan (a memory bound for its backward) has no counterpart: the full
-sequence is one launch, and a decode step is one launch with T=1 and the
-carried state."""
+CUDA kernel on the card, its plain version on the CPU; its gradient is
+``WKV6Fn``'s plain recompute.  The kernel keeps the state on the chip
+over the whole sequence, so the reference's chunked scan (a memory bound
+for its backward) has no counterpart: the full sequence is one launch,
+and a decode step is one launch with T=1 and the carried state."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.models import nn
@@ -64,8 +71,9 @@ def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
     ``exp(Δ·A)`` and ``Δ·B·x`` per chunk, True per step; the config's
     ``mamba_fused_discretization`` picks one) give the same numbers, so
     the port has one: it materializes them a chunk of ``chunk`` steps at a
-    time.  The state of each step is written over that step's ``Δ·B·x``,
-    and the chunk's outputs are one batched product with C."""
+    time.  Without grad the state of each step is written over that step's
+    ``Δ·B·x``; under grad mode each chunk is ``_mamba_chunk``, out of place
+    and checkpointed.  The chunk's outputs are one batched product with C."""
     B, S, d = u.shape
     x, z = nn.linear(p["in_proj"], u).chunk(2, dim=-1)          # [B,S,di]
     di = x.shape[-1]
@@ -82,6 +90,11 @@ def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
     ys = []
     for s0 in range(0, S, chunk):
         sl = slice(s0, s0 + chunk)
+        if torch.is_grad_enabled():
+            h, y = checkpoint(_mamba_chunk, h, delta[:, sl], xf[:, sl], Bm[:, sl],
+                              Cm[:, sl], A, use_reentrant=False)
+            ys.append(y)
+            continue
         d_c = delta[:, sl]
         dA = torch.exp(d_c[..., None] * A)                      # [B,T,di,ds]
         hs = (d_c * xf[:, sl])[..., None] * Bm[:, sl, None, :]  # dBx, then h_t
@@ -94,6 +107,18 @@ def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
     y = torch.cat(ys, dim=1) + xf * p["D"]
     y = y.to(u.dtype) * F.silu(z)
     return nn.linear(p["out_proj"], y)
+
+
+def _mamba_chunk(h, d_c, x_c, B_c, C_c, A):
+    """One chunk of the selective scan, out of place (differentiable):
+    (the state after it, its outputs ``[B, T, di]``)."""
+    dA = torch.exp(d_c[..., None] * A)                          # [B,T,di,ds]
+    dBx = (d_c * x_c)[..., None] * B_c[:, :, None, :]
+    hs = []
+    for t in range(d_c.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        hs.append(h)
+    return h, torch.einsum("btds,bts->btd", torch.stack(hs, 1), C_c)
 
 
 def mamba_init_cache(B: int, d_inner: int, d_state: int, d_conv: int,

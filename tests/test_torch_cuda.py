@@ -1141,3 +1141,116 @@ def test_mitigate_with_drl_on_the_card_takes_the_host_route(cuda_device):
             init, dev), cfg).cpu())
         assert ops.LAUNCHES == before
     assert torch.equal(out[0], out[1])
+
+
+# -- LM training: the kernels' Functions and a train step ---------------------
+@pytest.mark.parametrize("dtype, S, Skv, causal", [
+    (torch.bfloat16, 128, 128, True), (torch.bfloat16, 64, 96, False),
+    (torch.float32, 128, 128, True), (torch.float32, 64, 96, False)])
+def test_flash_function_gradients_on_the_card(cuda_device, dtype, S, Skv, causal):
+    """``FlashAttentionFn`` on the card: one kernel launch a forward, none
+    in the backward (the plain recompute), and gradients of q, k, v within
+    the flash bound (bf16: 1e-2·|x| + 2e-3; float32: 1e-5) of plain
+    autograd's of the plain version, nonzero."""
+    g = torch.Generator(device=cuda_device).manual_seed(S + Skv)
+    q = torch.randn(2, S, 4, 64, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(2, Skv, 2, 64, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    go = torch.randn(2, S, 4, 64, generator=g, device=cuda_device).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = fa_ops.LAUNCHES
+    out = fa_ops.flash_attention(*leaves, causal=causal)
+    assert out.grad_fn is not None and fa_ops.LAUNCHES == before + 1
+    got = torch.autograd.grad(out, leaves, go)
+    torch.cuda.synchronize()
+    assert fa_ops.LAUNCHES == before + 1
+    plain = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_ref(*plain, causal=causal), plain, go.float())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and float(a.abs().max()) > 0
+        bound = (1e-2 * b.abs() + 2e-3) if dtype == torch.bfloat16 else 1e-5 * (1 + b.abs())
+        assert bool(((a.float() - b).abs() <= bound).all())
+
+
+def test_wkv_function_gradients_on_the_card(cuda_device):
+    """``WKV6Fn`` on the card at [2, 32, 2, 64] float32 with a carried
+    state: one launch a forward, none in the backward, and the gradients
+    of w, r, k, v, u, S0 within 1e-5·(1 + max|x|) of plain autograd's."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    B, T, H, hd = 2, 32, 2, 64
+    w = torch.rand(B, T, H, hd, generator=g, device=cuda_device) * 0.5 + 0.45
+    r, k, v = (torch.randn(B, T, H, hd, generator=g, device=cuda_device) for _ in range(3))
+    u = torch.randn(H, hd, generator=g, device=cuda_device)
+    S0 = torch.randn(B, H, hd, hd, generator=g, device=cuda_device)
+    go = torch.randn(B, T, H, hd, generator=g, device=cuda_device)
+    gs = torch.randn(B, H, hd, hd, generator=g, device=cuda_device)
+    leaves = [t.clone().requires_grad_() for t in (w, r, k, v, u, S0)]
+    before = wkv_ops.LAUNCHES
+    out, S_T = wkv_ops.wkv6(*leaves)
+    got = torch.autograd.grad((out, S_T), leaves, (go, gs))
+    torch.cuda.synchronize()
+    assert wkv_ops.LAUNCHES == before + 1 and out.grad_fn is not None
+    plain = [t.clone().requires_grad_() for t in (w, r, k, v, u, S0)]
+    want = torch.autograd.grad(wkv6_ref(*plain), plain, (go, gs))
+    for a, b in zip(got, want):
+        assert float(a.abs().max()) > 0
+        assert float((a - b).abs().max()) <= 1e-5 * (1 + float(b.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "seamless-m4t-medium"])
+def test_train_step_on_the_card_equals_the_cpu_and_counts_its_launches(cuda_device, arch):
+    """One float32 ``make_train_step`` step of a smoke config on the card
+    against the CPU from the same state two steps in (``warm_train_state``)
+    and batch (loss and gradient norm within 1e-4 relative, parameters
+    within 1e-4 of each leaf's scale), and the flash launches of the step
+    by shape: each attention layer's forward twice a microbatch (the
+    forward, and the recompute of the rematerialized block in the
+    backward), seamless's encoder layers and cross-attentions too."""
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import tree_leaves
+    from torch_lm_cases import on_device, warm_train_state
+
+    setup = trainer.TrainSetup(micro_batches=2, learning_rate=1e-4, warmup_steps=1,
+                               total_steps=10)
+    cfg, state, batch = warm_train_state(arch, setup, 2, seed=3)
+    step = trainer.make_train_step(cfg, setup)
+    out = {}
+    for where, d in (("cpu", "cpu"), ("card", cuda_device)):
+        fa_ops.LAUNCHES_BY_SHAPE.clear()
+        new, m = step(on_device(state, d), on_device(batch, d))
+        torch.cuda.synchronize()
+        out[where] = new, m, dict(fa_ops.LAUNCHES_BY_SHAPE)
+    (cs, cm, cl), (gs, gm, gl) = out["cpu"], out["card"]
+    assert cl == {}
+    for key in ("loss", "grad_norm"):
+        assert float(gm[key]) == pytest.approx(float(cm[key]), rel=1e-4)
+    for a, b in zip(tree_leaves(gs.params), tree_leaves(cs.params)):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max()) + 1e-9
+    n = 2 * setup.micro_batches
+    want = {"16x16 causal float32": cfg.num_layers * n}
+    if cfg.encoder_layers:
+        want["16x16 full float32"] = (cfg.encoder_layers + cfg.num_layers) * n
+    assert gl == want
+
+
+def test_knn_regret_gradient_on_the_card(cuda_device):
+    """``RowTop2RegretFn`` on the card: one launch, the indices and regret
+    the kernel's, the regret's gradient plain autograd's of the plain
+    version; the direct route (no grad) is still one launch."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    proto = torch.rand(8, 32, 10, generator=g, device=cuda_device)
+    go = torch.randn(8, 32, generator=g, device=cuda_device)
+    leaf = proto.clone().requires_grad_()
+    before = ops.LAUNCHES
+    best, second, regret = ops.row_top2_regret(leaf)
+    (got,) = torch.autograd.grad(regret, leaf, go)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES == before + 1 and regret.grad_fn is not None
+    plain = proto.clone().requires_grad_()
+    pb, ps, pr = row_top2_regret_ref(plain)
+    (want,) = torch.autograd.grad(pr, plain, go)
+    assert torch.equal(best, pb) and torch.equal(second, ps)
+    assert float((regret.detach() - pr.detach()).abs().max()) <= 1e-6
+    assert torch.equal(got, want)
+    ops.row_top2_regret(proto)
+    assert ops.LAUNCHES == before + 2
