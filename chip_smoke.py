@@ -244,6 +244,14 @@ TRAIN_FAMILIES = ("llama3-8b", "granite-moe-3b-a800m", "rwkv6-7b",
                   "jamba-1.5-large-398b", "phi-3-vision-4.2b", "seamless-m4t-medium")
 TRAIN = dict(arch="llama3-8b", layers=4, batch=8, seq=2048, micro=4, warmup=2,
              timed=5, lr=3e-5, seed=28)    # at a 3e-4 peak the loss climbs
+# the fleet across slots and processes (phase 29): the main path's DDPG
+# fleet under one_slow_machine on a 2-slot mesh on the card against the
+# unmeshed run; the multi-host drill: 2 workers x 1 slot on the card,
+# worker 1 killed once epoch 20 is published, 40 epochs saved every 10, at
+# a small offline budget
+MESH = dict(fleet=8, epochs=50, slots=2, scenario="one_slow_machine")
+DRILL = dict(fleet=8, epochs=40, every=10, kill_at=20, offline=200,
+             offline_updates=20)
 
 
 def log(msg: str) -> None:
@@ -366,6 +374,32 @@ def host_breakdown(proto, calls: int = 3000) -> dict:
     return us
 
 
+def knn_timing(proto, floor: float) -> dict:
+    """The K-NN kernel, its plain version and the library call on ``proto
+    [rows, m]``: device ms per call in a CUDA graph and eager, beside the
+    bound (each input read once, each output written once, two compares an
+    element)."""
+    from repro_torch.kernels.knn_topk import row_top2_regret, row_top2_regret_ref
+
+    def library(p=proto):
+        v = torch.topk(p, 2).values
+        return 2.0 * (v[:, 0] - v[:, 1])
+
+    kernel = lambda p=proto: row_top2_regret(p)             # noqa: E731
+    plain = lambda p=proto: row_top2_regret_ref(p)          # noqa: E731
+    t = dict(ms=graph_ms(kernel), plain_ms=graph_ms(plain),
+             library_ms=graph_ms(library), eager_ms=eager_ms(kernel),
+             eager_plain_ms=eager_ms(plain),
+             eager_library_ms=eager_ms(library), floor_ms=floor)
+    rows, m = proto.shape
+    bytes_moved = rows * m * 4 + rows * 12
+    ops = rows * 2 * m                      # two compares per element
+    t["bound_ms"] = max(bytes_moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    t["bound_by"] = ("bytes" if bytes_moved / HBM_BYTES_PER_S
+                     >= ops / F32_OPS_PER_S else "operations")
+    return t
+
+
 def check_kernel(dev) -> dict:
     """Phase 3: the K-NN kernel against its plain version at every shape,
     on edge rows and on views off the 16-byte grid; its times beside the
@@ -441,24 +475,7 @@ def check_kernel(dev) -> dict:
     for rows, width in ((25600, 10), (800, 10), (128, 16), (640, 10)):
         proto = torch.rand(rows, width, generator=gen, device=dev)
         m = proto.shape[1]
-
-        def library(p=proto):
-            v = torch.topk(p, 2).values
-            return 2.0 * (v[:, 0] - v[:, 1])
-
-        kernel = lambda p=proto: row_top2_regret(p)             # noqa: E731
-        plain = lambda p=proto: row_top2_regret_ref(p)          # noqa: E731
-        t = dict(ms=graph_ms(kernel), plain_ms=graph_ms(plain),
-                 library_ms=graph_ms(library), eager_ms=eager_ms(kernel),
-                 eager_plain_ms=eager_ms(plain),
-                 eager_library_ms=eager_ms(library), floor_ms=floor)
-        bytes_moved = rows * m * 4 + rows * 12
-        ops = rows * 2 * m                      # two compares per element
-        t["bound_ms"] = max(bytes_moved / HBM_BYTES_PER_S,
-                            ops / F32_OPS_PER_S) * 1e3
-        t["bound_by"] = ("bytes" if bytes_moved / HBM_BYTES_PER_S
-                         >= ops / F32_OPS_PER_S else "operations")
-        timings[rows] = t
+        t = timings[rows] = knn_timing(proto, floor)
         log(f"  [{rows},{m}] device ms per call (CUDA graph): kernel "
             f"{t['ms']:.6f} = floor + {(t['ms'] - floor) * 1e3:.3f} us  plain "
             f"{t['plain_ms']:.6f}  library (torch.topk + sub) "
@@ -499,10 +516,11 @@ def check_beam(dev) -> None:
 
 
 def numpy_draws(rng, F: int, T: int, env, batch: int, updates: int = U,
-                size0: int = 0) -> list:
+                size0: int = 0, cap: int | None = None) -> list:
     """``T`` epochs of draws for ``F`` lanes from a numpy generator, for a
     run on the card and on the CPU alike: ``updates`` replay draws an
-    epoch, epoch t's below ``size0 + t + 1`` (the rows stored by then)."""
+    epoch, epoch t's below ``size0 + t + 1`` (the rows stored by then),
+    and below the buffer's capacity ``cap`` when given."""
     from repro_torch.core import EpochDraws
 
     # a DSDPS env measures 5 readings and walks S spout rates; the
@@ -516,7 +534,8 @@ def numpy_draws(rng, F: int, T: int, env, batch: int, updates: int = U,
         explore_noise=torch.as_tensor(rng.uniform(size=(F, N, M)).astype(np.float32)),
         meas_z=torch.as_tensor(rng.normal(size=meas).astype(np.float32)),
         rate_z=torch.as_tensor(rng.normal(size=(F, S)).astype(np.float32)),
-        replay_idx=torch.as_tensor(rng.integers(0, size0 + t + 1, (F, updates, batch))),
+        replay_idx=torch.as_tensor(rng.integers(
+            0, min(size0 + t + 1, cap or size0 + t + 1), (F, updates, batch))),
         explore_move=torch.as_tensor(rng.integers(0, N * M, F)),
     ) for t in range(T)]
     # the Gumbel draws (Stream AC(λ), graph_policy) after all the others
@@ -3785,6 +3804,244 @@ def run_train_lm_twin(dev, card: str) -> dict:
     return dict(launches=got[shape], wall_s=wall, timing=t, first=losses[0],
                 last=losses[-1], profile=prof)
 
+# --------------------------------------------------------------------------
+# phase 29: the fleet across slots and processes (launch/mesh, sharding/fleet,
+# run_online_fleet(mesh=), the multi-host checkpoint, launch/multihost)
+# --------------------------------------------------------------------------
+def run_meshed_fleet(dev, card: str, floor: float) -> dict:
+    """Phase 29a: cq_large F=8 DDPG under one_slow_machine at phase 6's
+    offline budget and T=50, from one pretrained state and on the same
+    explicit draws, on a 2-slot mesh on the card and unmeshed: moves and
+    final assignments equal, rewards and latencies within 1e-5; each run's
+    lane-epochs/s; the K-NN launches counted by shape, and the kernel held
+    to its plain version at the block shapes."""
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.core import ddpg as ddpg_lib
+    from repro_torch.dsdps import scenarios
+    from repro_torch.fleet import take_lanes
+    from repro_torch.kernels.knn_topk import ops, row_top2_regret, row_top2_regret_ref
+    from repro_torch.launch import drl_control
+    from repro_torch.launch.mesh import SLOTS_ENV, make_fleet_mesh
+
+    F, T = MESH["fleet"], MESH["epochs"]
+    env = drl_control.build_env(MAIN["app"], dev)
+    agent = make_agent("ddpg", env, k_nn=MAIN["k"])
+    params = scenarios.build_for(env, MESH["scenario"], F)
+    seeded = lambda s: torch.Generator(device=dev).manual_seed(s)  # noqa: E731
+    states = ddpg_lib.offline_pretrain(
+        agent.init_fleet(seeded(29), F, dev, env_params=params), agent.cfg, env,
+        n_samples=MAIN["offline"], n_updates=MAIN["offline_updates"],
+        env_params=params, gen=seeded(30))
+    size0 = int(states.replay.size[0])
+    draws = [d.to(dev) for d in numpy_draws(np.random.default_rng(29), F, T, env,
+                                            agent.cfg.batch, size0=size0,
+                                            cap=agent.cfg.buffer)]
+    os.environ[SLOTS_ENV] = str(MESH["slots"])
+    try:
+        mesh = make_fleet_mesh(device=dev)
+    finally:
+        del os.environ[SLOTS_ENV]
+    runs = {}
+    for what, m in (("mesh", mesh), ("none", None)):
+        ops.LAUNCHES_BY_SHAPE.clear()
+        ops.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = run_online_fleet(0, env, agent, take_lanes(states, np.arange(F)), T,
+                                   env_params=params, draws=draws, mesh=m)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[what] = dict(hist=hist, wall=wall, by_shape=dict(ops.LAUNCHES_BY_SHAPE),
+                          launches=ops.LAUNCHES)
+        if sum(runs[what]["by_shape"].values()) != ops.LAUNCHES:
+            raise AssertionError(f"phase 29a {what}: launches by shape "
+                                 f"{runs[what]['by_shape']} != {ops.LAUNCHES}")
+    a, b = runs["mesh"]["hist"], runs["none"]["hist"]
+    if not (np.array_equal(a.moved, b.moved)
+            and np.array_equal(a.final_assignment, b.final_assignment)):
+        raise AssertionError("phase 29a: the 2-slot mesh's moves or assignments "
+                             "differ from the unmeshed run's")
+    np.testing.assert_allclose(a.rewards, b.rewards, rtol=1e-5)
+    np.testing.assert_allclose(a.latencies, b.latencies, rtol=1e-5)
+    gap = float(np.abs(a.latencies / b.latencies - 1).max())
+    rows = F // MESH["slots"] * env.N
+    select, update = (rows, env.M), (rows * agent.cfg.batch, env.M)
+    want = {select: MESH["slots"] * T, update: MESH["slots"] * T}
+    if runs["mesh"]["by_shape"] != want:
+        raise AssertionError(f"phase 29a: mesh launches {runs['mesh']['by_shape']}, "
+                             f"expected {want}")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    err = 0.0
+    for shape in (select, update):
+        proto = torch.rand(shape, generator=gen, device=dev)
+        proto[::7] = torch.round(proto[::7] * 3) / 3                  # ties
+        got, ref = row_top2_regret(proto), row_top2_regret_ref(proto)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise AssertionError(f"phase 29a: kernel indices differ at {shape}")
+        err = max(err, regret_err(got[2], ref[2]))
+    if err != 0.0:
+        raise AssertionError(f"phase 29a: kernel regret off by {err} at the block shapes")
+    timing = knn_timing(torch.rand(update, generator=gen, device=dev), floor)
+    rate = {k: F * T / r["wall"] for k, r in runs.items()}
+    log(f"phase 29a {MAIN['app']} ddpg F={F} T={T} under {MESH['scenario']} ({card}): "
+        f"{MESH['slots']}-slot mesh on {dev} == unmeshed on the same draws (moves and "
+        f"final assignments exact, latencies max rel diff {gap:.3g}); lane-epochs/s "
+        f"mesh {rate['mesh']:.1f} ({runs['mesh']['wall']:.3f} s), unmeshed "
+        f"{rate['none']:.1f} ({runs['none']['wall']:.3f} s); K-NN launches by shape "
+        f"mesh {runs['mesh']['by_shape']}, unmeshed {runs['none']['by_shape']}; the "
+        f"kernel at {list(want)} max |regret err| {err}; [{update[0]},{update[1]}] "
+        f"{timing['ms']:.6f} ms (plain {timing['plain_ms']:.6f}, library "
+        f"{timing['library_ms']:.6f}, bound {timing['bound_ms']:.6f})")
+    return dict(launches=runs["mesh"]["launches"], max_abs_err=err, timing=timing,
+                rate=rate, by_shape=runs["mesh"]["by_shape"])
+
+
+def _proc_bytes(step_dir) -> dict:
+    import pathlib
+    return {p.name: sum(f.stat().st_size for f in p.iterdir())
+            for p in sorted(pathlib.Path(step_dir).glob("proc_*"))}
+
+
+def run_multihost_drill(dev, card: str) -> dict:
+    """Phase 29b: the kill-and-resume drill through ``python -m
+    repro_torch.launch.multihost`` (2 workers x 1 slot, both on cuda:0 over
+    gloo; worker 1 SIGKILLed once epoch 20 is published), an uninterrupted
+    2-process job, and an uninterrupted 1-process run of the same seed: the
+    healed job and the 2-process one end equal to the 1-process run (moves
+    and final assignments exact, floats within 1e-5).  Logs each attempt's
+    wall s, the resume epoch, the ms of each multi-host save (the barrier
+    included) and the bytes of each proc_* directory."""
+    import json as _json
+    import pathlib
+    import shutil
+    import tempfile
+
+    D = DRILL
+    device = torch.device(dev).type
+    worker = ["--app", MAIN["app"], "--fleet", str(D["fleet"]), "--epochs",
+              str(D["epochs"]), "--checkpoint-every", str(D["every"]), "--k",
+              str(MAIN["k"]), "--offline", str(D["offline"]), "--offline-updates",
+              str(D["offline_updates"])]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(ROOT, "src") + os.pathsep + env.get("PYTHONPATH", "")
+    root = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+
+    def supervised(name: str, *extra: str) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.multihost", "--procs", "2",
+             "--devices-per-proc", "1", "--device", device, "--checkpoint-dir",
+             os.path.join(root, name), "--timeout", "300", *extra, "--", *worker,
+             "--save-history", os.path.join(root, f"{name}.npz")],
+            env=env, capture_output=True, text=True, timeout=400)
+        if out.returncode != 0:
+            raise AssertionError(f"phase 29b {name}: the supervisor exited "
+                                 f"{out.returncode}:\n{out.stdout[-6000:]}\n{out.stderr[-3000:]}")
+        return out.stdout, time.perf_counter() - t0
+
+    try:
+        healed_out, healed_wall = supervised("healed", "--kill-proc", "1", "--kill-at-epoch",
+                                         str(D["kill_at"]))
+        if ("killing worker 1 (drill)" not in healed_out
+                or "job complete on 1 process(es)" not in healed_out):
+            raise AssertionError(f"phase 29b: no kill or no healed finish:\n{healed_out}")
+        metas = {}
+        for step in sorted(pathlib.Path(root, "healed").glob("step_*")):
+            if (step / "meta.json").exists():
+                metas[step.name] = dict(_json.loads((step / "meta.json").read_text()),
+                                        bytes=_proc_bytes(step))
+        if not any(m["process_count"] == 2 for m in metas.values()):
+            raise AssertionError(f"phase 29b: no 2-process step published: {metas}")
+        whole_out, whole_wall = supervised("two")
+        t0 = time.perf_counter()
+        one = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.drl_control", "--sharded",
+             "--device", device, *worker, "--checkpoint-dir", os.path.join(root, "one"),
+             "--save-history", os.path.join(root, "one.npz")],
+            env=dict(env, REPRO_FLEET_SLOTS="1"), capture_output=True, text=True,
+            timeout=400)
+        one_wall = time.perf_counter() - t0
+        if one.returncode != 0:
+            raise AssertionError(f"phase 29b: the 1-process run exited {one.returncode}:"
+                                 f"\n{one.stdout[-3000:]}\n{one.stderr[-3000:]}")
+        ref = np.load(os.path.join(root, "one.npz"))
+        starts = {}
+        for name in ("healed", "two"):
+            got = np.load(os.path.join(root, f"{name}.npz"))
+            start = starts[name] = int(got["start_epoch"])
+            if not (np.array_equal(got["moved"], ref["moved"][:, start:])
+                    and np.array_equal(got["final_assignment"], ref["final_assignment"])):
+                raise AssertionError(f"phase 29b {name}: moves or final assignments "
+                                     f"differ from the 1-process run's")
+            for f in ("rewards", "latencies"):
+                np.testing.assert_allclose(got[f], ref[f][:, start:], rtol=1e-5)
+            np.testing.assert_allclose(got["finals"], ref["finals"], rtol=1e-5)
+        two_metas = {}
+        for step in sorted(pathlib.Path(root, "two").glob("step_*")):
+            if (step / "meta.json").exists():
+                two_metas[step.name] = dict(_json.loads((step / "meta.json").read_text()),
+                                            bytes=_proc_bytes(step))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    walls = re.findall(r"attempt (\d+) wall ([0-9.]+) s", healed_out)
+    kill = re.search(r"checkpoint at epoch (\d+) published; killing", healed_out)
+    saves = re.search(r"checkpoint saves: (\d+), ms each ([0-9., ]+)", whole_out)
+    rates = re.findall(r"([0-9.]+) lane-epochs/s", whole_out + healed_out + one.stdout)
+    save_ms = [1e3 * m["save_s"] for m in {**metas, **two_metas}.values()
+               if m["process_count"] == 2]
+    log(f"phase 29b drill ({card}): {MAIN['app']} F={D['fleet']} T={D['epochs']} "
+        f"saving every {D['every']}, 2 workers x 1 slot on cuda:0 over gloo; worker 1 "
+        f"killed once epoch {kill.group(1) if kill else '?'} was published, the job "
+        f"healed on 1 process from epoch {starts['healed']} (epochs redone: those the "
+        f"killed job ran past {starts['healed']}, at most {D['every']}; the killed "
+        f"logs end mid-run); attempt walls s {walls}, the healed job "
+        f"{healed_wall:.3f} s, the uninterrupted 2-process job {whole_wall:.3f} s, "
+        f"the 1-process run {one_wall:.3f} s; healed and 2-process == 1-process "
+        f"(moves, final assignments exact; floats within 1e-5)")
+    log(f"  multi-host saves ms (process 0, barrier included, from meta.json): "
+        + ", ".join(f"{x:.3f}" for x in save_ms)
+        + (f"; the 2-process job's rank 0: {saves.group(2).strip()} ms over "
+           f"{saves.group(1)} saves" if saves else ""))
+    log(f"  bytes per proc_* directory: "
+        + "; ".join(f"{k} {v['bytes']}" for k, v in {**metas, **two_metas}.items()
+                    if v["process_count"] == 2))
+    log(f"  lane-epochs/s printed by the workers (2-process job, healed attempt, "
+        f"1-process run): {rates}")
+    return dict(save_ms=save_ms, walls=walls, start=starts["healed"])
+
+
+def run_elastic_twin(dev, card: str) -> dict:
+    """Phase 29c: the elastic_restart twin at its reference budget (the
+    smoke llama3-8b, 10 steps saved every 5, 16 of 512 workers lost, the
+    multi-pod re-plan, 5 steps after the restore): its lines, and the flash
+    launches of its steps counted by shape (each layer's forward and its
+    rematerialized recompute, 2 microbatches, 15 steps)."""
+    from repro_torch.examples import elastic_restart
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.knn_topk import ops
+
+    fa_ops.LAUNCHES_BY_SHAPE.clear()
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = elastic_restart.run(device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(fa_ops.LAUNCHES_BY_SHAPE)
+    steps = elastic_restart.STEPS + elastic_restart.RESUMED_STEPS
+    from repro_torch.configs import get_config
+    layers = get_config("llama3-8b", smoke=True).num_layers
+    if (len(out["dead"]) != 16 or out["resumed"] != elastic_restart.STEPS
+            or out["steps"] != [5, 10] or len(out["losses"]) != steps
+            or not np.isfinite(out["losses"]).all()
+            or sum(got.values()) != layers * 2 * 2 * steps or ops.LAUNCHES != 0):
+        raise AssertionError(f"phase 29c: {out}, flash {got}, K-NN {ops.LAUNCHES}")
+    log(f"phase 29c elastic_restart twin ({card}): {len(out['dead'])} dead of 512, "
+        f"re-plan {out['plan'].shape} over {out['plan'].axes}, restored step "
+        f"{out['resumed']}; loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}; "
+        f"{wall:.3f} s; flash launches by shape {got}; K-NN 0")
+    return dict(flash=got, wall=wall)
+
 
 def log_instantiations(source: str, text: str) -> None:
     """Phase 2: registers and spill stores of every kernel instantiation in
@@ -3931,6 +4188,11 @@ def main() -> int:
     train = run_train_full(dev, card)
     train_lm_twin = run_train_lm_twin(dev, card)
     log(f"phase 28 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    meshed = run_meshed_fleet(dev, card, kernel["timings"][25600]["floor_ms"])
+    run_multihost_drill(dev, card)
+    run_elastic_twin(dev, card)
+    log(f"phase 29 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -4018,6 +4280,11 @@ def main() -> int:
             train["timing"], train["timing"]),
         row("flash_attention_train_lm", flash_sm90, flash_tpu, train_lm_twin["launches"],
             train_lm_twin["timing"], train_lm_twin["timing"]),
+        # phase 29a: the 2-slot mesh's blocks, select [400, 10] and update
+        # [12800, 10] (4 lanes a block), timed at the update's shape
+        row("row_top2_regret_mesh", "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
+            "src/repro/kernels/knn_topk/kernel.py:37", meshed["launches"], meshed,
+            meshed["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -31,6 +31,7 @@ generator's Mersenne-Twister state against a CUDA generator's seed and
 Philox offset), and restoring one into the other raises."""
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import pathlib
@@ -85,17 +86,57 @@ def named_leaves(tree) -> list[tuple[str, Leaf]]:
     return out
 
 
-def _dtype_name(t: torch.Tensor) -> str:
+def map_tensors(fn, tree, *others):
+    """``tree`` rebuilt with each tensor ``x`` replaced by ``fn(x, *ys)``, the
+    ``ys`` the tensors at the same place in ``others`` (trees of the same
+    structure).  Containers are walked as :func:`named_leaves` walks them;
+    a module is copied with fresh parameters
+    (and buffers) holding the results, each keeping its ``requires_grad``.
+    The results never alias the inputs when ``fn`` copies."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        with torch.no_grad():
+            y = fn(tree.detach(), *(o.detach() for o in others))
+        return y.requires_grad_(tree.requires_grad)
+    if isinstance(tree, nn.Module):
+        named = [dict([*o.named_parameters(), *o.named_buffers()]) for o in others]
+        memo = {}
+        for name, p in tree.named_parameters():
+            with torch.no_grad():
+                y = fn(p.detach(), *(n[name].detach() for n in named))
+            memo[id(p)] = nn.Parameter(y, requires_grad=p.requires_grad)
+        for name, b in tree.named_buffers():
+            with torch.no_grad():
+                memo[id(b)] = fn(b, *(n[name] for n in named))
+        return copy.deepcopy(tree, memo)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        new = copy.copy(tree)
+        for f in dataclasses.fields(tree):
+            object.__setattr__(new, f.name, map_tensors(
+                fn, getattr(tree, f.name), *(getattr(o, f.name) for o in others)))
+        return new
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(fn, *xs) for xs in zip(tree, *others)))
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v, *(o[k] for o in others))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, *xs) for xs in zip(tree, *others))
+    raise TypeError(f"cannot gather lanes of a {type(tree).__name__}")
+
+
+def dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
 def _spec(leaf: Leaf) -> tuple[list[int], str]:
     """The shape and dtype name a leaf is stored with."""
     t = leaf.get_state() if isinstance(leaf, torch.Generator) else leaf
-    return list(t.shape), _dtype_name(t)
+    return list(t.shape), dtype_name(t)
 
 
-def _host_copy(leaf: Leaf) -> torch.Tensor:
+def host_copy(leaf: Leaf) -> torch.Tensor:
     """A leaf's value on the host, taken on the caller's thread."""
     if isinstance(leaf, torch.Generator):
         return leaf.get_state()
@@ -114,6 +155,30 @@ def _crc32(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr))
 
 
+def write_leaf(directory: pathlib.Path, index: int, name: str,
+               t: torch.Tensor) -> dict:
+    """Write the host tensor ``t`` as ``leaf_%05d.npy`` in ``directory``;
+    returns its manifest entry."""
+    fn = f"leaf_{index:05d}.npy"
+    arr = _as_stored(t)
+    np.save(directory / fn, arr, allow_pickle=False)
+    return {"name": name, "file": fn, "shape": list(t.shape),
+            "dtype": dtype_name(t), "crc32": _crc32(arr)}
+
+
+def read_leaf(d: pathlib.Path, ent: dict) -> torch.Tensor:
+    """The tensor of manifest entry ``ent`` in step directory ``d``, its
+    crc32 checked (``IOError`` when it differs)."""
+    arr = np.load(d / ent["file"], allow_pickle=False)
+    crc = _crc32(arr)
+    if crc != ent["crc32"]:
+        raise IOError(f"checkpoint corruption in {ent['name']}: "
+                      f"crc {crc} != {ent['crc32']}")
+    if ent["dtype"] == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 class Checkpointer:
     def __init__(self, directory: str | pathlib.Path, keep: int = 3):
         self.dir = pathlib.Path(directory)
@@ -126,7 +191,7 @@ class Checkpointer:
         copies, the crc and the files all on the caller's thread)."""
         named = named_leaves(state)
         return self._write(step, [n for n, _ in named],
-                           [_host_copy(leaf) for _, leaf in named])
+                           [host_copy(leaf) for _, leaf in named])
 
     def _write(self, step: int, names: list[str],
                host: list[torch.Tensor]) -> pathlib.Path:
@@ -137,12 +202,7 @@ class Checkpointer:
         tmp.mkdir(parents=True)
         manifest = {"step": step, "leaves": []}
         for i, (name, t) in enumerate(zip(names, host)):
-            fn = f"leaf_{i:05d}.npy"
-            arr = _as_stored(t)
-            np.save(tmp / fn, arr, allow_pickle=False)
-            manifest["leaves"].append({
-                "name": name, "file": fn, "shape": list(t.shape),
-                "dtype": _dtype_name(t), "crc32": _crc32(arr)})
+            manifest["leaves"].append(write_leaf(tmp, i, name, t))
         (tmp / "manifest.json").write_text(json.dumps(manifest))
         if final.exists():
             shutil.rmtree(final)
@@ -197,7 +257,7 @@ class Checkpointer:
                 raise ValueError(
                     f"checkpoint leaf {name} is {ent['dtype']}{ent['shape']}, "
                     f"the template's {dtype}{shape}{hint}")
-        values = [self._read(d, ent) for ent in entries]
+        values = [read_leaf(d, ent) for ent in entries]
         with torch.no_grad():
             for (_, leaf), value in zip(named, values):
                 if isinstance(leaf, torch.Generator):
@@ -205,17 +265,6 @@ class Checkpointer:
                 else:
                     leaf.copy_(value)
         return template
-
-    @staticmethod
-    def _read(d: pathlib.Path, ent: dict) -> torch.Tensor:
-        arr = np.load(d / ent["file"], allow_pickle=False)
-        crc = _crc32(arr)
-        if crc != ent["crc32"]:
-            raise IOError(f"checkpoint corruption in {ent['name']}: "
-                          f"crc {crc} != {ent['crc32']}")
-        if ent["dtype"] == "bfloat16":
-            return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        return torch.from_numpy(arr)
 
 
 class AsyncCheckpointer(Checkpointer):

@@ -35,7 +35,9 @@ class EpochDraws(NamedTuple):
     """Every random draw of one decision epoch, for ``F`` lanes."""
 
     explore_add: torch.Tensor    # [F] bool — the ε coin (DDPG, DQN, Stream
-                                 # Q(λ), graph_policy)
+                                 # Q(λ), graph_policy); or [F] uniform
+                                 # [0, 1), the coin lane f < its ε
+                                 # (draw_epoch's)
     explore_noise: torch.Tensor  # [F, N, M] uniform [0, 1) (DDPG)
     explore_move: torch.Tensor   # [F] int in [0, N·M) — the random move (DQN,
                                  # Stream Q(λ))
@@ -45,7 +47,10 @@ class EpochDraws(NamedTuple):
     # noise_sigma) and the load drift [F, E] (× load_jitter)
     meas_z: torch.Tensor
     rate_z: torch.Tensor
-    replay_idx: torch.Tensor     # [F, U, B] int
+    replay_idx: torch.Tensor     # [F, U, B] int; or float64 uniform [0,
+                                 # 1), scaled by lane f's filled replay
+                                 # size as replay.sample_indices scales
+                                 # its own (draw_epoch's)
     # [F, N, M] standard Gumbel: a categorical draw is argmax(gumbel +
     # logits), as jax.random.categorical computes it (Stream AC(λ)'s
     # per-row sample; graph_policy's random valid move over the flat N·M)
@@ -108,6 +113,40 @@ def make_epoch_step(env, agent: Agent, env_params=None,
         return state, out.state, (out.reward, out.latency_ms, out.moved)
 
     return epoch_step
+
+
+def draw_epoch(gen: torch.Generator, env, agent: Agent, fleet: int,
+               updates_per_epoch: int = 1) -> EpochDraws:
+    """Every draw of one epoch for ``fleet`` lanes of ``agent`` on ``env``,
+    from ``gen`` on its device, in a fixed order (the coin, the noise, the
+    move, the measurement, the rate walk, the replay rows, the Gumbel
+    draw), whichever of them the agent uses.
+
+    The two draws whose law depends on a lane's state come as uniforms in
+    [0, 1) that each agent resolves against its own lane, as it resolves its
+    generator's draws: the ε coin (``explore_add < ε`` of the lane's epoch)
+    and the replay rows (``replay_idx``, float64, scaled by the lane's
+    filled size).  So lane f's numbers are the same whichever rows of the
+    fleet a caller runs together: a meshed run (``run_online_fleet(...,
+    mesh=)``) draws each epoch this way fleet-wide, from a generator every
+    process seeds alike, and each block takes its own rows."""
+    from repro_torch.core.streaming import gumbel
+    from repro_torch.dsdps.env import N_MEASUREMENTS
+    dev = gen.device
+    N, M = env.N, env.M
+    meas = (fleet,) if env.family == "placement" else (fleet, N_MEASUREMENTS)
+    batch = getattr(agent.cfg, "batch", 1)
+    return EpochDraws(
+        explore_add=torch.rand(fleet, generator=gen, device=dev),
+        explore_noise=torch.rand(fleet, N, M, generator=gen, device=dev),
+        explore_move=torch.randint(0, N * M, (fleet,), generator=gen, device=dev),
+        meas_z=torch.randn(meas, generator=gen, device=dev),
+        # the rate walk's width: spouts on a DSDPS env (the envelope's on a
+        # structural one), experts on the placement env
+        rate_z=torch.randn(fleet, env.state_dim - N * M, generator=gen, device=dev),
+        replay_idx=torch.rand(fleet, updates_per_epoch, batch, generator=gen,
+                              device=dev, dtype=torch.float64),
+        explore_gumbel=gumbel((fleet, N, M), gen, dev))
 
 
 def params_are_stacked(env, env_params) -> bool:

@@ -181,11 +181,12 @@ def update_step(state: DDPGState, cfg: DDPGConfig,
                 idx: torch.Tensor | None = None,
                 gen: torch.Generator | None = None):
     """One critic + actor step on every lane, from the replay rows ``idx
-    [F, B]`` (drawn from ``gen`` when not passed); resets the reward
+    [F, B]`` (drawn from ``gen`` when not passed; float uniforms are scaled
+    to each lane's filled rows, ``replay.sample_indices``); resets the reward
     statistics, as the reference does.  Returns (state, losses
     ``{"critic_loss": [F], "actor_loss": [F]}``)."""
-    if idx is None:
-        idx = sample_indices(state.replay, cfg.batch, gen)
+    if idx is None or idx.is_floating_point():   # draw_epoch's uniforms
+        idx = sample_indices(state.replay, cfg.batch, gen, u=idx)
     s, a, r, s_next = replay_sample(state.replay, idx)
     y = _target_values(state, cfg, r, s_next)
 

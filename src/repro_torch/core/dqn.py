@@ -106,11 +106,12 @@ def update_step(state: DQNState, cfg: DQNConfig,
                 idx: torch.Tensor | None = None,
                 gen: torch.Generator | None = None):
     """One Q-learning step on every lane from the replay rows ``idx [F, B]``
-    (drawn from ``gen`` when not passed): MSE against r + γ·max Q_target,
+    (drawn from ``gen`` when not passed; float uniforms are scaled to each
+    lane's filled rows, ``replay.sample_indices``): MSE against r + γ·max Q_target,
     Adam, then the soft target update.  The reward statistics stay.
     Returns (state, ``{"loss": [F]}``)."""
-    if idx is None:
-        idx = sample_indices(state.replay, cfg.batch, gen)
+    if idx is None or idx.is_floating_point():   # draw_epoch's uniforms
+        idx = sample_indices(state.replay, cfg.batch, gen, u=idx)
     s, a, r, s_next = replay_sample(state.replay, idx)
     a = a[..., 0].long()
     with torch.no_grad():

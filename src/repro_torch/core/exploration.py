@@ -30,12 +30,13 @@ def perturb_proto(proto: torch.Tensor, eps: torch.Tensor,
     """With probability ``eps [F]`` add uniform noise in [0, 1) to each of
     lane f's proto-actions ``[F, ..., N, M]`` (one per row of a serving
     plane's ``[1, n_slots]``).  ``add [F, ...]`` (bool, one coin a
-    proto-action) and ``noise [F, ..., N, M]`` are the draws; those not
-    passed in come from ``gen``."""
+    proto-action; or a uniform in [0, 1), the coin ``add < eps``) and
+    ``noise [F, ..., N, M]`` are the draws; those not passed in come from
+    ``gen``."""
     lead = proto.shape[:-2]
-    if add is None:
-        add = torch.rand(lead, generator=gen, device=proto.device) < eps.reshape(
-            -1, *(1,) * (len(lead) - 1))
+    if add is None or add.is_floating_point():
+        u = torch.rand(lead, generator=gen, device=proto.device) if add is None else add
+        add = u < eps.reshape(-1, *(1,) * (len(lead) - 1))
     if noise is None:
         noise = torch.rand(proto.shape, generator=gen, device=proto.device)
     add = add.reshape(*lead, 1, 1)
@@ -48,11 +49,14 @@ def epsilon_greedy(q_values: torch.Tensor, eps: torch.Tensor,
                    gen: torch.Generator | None = None) -> torch.Tensor:
     """DQN move selection over flat action values ``q_values [F, A]``: lane
     f takes the random move ``rand_a[f]`` when ``explore[f]`` (the ε coin,
-    with probability ``eps [F]``), else its greedy move (the first maximum,
-    as ``jnp.argmax``).  Draws not passed in come from ``gen``."""
+    with probability ``eps [F]``; a uniform in [0, 1) is the coin
+    ``explore < eps``), else its greedy move (the first maximum, as
+    ``jnp.argmax``).  Draws not passed in come from ``gen``."""
     F, A = q_values.shape
-    if explore is None:
-        explore = torch.rand(F, generator=gen, device=q_values.device) < eps
+    if explore is None or explore.is_floating_point():
+        u = torch.rand(F, generator=gen, device=q_values.device) if explore is None \
+            else explore
+        explore = u < eps
     if rand_a is None:
         rand_a = torch.randint(0, A, (F,), generator=gen, device=q_values.device)
     return torch.where(explore, rand_a.long(), q_values.argmax(-1))

@@ -299,6 +299,8 @@ def _agent_select(cfg: GraphPolicyConfig, state, s_vec, env_state, env_params,
     if explore:
         if draws is not None:
             add, g = draws.explore_add, draws.explore_gumbel.reshape(F, -1)
+            if add.is_floating_point():           # draw_epoch's uniform coin
+                add = add < cfg.eps(state.epoch)
         else:
             add = torch.rand(F, generator=gen, device=s_vec.device) < cfg.eps(
                 state.epoch)

@@ -67,12 +67,15 @@ def replay_add(buf: Replay, s, a, r, s_next) -> Replay:
 
 
 def sample_indices(buf: Replay, batch: int,
-                   gen: torch.Generator | None) -> torch.Tensor:
+                   gen: torch.Generator | None,
+                   u: torch.Tensor | None = None) -> torch.Tensor:
     """``[F, batch]`` uniform indices, with replacement, over each lane's
-    filled prefix (an empty buffer samples slot 0)."""
+    filled prefix (an empty buffer samples slot 0), from the float64
+    uniforms ``u [F, batch]`` in [0, 1) or, when None, from ``gen``."""
     high = torch.clamp(buf.size, min=1).to(torch.float64)[:, None]
-    u = torch.rand(buf.size.shape[0], batch, generator=gen,
-                   device=buf.size.device, dtype=torch.float64)
+    if u is None:
+        u = torch.rand(buf.size.shape[0], batch, generator=gen,
+                       device=buf.size.device, dtype=torch.float64)
     return torch.clamp((u * high).long(), max=buf.capacity - 1)
 
 

@@ -13,7 +13,9 @@ converged or not; this module makes fleet compute budget-aware:
   fleet (agent states through :func:`take_lanes`, env states, and the
   STACKED leaves of a scenario fleet — broadcast-invariant leaves pass
   through single-copy).  Without a mesh the fleet compacts to exactly its
-  live lanes: no passenger lanes.
+  live lanes; on a mesh to ``sharding.compaction_size(n_live, mesh)``, the
+  gap padded with the most recently stopped "passenger" lanes (``-1`` in
+  the lane map), and the compacted carries are cut over the mesh again.
 * **Successive-halving scenario search** — :func:`search_scenarios`
   launches a wide fleet of perturbed scenarios, prunes the bottom half at
   each rung by eval reward, refills the freed lanes with fresh
@@ -32,17 +34,20 @@ one.  What an elastic run is held to:
   ``run_online_fleet`` from the same generator bit for bit, and (b) killed
   and resumed from its own checkpoint (the generator is in it) it equals
   its uninterrupted self bit for bit.  A lane that survives a compaction
-  matches the fixed-grid lane in distribution only.
+  matches the fixed-grid lane in distribution only;
+* on a mesh each epoch is drawn at this call's full width and every
+  compacted row takes its original lane's draws (``core.agent``'s meshed
+  contract), so there a surviving lane equals the meshed fixed-grid run's
+  from the same generator too, whatever the mesh.  A compacted snapshot
+  resumed is a call of its survivors' width, whose draws are other
+  numbers than the uninterrupted run's.
 
 Entry points: ``run_online_fleet(..., lifecycle=StopRule(...))`` for the
 drop-in path, :func:`run_online_fleet_elastic` for the full
 :class:`ElasticResult`, :func:`restore_elastic` to resume a compacted
-snapshot, and ``drl_control --early-stop`` / ``--scenario-search``.  Not
-ported: the mesh (``compaction_size`` with a mesh, passenger lanes,
-re-placement), which waits for the port's sharding."""
+snapshot, and ``drl_control --early-stop`` / ``--scenario-search``."""
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import pathlib
@@ -50,14 +55,15 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
-from repro_torch.checkpoint.checkpointer import named_leaves
-from repro_torch.core.agent import (History, chunk_schedule, prepare_fleet,
+from repro_torch.checkpoint.checkpointer import map_tensors, named_leaves
+from repro_torch.core.agent import (History, _require_agent, block_steps,
+                                    chunk_schedule, prepare_fleet, run_blocks,
                                     run_chunk)
 from repro_torch.core.api import Agent, EpochDraws, make_epoch_step
 from repro_torch.diagnostics import lifted, maybe_check_finite
 from repro_torch.dsdps.simulator import lane_params, stack_env_params
+from repro_torch.sharding.fleet import compaction_size, fleet_host_tree, shard_fleet
 
 
 class StopRule(NamedTuple):
@@ -95,48 +101,8 @@ def plateau_converged(recent, rule: StopRule) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# lane gathers over the checkpointer's walk
+# lane gathers over the checkpointer's walk (checkpointer.map_tensors)
 # --------------------------------------------------------------------------
-def _map_tensors(fn, tree, *others):
-    """``tree`` rebuilt with each tensor ``x`` replaced by ``fn(x, *ys)``, the
-    ``ys`` the tensors at the same place in ``others`` (trees of the same
-    structure).  Containers are walked as a checkpoint walks them
-    (``checkpoint.checkpointer``); a module is copied with fresh parameters
-    (and buffers) holding the results, each keeping its ``requires_grad``.
-    The results never alias the inputs when ``fn`` copies."""
-    if tree is None:
-        return None
-    if isinstance(tree, torch.Tensor):
-        with torch.no_grad():
-            y = fn(tree.detach(), *(o.detach() for o in others))
-        return y.requires_grad_(tree.requires_grad)
-    if isinstance(tree, nn.Module):
-        named = [dict([*o.named_parameters(), *o.named_buffers()]) for o in others]
-        memo = {}
-        for name, p in tree.named_parameters():
-            with torch.no_grad():
-                y = fn(p.detach(), *(n[name].detach() for n in named))
-            memo[id(p)] = nn.Parameter(y, requires_grad=p.requires_grad)
-        for name, b in tree.named_buffers():
-            with torch.no_grad():
-                memo[id(b)] = fn(b, *(n[name] for n in named))
-        return copy.deepcopy(tree, memo)
-    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        new = copy.copy(tree)
-        for f in dataclasses.fields(tree):
-            object.__setattr__(new, f.name, _map_tensors(
-                fn, getattr(tree, f.name), *(getattr(o, f.name) for o in others)))
-        return new
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_tensors(fn, *xs) for xs in zip(tree, *others)))
-    if isinstance(tree, dict):
-        return {k: _map_tensors(fn, v, *(o[k] for o in others))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(fn, *xs) for xs in zip(tree, *others))
-    raise TypeError(f"cannot gather lanes of a {type(tree).__name__}")
-
-
 def _indexer(idx):
     """``idx`` (any integer sequence) as int64 indices on any device, each
     device's copy made once."""
@@ -154,11 +120,11 @@ def take_lanes(tree, idx):
     """Lanes ``idx`` of every tensor of ``tree`` (dim 0 gathered: a copy),
     its containers rebuilt and its modules given fresh parameters."""
     at = _indexer(idx)
-    return _map_tensors(lambda x: x.index_select(0, at(x.device)), tree)
+    return map_tensors(lambda x: x.index_select(0, at(x.device)), tree)
 
 
 def _concat_lanes(a, b):
-    return _map_tensors(lambda x, y: torch.cat([x, y]), a, b)
+    return map_tensors(lambda x, y: torch.cat([x, y]), a, b)
 
 
 def _put_lanes(dst, src, dst_rows, src_rows) -> None:
@@ -240,6 +206,7 @@ def run_online_fleet_elastic(
     start_epoch: int = 0,
     stop_fn: Callable[[np.ndarray, int], np.ndarray] | None = None,
     lane_ids: np.ndarray | None = None,
+    mesh=None,
 ) -> ElasticResult:
     """``run_online_fleet`` with the elastic lane lifecycle.
 
@@ -251,14 +218,23 @@ def run_online_fleet_elastic(
     compacted into a smaller fleet.
 
     ``checkpoint`` snapshots the COMPACTED carries after each chunk with a
-    ``lane_map`` naming each row's original lane; resume with
-    :func:`restore_elastic`.
+    ``lane_map`` naming each row's original lane (``-1`` for a passenger);
+    resume with :func:`restore_elastic`.
+
+    ``mesh`` cuts the lanes over its slots as ``run_online_fleet(...,
+    mesh=)`` does; the fleet then compacts to
+    ``sharding.compaction_size(n_live, mesh)``, padded with passenger lanes,
+    and is cut again.  At each compaction the carries are brought home
+    (``sharding.fleet_host_tree``, identically on every process), so the
+    lane bookkeeping stays in lockstep across the processes of a spanning
+    mesh.
 
     ``stop_fn(rewards_so_far, t) -> done[n_live]`` overrides the plateau
     test (rows are the live lanes' full ``[n_live, t]`` reward history of
     this call).  ``lane_ids`` names the lanes in the ORIGINAL run's
     numbering — pass the ids :func:`restore_elastic` returns when resuming,
     so lane maps and the result keep referring to the original lanes."""
+    agent = _require_agent(agent)
     rule = rule if rule is not None else StopRule()
     T = int(T)
     if T < 1:
@@ -266,6 +242,8 @@ def run_online_fleet_elastic(
     if draws is not None and len(draws) != T:
         raise ValueError(f"draws holds {len(draws)} epochs, T is {T}")
     with lifted():
+        states = fleet_host_tree(states, env.device)
+        env_state = fleet_host_tree(env_state, env.device)
         gen, F, params, env_state = prepare_fleet(gen_or_seed, env, states,
                                                   env_params, env_state)
         ref = env.default_params()
@@ -284,63 +262,101 @@ def run_online_fleet_elastic(
         final_X = env_state.X.clone()
 
         orig = np.arange(F)              # compact position -> row in this call
+        live = np.ones(F, bool)          # False: a passenger (already captured)
         executed = t = 0
 
-        def capture(pos: np.ndarray) -> None:
-            _put_lanes(final_states, states, orig[pos], pos)
-            _put_lanes(final_X, env_state.X, orig[pos], pos)
+        def whole():
+            """The compact carries, whole, on ``env.device``."""
+            return (fleet_host_tree(states, env.device),
+                    fleet_host_tree(env_state, env.device))
 
-        step = make_epoch_step(env, agent, env_params=params,
-                               updates_per_epoch=updates_per_epoch,
-                               explore=explore)
+        def capture(pos: np.ndarray) -> None:
+            s, e = whole()
+            _put_lanes(final_states, s, orig[pos], pos)
+            _put_lanes(final_X, e.X, orig[pos], pos)
+
+        def steps():
+            if mesh is None:
+                return make_epoch_step(env, agent, env_params=params,
+                                       updates_per_epoch=updates_per_epoch,
+                                       explore=explore)
+            return block_steps(env, agent, blocks, updates_per_epoch, explore)
+
+        if mesh is not None:
+            states, env_state, blocks, _ = shard_fleet(mesh, states, env_state,
+                                                       params, ref)
+        step = steps()
         for n in chunk_schedule(T, every):
-            chunk = None if draws is None else [
-                d if len(orig) == F else _draw_rows(d, orig) for d in draws[t:t + n]]
-            states, env_state, r, l, m = run_chunk(step, states, env_state, gen,
-                                                    n, chunk)
+            if mesh is None:
+                chunk = None if draws is None else [
+                    d if len(orig) == F else _draw_rows(d, orig)
+                    for d in draws[t:t + n]]
+                states, env_state, r, l, m = run_chunk(step, states, env_state,
+                                                        gen, n, chunk)
+                swept = states
+            else:
+                # every epoch drawn at the call's full width; each compact
+                # row takes its original lane's draws
+                states, env_state, traces = run_blocks(
+                    step, states, env_state, gen, n, env, agent,
+                    None if draws is None else draws[t:t + n],
+                    updates_per_epoch, rows=orig, width=F)
+                r, l, m = fleet_host_tree(traces)
+                swept = tuple(b.value for b in states.blocks)
             executed += len(orig) * n
-            maybe_check_finite((states, r),
+            maybe_check_finite((swept, r),
                                f"run_online_fleet_elastic epoch {start_epoch + t + n}")
-            rewards_buf[orig, t:t + n] = r.cpu().numpy()
-            lats_buf[orig, t:t + n] = l.cpu().numpy()
-            moved_buf[orig, t:t + n] = m.cpu().numpy()
+            rows = orig[live]
+            rewards_buf[rows, t:t + n] = r.cpu().numpy()[live]
+            lats_buf[rows, t:t + n] = l.cpu().numpy()[live]
+            moved_buf[rows, t:t + n] = m.cpu().numpy()[live]
             t += n
             if checkpoint is not None:
                 checkpoint.save(start_epoch + t, states, env_state, gen,
-                                lane_map=ids[orig].astype(np.int32))
+                                lane_map=np.where(live, ids[orig], -1).astype(np.int32))
             if t >= T:
                 break
 
             # -- the stop test at the chunk boundary ------------------------
             if stop_fn is not None:
-                done = np.asarray(stop_fn(rewards_buf[orig, :t], t), bool)
+                done = np.asarray(stop_fn(rewards_buf[rows, :t], t), bool)
             elif t >= rule.warmup:
                 done = plateau_converged(
-                    rewards_buf[orig, t - 2 * rule.window:t], rule).numpy()
+                    rewards_buf[rows, t - 2 * rule.window:t], rule).numpy()
             else:
                 continue
             if not done.any():
                 continue
-            pos = np.flatnonzero(done)
+            pos = np.flatnonzero(live)[done]
             capture(pos)
             stopped = orig[pos]
             epochs_run[stopped] = t
             rewards_buf[stopped, t:] = rewards_buf[stopped, t - 1:t]
             lats_buf[stopped, t:] = lats_buf[stopped, t - 1:t]
             moved_buf[stopped, t:] = 0.0
+            live[pos] = False
 
             # -- compaction -------------------------------------------------
-            keep = np.flatnonzero(~done)
-            orig = orig[keep]
-            if keep.size == 0:
+            n_live = int(live.sum())
+            if n_live == 0:
                 break
-            states, env_state, params = compact_lanes(keep, states, env_state,
-                                                      params, ref)
-            step = make_epoch_step(env, agent, env_params=params,
-                                   updates_per_epoch=updates_per_epoch,
-                                   explore=explore)
-        if orig.size:                    # lanes still running at the horizon
-            capture(np.arange(orig.size))
+            target = compaction_size(n_live, mesh)
+            if target < len(orig):
+                keep = np.flatnonzero(live)
+                if target > n_live:      # pad with the most recent passengers
+                    passengers = np.flatnonzero(~live)[::-1][:target - n_live]
+                    keep = np.sort(np.concatenate([keep, passengers]))
+                if mesh is not None:
+                    states, env_state = whole()
+                states, env_state, params = compact_lanes(keep, states, env_state,
+                                                          params, ref)
+                orig, live = orig[keep], live[keep]
+                if mesh is not None:
+                    states, env_state, blocks, _ = shard_fleet(
+                        mesh, states, env_state, params, ref)
+                step = steps()
+        if live.any():                   # lanes still running at the horizon
+            capture(np.flatnonzero(live))
         X = final_X.cpu().numpy()
     history = History(rewards=rewards_buf, latencies=lats_buf,
                       moved=moved_buf, final_assignment=X)
@@ -350,7 +366,8 @@ def run_online_fleet_elastic(
 
 
 def restore_elastic(checkpoint, states_like, env_state_like, gen_like,
-                    env_params=None, ref=None, epoch: int | None = None):
+                    env_params=None, ref=None, epoch: int | None = None,
+                    mesh=None):
     """Restore a COMPACTED elastic-lifecycle snapshot for resumption.
 
     The snapshot's width is its lane map's, read from the manifest; the
@@ -361,6 +378,13 @@ def restore_elastic(checkpoint, states_like, env_state_like, gen_like,
     run's lane-stacked ``env_params`` and the single-scenario ``ref``, the
     surviving lanes' scenario rows are gathered (broadcast-invariant
     fields pass through single-copy).
+
+    The carries come back whole whatever ``mesh`` is, as the reference's
+    come back as host arrays onto a mesh that spans processes: dropping
+    the passenger rows changes the fleet's width, so
+    ``run_online_fleet_elastic(..., mesh=)`` cuts them over the mesh
+    afresh.  A snapshot written by several processes
+    (``step_N/proc_P/``) restores on any number of them.
 
     Returns ``(epoch, states, env_state, gen, env_params, lane_ids)``; feed
     them back into :func:`run_online_fleet_elastic` with
@@ -379,6 +403,7 @@ def restore_elastic(checkpoint, states_like, env_state_like, gen_like,
                          f"{checkpoint.directory} has no lane map; restore it "
                          "with FleetCheckpoint.restore")
     width = np.arange(entry["shape"][0])
+    del mesh                             # whole carries onto any mesh
     epoch, states, env_state, gen, lane_map = checkpoint.restore(
         take_lanes(states_like, width), take_lanes(env_state_like, width),
         gen_like, epoch=epoch, with_lane_map=True)

@@ -37,6 +37,19 @@ per steady-state epoch with their sites: "log", not the reference's
 being measured, and a guard that aborts the first such call would measure
 nothing.
 
+``--sharded`` cuts the fleet over this process's slots
+(``launch.mesh.make_fleet_mesh``: one a visible card, or
+``REPRO_FLEET_SLOTS`` on ``--device``) and ``--distributed`` joins a
+multi-process job first (``launch.mesh.init_distributed``, before any CUDA
+call; the coordinates from ``REPRO_COORDINATOR``, ``REPRO_NUM_PROCESSES``,
+``REPRO_PROCESS_ID``) and cuts it over every process's slots, each process
+running this same command and every rank but 0 silent
+(``repro_torch.launch.multihost`` spawns such jobs on one host).  A fleet
+the mesh does not divide, after a resume too, runs un-meshed on the same
+device, with a printed line saying so.  ``--resume`` restores onto the
+mesh, through the lane map when there is one.  ``--save-history PATH``
+writes the History and the per-lane latencies (rank 0) as ``.npz``.
+
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
       --fleet 8 --offline 2000 --epochs 300
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_large \\
@@ -57,6 +70,9 @@ nothing.
       --fleet 8 --offline 1000 --offline-updates 100 --epochs 50 --guards
   PYTHONPATH=src python -m repro_torch.launch.drl_control --app cq_small \\
       --scenario-search --fleet 8 --search-rungs 16,16,32
+  REPRO_FLEET_SLOTS=2 PYTHONPATH=src python -m repro_torch.launch.drl_control \\
+      --device cpu --app cq_small --fleet 4 --offline 50 --offline-updates 5 \\
+      --epochs 8 --sharded
 
 Runs on CUDA unless ``--device cpu`` is given; with no GPU and no
 ``--device cpu`` it raises."""
@@ -64,6 +80,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import os
+import sys
 import time
 
 import numpy as np
@@ -81,6 +99,9 @@ from repro_torch.dsdps import (SchedulingEnv, StructuralSchedulingEnv, apps,
 from repro_torch.dsdps.apps import default_workload
 from repro_torch.fleet import (restore_elastic, run_online_fleet_elastic,
                                search_scenarios)
+from repro_torch.launch.mesh import (init_distributed, make_fleet_mesh,
+                                     process_index)
+from repro_torch.sharding import fleet_size
 
 APPS = (*apps.ALL_APPS, "placement", "structural")
 
@@ -99,15 +120,23 @@ def build_env(app: str, device):
 
 def refusal(app: str, agent: str, offline: int = 0, serve: int = 0,
             fleet: int = 4, checkpoint_dir=None, resume: bool = False,
-            early_stop: bool = False, scenario_search: bool = False
-            ) -> str | None:
+            early_stop: bool = False, scenario_search: bool = False,
+            sharded: bool = False, distributed: bool = False) -> str | None:
     """Why the launcher refuses ``agent`` on ``app`` with these options, or
     None: setups that would crash on the env, as the reference's launcher
-    refuses them; a scenario search with checkpoints, a resume or early
-    stopping (it runs its own rung fleets), or with fewer than 2
-    candidates; a resume without a checkpoint directory, or from an
+    refuses them; serving or a scenario search in a multi-process job (both
+    run single-process); a scenario search sharded, with checkpoints, a
+    resume or early stopping (it runs its own rung fleets), or with fewer
+    than 2 candidates; a resume without a checkpoint directory, or from an
     elastic-lifecycle directory (its snapshots hold a compacted fleet and
     a lane map) without ``early_stop``."""
+    if distributed:
+        if serve:
+            return ("--serve drives a single-process control plane; run it "
+                    "without --distributed")
+        if scenario_search:
+            return ("--scenario-search runs its own single-process rung "
+                    "fleets; drop --distributed")
     if app == "placement":
         if agent == "model_based":
             return ("model_based profiles a DSDPS cluster; use it with the "
@@ -135,11 +164,13 @@ def refusal(app: str, agent: str, offline: int = 0, serve: int = 0,
                 f"params) alone; {agent}'s select reads the live EnvState "
                 f"(see docs/serving.md)")
     if scenario_search:
-        for flag, on in (("--checkpoint-dir", checkpoint_dir is not None),
+        for flag, on in (("--sharded", sharded),
+                         ("--checkpoint-dir", checkpoint_dir is not None),
                          ("--resume", resume), ("--early-stop", early_stop)):
             if on:
                 return (f"--scenario-search does not support {flag}: the "
-                        f"search runs its own un-checkpointed rung fleets "
+                        f"search runs its own un-sharded, un-checkpointed rung "
+                        f"fleets "
                         f"(--offline/--epochs are ignored too — rung lengths "
                         f"come from --search-rungs)")
         if fleet < 2:
@@ -170,7 +201,8 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
         resume: bool = False, early_stop: bool = False,
         guards: bool = False, scenario_search: bool = False,
         search_rungs: tuple[int, ...] = (16, 16, 32),
-        stop_fn=None) -> dict | None:
+        stop_fn=None, sharded: bool = False,
+        distributed: bool = False) -> dict | None:
     """Run the loop on ``env`` (default ``build_env(app, device)``); returns
     a dict with the env, the scenario fleet (None
     without ``scenario``), the agent, the trained states, the History,
@@ -199,12 +231,22 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     ``scenario`` (default ``mixed``) with rungs of ``search_rungs`` epochs
     and returns the env, the agent, the ``Leaderboard`` and the wall
     seconds.  A setup the launcher refuses (:func:`refusal`) raises
-    ``ValueError``."""
+    ``ValueError``.
+
+    ``sharded`` cuts the fleet over this process's slots, ``distributed``
+    over every process's of a job joined with
+    ``launch.mesh.init_distributed``; the result then holds the mesh
+    (``mesh``; None when the fleet does not divide it, after a resume too:
+    the run goes on un-meshed, with a printed line) and the checkpoint's
+    save walls (``save_seconds``)."""
     why = refusal(app, agent, offline, fleet=fleet, checkpoint_dir=checkpoint_dir,
                   resume=resume, early_stop=early_stop,
-                  scenario_search=scenario_search)
+                  scenario_search=scenario_search, sharded=sharded,
+                  distributed=distributed)
     if why is not None:
         raise ValueError(why)
+    if distributed:
+        init_distributed()                  # a no-op when already joined
     dev = resolve_device(device)
 
     def now() -> float:
@@ -229,6 +271,9 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
     states = ag.init_fleet(torch.Generator(device=dev).manual_seed(seed),
                            fleet, dev, env_params=env_params)
     gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    mesh = (make_fleet_mesh(spanning=distributed, device=dev)
+            if sharded or distributed else None)
+    mesh = divides(mesh, fleet, f"--fleet {fleet}")
     ck = (FleetCheckpoint(checkpoint_dir, every=checkpoint_every)
           if checkpoint_dir is not None else None)
     elastic = g = lane_ids = None
@@ -241,9 +286,11 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
                 # their rows of the scenario fleet
                 start, states, env_state, gen, env_params, lane_ids = \
                     restore_elastic(ck, *like, env_params=env_params,
-                                    ref=env.default_params())
+                                    ref=env.default_params(), mesh=mesh)
+                mesh = divides(mesh, len(lane_ids),
+                               f"{len(lane_ids)} surviving lane(s)")
             else:
-                start, states, env_state, gen = ck.restore(*like)
+                start, states, env_state, gen = ck.restore(*like, mesh=mesh)
             if start >= epochs:
                 print(f"checkpoint already at epoch {start} >= --epochs "
                       f"{epochs}; nothing left to run")
@@ -266,13 +313,15 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
                 elastic = run_online_fleet_elastic(
                     gen, env, ag, states, epochs - start,
                     env_params=env_params, env_state=env_state, checkpoint=ck,
-                    start_epoch=start, stop_fn=stop_fn, lane_ids=lane_ids)
+                    start_epoch=start, stop_fn=stop_fn, lane_ids=lane_ids,
+                    mesh=mesh)
                 states, hist = elastic.states, elastic.history
                 executed = elastic.executed_lane_epochs
             else:
                 states, hist = run_online_fleet(
                     gen, env, ag, states, T=epochs - start, env_params=env_params,
-                    env_state=env_state, checkpoint=ck, start_epoch=start)
+                    env_state=env_state, checkpoint=ck, start_epoch=start,
+                    mesh=mesh)
                 executed = hist.rewards.size
         t3 = now()
         seconds["online"] = t3 - t2
@@ -298,7 +347,20 @@ def run(app: str = "cq_small", agent: str = "ddpg", fleet: int = 4,
                 history=hist, finals=finals, rrs=rrs, best=best,
                 seconds=seconds, start_epoch=start, elastic=elastic, guards=g,
                 lane_ids=lane_ids, lane_epochs=executed,
-                lane_epochs_per_s=executed / seconds["online"])
+                lane_epochs_per_s=executed / seconds["online"], mesh=mesh,
+                save_seconds=[] if ck is None else ck.save_seconds)
+
+
+def divides(mesh, lanes: int, what: str):
+    """``mesh``, or None (printing why) when ``lanes`` do not divide its
+    data-axis slots: the elastic degradation of a run resumed where the
+    slot count no longer divides the fleet, which then runs un-meshed on
+    the same device rather than dying in ``shard_fleet``'s check."""
+    if mesh is not None and lanes % fleet_size(mesh):
+        print(f"{what} does not divide the {fleet_size(mesh)} data-axis "
+              f"devices; falling back to the un-sharded runner")
+        return None
+    return mesh
 
 
 def serve_trained(res: dict, n_requests: int, seed: int = 0) -> dict:
@@ -397,6 +459,22 @@ def main(argv: list[str] | None = None) -> dict:
                     help="comma-separated epochs per successive-halving rung")
     ap.add_argument("--search-json", default="artifacts/scenario_search.json",
                     help="leaderboard artifact path for --scenario-search")
+    ap.add_argument("--sharded", action="store_true",
+                    help="cut the fleet over this process's slots "
+                         "(launch.mesh.make_fleet_mesh: one a visible card, "
+                         "or REPRO_FLEET_SLOTS on --device); --fleet must be "
+                         "a multiple of the slot count")
+    ap.add_argument("--distributed", action="store_true",
+                    help="multi-process fleet: join a torch.distributed job "
+                         "(gloo; coordinator and rank from REPRO_COORDINATOR / "
+                         "REPRO_NUM_PROCESSES / REPRO_PROCESS_ID, see "
+                         "launch.mesh.init_distributed) and cut the fleet over "
+                         "every process's slots; every process runs this same "
+                         "command (repro_torch.launch.multihost spawns "
+                         "localhost jobs)")
+    ap.add_argument("--save-history", default=None, metavar="PATH",
+                    help="write the History and the per-lane final and "
+                         "round-robin latencies to PATH (.npz, rank 0)")
     ap.add_argument("--guards", action="store_true",
                     help="run the online phase under the runtime guards "
                          "(repro_torch.diagnostics, transfer='log'): count "
@@ -404,6 +482,13 @@ def main(argv: list[str] | None = None) -> dict:
                          "by site, sweep the carries for non-finite values "
                          "at every chunk boundary")
     args = ap.parse_args(argv)
+    if args.distributed and not (args.serve or args.scenario_search):
+        # before any CUDA call; a no-op without a coordinator
+        init_distributed()
+        if process_index() != 0:
+            # one report a job: the other ranks run the same program and
+            # stay quiet (their results are identical by construction)
+            sys.stdout = open(os.devnull, "w")
     if args.fleet < 1:
         ap.error("--fleet must be >= 1")
     if args.serve < 0:
@@ -418,7 +503,8 @@ def main(argv: list[str] | None = None) -> dict:
     why = refusal(args.app, args.agent, args.offline, args.serve,
                   fleet=args.fleet, checkpoint_dir=args.checkpoint_dir,
                   resume=args.resume, early_stop=args.early_stop,
-                  scenario_search=args.scenario_search)
+                  scenario_search=args.scenario_search, sharded=args.sharded,
+                  distributed=args.distributed)
     if why is not None:
         ap.error(why)
     env = build_env(args.app, resolve_device(args.device))
@@ -452,9 +538,18 @@ def main(argv: list[str] | None = None) -> dict:
               epochs=args.epochs, broadcast_invariant=args.broadcast_invariant,
               checkpoint_dir=args.checkpoint_dir,
               checkpoint_every=args.checkpoint_every, resume=args.resume,
-              early_stop=args.early_stop, guards=args.guards)
+              early_stop=args.early_stop, guards=args.guards,
+              sharded=args.sharded, distributed=args.distributed)
     if res is None:
         return None
+    if res["mesh"] is not None:
+        print(f"online learning sharded over {res['mesh'].size} slot(s) of "
+              f"{len({s.process for s in res['mesh'].slots.flat})} process(es) "
+              f"from epoch {res['start_epoch']}: "
+              f"{res['lane_epochs_per_s']:.1f} lane-epochs/s")
+    if res["save_seconds"]:
+        print(f"checkpoint saves: {len(res['save_seconds'])}, ms each "
+              + ", ".join(f"{1e3 * x:.3f}" for x in res["save_seconds"]))
     if res["lane_ids"] is not None:
         print(f"resumed a compacted elastic fleet from epoch "
               f"{res['start_epoch']}: surviving lanes "
@@ -475,6 +570,11 @@ def main(argv: list[str] | None = None) -> dict:
           f"{1 - finals[best] / rrs[best]:.1%} best")
     print("best assignment (executor -> machine):",
           res["history"].final_assignment[best].argmax(-1).tolist())
+    if args.save_history and process_index() == 0:
+        h = res["history"]
+        np.savez(args.save_history, rewards=h.rewards, latencies=h.latencies,
+                 moved=h.moved, final_assignment=h.final_assignment,
+                 finals=finals, rrs=rrs, start_epoch=res["start_epoch"])
     if args.serve:
         print(f"\nserving {args.serve} decision requests from the trained "
               f"policy across {len(finals)} cluster(s) ...")

@@ -1254,3 +1254,47 @@ def test_knn_regret_gradient_on_the_card(cuda_device):
     assert torch.equal(got, want)
     ops.row_top2_regret(proto)
     assert ops.LAUNCHES == before + 2
+
+
+def test_two_slot_mesh_on_one_card_matches_unmeshed(cuda_device, monkeypatch):
+    """cq_small, F=4, T=5, DDPG: a 2-slot mesh on the card
+    (``REPRO_FLEET_SLOTS=2``) equals the unmeshed run on the same draws,
+    bit for bit, and every block's select and update launch the K-NN
+    kernel at the block's rows: [2·20, 10] and [2·32·20, 10]."""
+    from repro_torch.core import make_agent, run_online_fleet
+    from repro_torch.dsdps import SchedulingEnv, apps
+    from repro_torch.dsdps.apps import default_workload
+    from repro_torch.launch.mesh import SLOTS_ENV, make_fleet_mesh
+    from test_torch_parity import numpy_epoch_draws
+
+    F, T = 4, 5
+    topo = apps.continuous_queries("small")
+    env = SchedulingEnv(topo, default_workload(topo), device=cuda_device)
+    agent = make_agent("ddpg", env, k_nn=8)
+    draws = [d.to(cuda_device) for d in numpy_epoch_draws(
+        np.random.default_rng(29), F, T, 1, agent.cfg.batch, env.N, env.M,
+        env.workload.num_spouts)]
+
+    def fresh():
+        return agent.init_fleet(torch.Generator(device=cuda_device).manual_seed(0),
+                                F, cuda_device)
+    _, plain = run_online_fleet(0, env, agent, fresh(), T, draws=draws)
+    monkeypatch.setenv(SLOTS_ENV, "2")
+    mesh = make_fleet_mesh(device=cuda_device)
+    ops.LAUNCHES_BY_SHAPE.clear()
+    _, meshed = run_online_fleet(0, env, agent, fresh(), T, draws=draws, mesh=mesh)
+    torch.cuda.synchronize()
+    for f in ("rewards", "latencies", "moved", "final_assignment"):
+        np.testing.assert_array_equal(getattr(meshed, f), getattr(plain, f))
+    B = agent.cfg.batch
+    assert dict(ops.LAUNCHES_BY_SHAPE) == {(2 * env.N, env.M): 2 * T,
+                                          (2 * B * env.N, env.M): 2 * T}
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the no-GPU refusal")
+def test_fleet_mesh_on_cuda_raises_without_a_gpu():
+    from repro_torch.launch.mesh import make_fleet_mesh, make_host_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_fleet_mesh(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_host_mesh()
