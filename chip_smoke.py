@@ -25,7 +25,7 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   new greedy tokens, checking that every attention layer went through the
   bfloat16 flash-attention kernel (wgmma + TMA) and every RWKV6 layer, in
   prefill and in every
-  decode step, through the WKV6 kernel; then 256 decode steps are timed,
+  decode step, through the WKV6 kernel; then 64 decode steps are timed,
   the two prefills are held to each other in float32, and each bf16
   path's drift from the float32 answer to that of a control run with the
   kernels' plain versions;
@@ -116,8 +116,17 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   llama3-8b at every width cut to 4 of its 32 layers in bf16 (8 x 2048 in
   4 microbatches, steps timed and one profiled, every attention forward
   and rematerialized recompute through the bf16 flash kernel, counted by
-  shape), and the ``train_lm`` twin at its reference budget, killed and
-  resumed at step 150.
+  shape), and the ``train_lm`` twin at its reference shapes for 100 of its
+  300 steps, killed and resumed at step 50;
+* LM training over a mesh (``sharding/policy.py``, ``sharding/ctx.py``,
+  ``trainer.shard_train_state``, ``make_train_step(..., mesh=)``):
+  ``launch.mesh.make_production_mesh`` over a world of one on NCCL, a
+  float32 smoke step with int8 error feedback on it against the same step
+  on the CPU, then phase 28's llama3-8b (4 of 32 layers at every width,
+  bf16) sharded by the policy, 2 steps on the mesh against 2 unmeshed
+  steps from the same seed and batches (loss, gradient norm and every
+  leaf of the parameters and moments bit for bit), each step's ms, the
+  peak GiB and the flash launches by shape.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -156,8 +165,9 @@ BASELINES = dict(app="cq_large", fleet=8, epochs=50)
 # the LM serving paths: prefill_forward on 4 x 2048 tokens, and
 # Engine.generate on 4 prompts of 64 tokens with 32 new greedy tokens
 LM = dict(batch=4, prefill_len=2048, prompt_len=64, new_tokens=32, max_seq=128)
-# decode throughput: serve_step timed over 4 windows of 64 steps
-DECODE = dict(windows=4, steps=64)
+# decode throughput: serve_step timed over 2 windows of 32 steps (4 of 64
+# until the script neared its time limit)
+DECODE = dict(windows=2, steps=32)
 # the LM configs beyond llama3-8b and rwkv6-7b, with the layers each runs:
 # command-r-plus-104b (~208 GB in bf16) and qwen1.5-110b (~220 GB) cut to
 # 16 layers to fit one 80 GB card; the others at full depth
@@ -239,17 +249,22 @@ SINGLE_CHECK = dict(T=5, seed=27)
 # prefill shape and seamless's cross-attention shape; llama3-8b at every
 # width cut to 4 of its 32 layers (1.92 B parameters: weights, float32
 # moments and accumulator ~31 GB), bf16, batch 8 x 2048 in 4 microbatches
-# (2 warm-up steps, 5 timed); the train_lm twin at its reference budget
+# (2 warm-up steps, 5 timed); the train_lm twin at its reference budget cut
+# from 300 steps to TWIN_STEPS (killed and resumed half way)
 TRAIN_FAMILIES = ("llama3-8b", "granite-moe-3b-a800m", "rwkv6-7b",
                   "jamba-1.5-large-398b", "phi-3-vision-4.2b", "seamless-m4t-medium")
 TRAIN = dict(arch="llama3-8b", layers=4, batch=8, seq=2048, micro=4, warmup=2,
              timed=5, lr=3e-5, seed=28)    # at a 3e-4 peak the loss climbs
+TWIN_STEPS = 100
 # the fleet across slots and processes (phase 29): the main path's DDPG
 # fleet under one_slow_machine on a 2-slot mesh on the card against the
 # unmeshed run; the multi-host drill: 2 workers x 1 slot on the card,
 # worker 1 killed once epoch 20 is published, 40 epochs saved every 10, at
 # a small offline budget
 MESH = dict(fleet=8, epochs=50, slots=2, scenario="one_slow_machine")
+# LM training over a mesh (phase 30): phase 28c's llama3-8b, 2 steps
+# sharded on make_production_mesh (a world of one on NCCL) and 2 unmeshed
+MESH_TRAIN = dict(steps=2)
 DRILL = dict(fleet=8, epochs=40, every=10, kill_at=20, offline=200,
              offline_updates=20)
 
@@ -3754,22 +3769,22 @@ def run_train_full(dev, card: str) -> dict:
 
 
 def run_train_lm_twin(dev, card: str) -> dict:
-    """Phase 28d: the train_lm twin at its reference script's budget
-    (demo-100m, 300 steps at batch 8 x 256 in 2 microbatches, killed and
-    resumed at 150; the twin restores that checkpoint into a fresh state
-    and holds every leaf to the saved one bit for bit): the first and last
-    loss, the wall s, and the flash launches (12 layers x 2 microbatches x
-    (forward + recompute) x 300 = 14,400); the flash kernel timed at its
-    microbatch's shape."""
+    """Phase 28d: the train_lm twin at its reference script's shapes
+    (demo-100m, batch 8 x 256 in 2 microbatches) for TWIN_STEPS steps (its
+    reference budget is 300), killed and resumed half way (the twin
+    restores that checkpoint into a fresh state and holds every leaf to
+    the saved one bit for bit): the first and last loss, the wall s, and
+    the flash launches (12 layers x 2 microbatches x (forward + recompute)
+    x TWIN_STEPS); the flash kernel timed at its microbatch's shape."""
     from repro_torch.examples import train_lm
     from repro_torch.kernels.flash_attention import ops as fa_ops
 
     cfg = train_lm.hundred_m_config(False)
     shape = f"{train_lm.SEQ}x{train_lm.SEQ} causal bfloat16"
-    want = {shape: cfg.num_layers * train_lm.MICRO * 2 * train_lm.STEPS}
+    want = {shape: cfg.num_layers * train_lm.MICRO * 2 * TWIN_STEPS}
     fa_ops.LAUNCHES_BY_SHAPE.clear()
     t0 = time.perf_counter()
-    out = train_lm.run(device=dev)
+    out = train_lm.run(steps=TWIN_STEPS, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = dict(fa_ops.LAUNCHES_BY_SHAPE)
@@ -3777,7 +3792,7 @@ def run_train_lm_twin(dev, card: str) -> dict:
         raise AssertionError(f"train_lm: flash launches {got}, expected {want}")
     first, second = out["first"], out["second"]
     losses = first["losses"] + second["losses"]
-    if not (len(losses) == train_lm.STEPS and second["start_step"] == train_lm.STEPS // 2
+    if not (len(losses) == TWIN_STEPS and second["start_step"] == TWIN_STEPS // 2
             and np.isfinite(losses).all() and losses[-1] < losses[0]
             and out["restored_leaves"] > 0):
         raise AssertionError(f"train_lm: bad run ({len(losses)} losses, resumed at "
@@ -3790,12 +3805,12 @@ def run_train_lm_twin(dev, card: str) -> dict:
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.train import trainer
     setup = trainer.TrainSetup(micro_batches=train_lm.MICRO, learning_rate=train_lm.LR,
-                               warmup_steps=train_lm.WARMUP, total_steps=train_lm.STEPS)
+                               warmup_steps=train_lm.WARMUP, total_steps=TWIN_STEPS)
     batch = {k: v.to(dev) for k, v in batch_at(
         DataConfig(cfg.vocab_size, train_lm.SEQ, train_lm.BATCH), 0).items()}
     prof = profile_train_step(trainer.make_train_step(cfg, setup),
                               trainer.init_train_state(cfg, setup, gen, dev), batch)
-    log(f"phase 28d train_lm twin demo-100m ({card}): {train_lm.STEPS} steps at "
+    log(f"phase 28d train_lm twin demo-100m ({card}): {TWIN_STEPS} steps at "
         f"{train_lm.BATCH} x {train_lm.SEQ} in {train_lm.MICRO} microbatches, killed and "
         f"resumed at {second['start_step']} ({out['restored_leaves']} leaves restored bit "
         f"for bit); loss {losses[0]:.4f} -> {losses[-1]:.4f}; {wall:.3f} s wall (first "
@@ -4043,6 +4058,151 @@ def run_elastic_twin(dev, card: str) -> dict:
     return dict(flash=got, wall=wall)
 
 
+def leaf_digest(x: torch.Tensor) -> tuple[int, int]:
+    """Two int64 sums over a tensor's bits (its 16- or 32-bit words as
+    integers, and their squares, both wrapping): equal for equal bits."""
+    w = x.detach().reshape(-1)
+    w = w.view(torch.int16 if w.element_size() == 2 else torch.int32).to(torch.int64)
+    return int(w.sum()), int((w * w).sum())
+
+
+def check_meshed_compressed_vs_cpu(dev, mesh) -> dict:
+    """Phase 30a: one float32 step with int8 error feedback (2
+    microbatches) of llama3-8b's smoke config on the mesh on the card
+    against the unmeshed step on the CPU, from the same state two steps in
+    and the same batch: loss and gradient norm within 1e-4 relative; every
+    residual element within 1e-2 of its leaf's quantum (``max|g + r| /
+    127``) or a whole quantum from the CPU's (an int8 rounding flipped by a
+    float32 difference), at most 1 in 10^3 of them; every other parameter
+    and moment element within 1e-4 of its leaf's scale."""
+    from torch_lm_cases import on_device, warm_train_state
+
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import tree_leaves
+
+    setup = trainer.TrainSetup(micro_batches=2, learning_rate=1e-4, warmup_steps=1,
+                               total_steps=10, compress_grads=True)
+    cfg, state, batch = warm_train_state("llama3-8b", setup, 2, TRAIN["seed"])
+    cpu_state, cm = trainer.make_train_step(cfg, setup)(state, batch)
+    sharded = trainer.shard_train_state(on_device(state, dev), ShardingPolicy(mesh, cfg))
+    card_state, gm = trainer.make_train_step(cfg, setup, mesh)(sharded, on_device(batch, dev))
+    card = trainer.unshard_train_state(card_state)
+    errs = [abs(float(gm[k]) - float(cm[k])) / abs(float(cm[k]))
+            for k in ("loss", "grad_norm")]
+    flips = total = 0
+    worst = noise = 0.0
+    for j, (r_g, r_c) in enumerate(zip(tree_leaves(card.ef_residual),
+                                       tree_leaves(cpu_state.ef_residual))):
+        quantum = 2 * float(r_c.float().abs().max())
+        dev_q = (r_g.cpu().float() - r_c.float()).abs() / max(quantum, 1e-30)
+        flip = dev_q > 0.5
+        if flip.any() and float((dev_q[flip] - 1).abs().max()) > 0.05:
+            raise AssertionError(f"phase 30a: residual leaf {j} off by a part of a quantum")
+        noise = max(noise, float(dev_q[~flip].max()) if (~flip).any() else 0.0)
+        flips += int(flip.sum())
+        total += flip.numel()
+        for a, b in ((card.params, cpu_state.params), (card.opt.mu, cpu_state.opt.mu),
+                     (card.opt.nu, cpu_state.opt.nu)):
+            x, y = tree_leaves(a)[j].cpu(), tree_leaves(b)[j]
+            d = (x - y).abs()[~flip]
+            if d.numel():
+                worst = max(worst, float(d.max()) / max(float(y.abs().max()), 1e-30))
+    if not (max(errs) <= 1e-4 and worst <= 1e-4 and noise <= 1e-2 and flips <= total / 1000):
+        raise AssertionError(f"phase 30a: meshed compressed step card vs CPU: loss, grad "
+                             f"norm {errs}, leaves {worst}, residual noise {noise} of a "
+                             f"quantum, {flips} int8 flips of {total}")
+    log(f"phase 30a float32 llama3-8b smoke step with int8 EF on the mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (card) == unmeshed (CPU): loss "
+        f"within {errs[0]:.3g}, grad norm {errs[1]:.3g} relative, parameters and moments "
+        f"{worst:.3g} of their leaf's scale (bound 1e-4), residuals {noise:.3g} of a "
+        f"quantum, {flips} int8 flips of {total} elements")
+    return dict(flips=flips, worst=worst)
+
+
+def run_meshed_train(dev, card: str, mesh) -> dict:
+    """Phase 30b: phase 28c's llama3-8b (4 of 32 layers at every width,
+    bf16, 8 x 2048 in 4 microbatches) from the same seed, 2 steps unmeshed
+    then 2 steps with the state sharded by the policy on the mesh, each run
+    alone on the card (the first freed before the second is drawn), under
+    ``fixed_order_sums()``: loss, gradient norm and every leaf of the
+    parameters and both moments after each step equal bit for bit (leaves
+    by ``leaf_digest``); each step's ms, each run's peak GiB, the flash
+    launches of each step by shape."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+
+    T = TRAIN
+    cfg = dataclasses.replace(get_config(T["arch"]), num_layers=T["layers"])
+    setup = trainer.TrainSetup(micro_batches=T["micro"], learning_rate=T["lr"],
+                               warmup_steps=T["warmup"], total_steps=T["warmup"] + T["timed"])
+    data = DataConfig(cfg.vocab_size, T["seq"], T["batch"], seed=T["seed"])
+    shape = f"{T['seq']}x{T['seq']} causal bfloat16"
+    want = {shape: cfg.num_layers * T["micro"] * 2}
+    runs = {}
+    for meshed in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.init_train_state(cfg, setup, torch.Generator(device=dev).manual_seed(
+            T["seed"]), dev)
+        if meshed:
+            state = trainer.shard_train_state(state, ShardingPolicy(mesh, cfg))
+        step = trainer.make_train_step(cfg, setup, mesh if meshed else None)
+        out = []
+        with fixed_order_sums():
+            for i in range(MESH_TRAIN["steps"]):
+                batch = {k: v.to(dev) for k, v in batch_at(data, i).items()}
+                fa_ops.LAUNCHES_BY_SHAPE.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+                dt = time.perf_counter() - t0
+                got = dict(fa_ops.LAUNCHES_BY_SHAPE)
+                if got != want:
+                    raise AssertionError(f"phase 30b step {i} (meshed {meshed}): flash "
+                                         f"launches {got}, expected {want}")
+                local = (lambda x: x.to_local()) if meshed else (lambda x: x)  # noqa: E731
+                digests = [leaf_digest(local(x)) for tree in (
+                    state.params, state.opt.mu, state.opt.nu) for x in _leaves(tree)]
+                out.append(dict(loss=loss, gnorm=gnorm, ms=1e3 * dt, digests=digests,
+                                launches=got[shape]))
+        runs[meshed] = dict(steps=out, peak=torch.cuda.max_memory_allocated() / 2**30)
+        del state, step
+    plain, sharded = runs[False], runs[True]
+    for i, (a, b) in enumerate(zip(plain["steps"], sharded["steps"])):
+        if not np.isfinite(a["loss"]):
+            raise AssertionError(f"phase 30b: step {i} loss {a['loss']}")
+        if (a["loss"], a["gnorm"]) != (b["loss"], b["gnorm"]):
+            raise AssertionError(f"phase 30b step {i}: meshed loss, grad norm "
+                                 f"{b['loss']}, {b['gnorm']} against {a['loss']}, "
+                                 f"{a['gnorm']}")
+        off = sum(x != y for x, y in zip(a["digests"], b["digests"]))
+        if off:
+            raise AssertionError(f"phase 30b step {i}: {off} of {len(a['digests'])} "
+                                 "leaves differ from the unmeshed step's bits")
+    launches = sum(x["launches"] for x in sharded["steps"])
+    log(f"phase 30b llama3-8b training on the mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+        f"({dist.get_backend()}, world {dist.get_world_size()}; {card}), {cfg.num_layers} "
+        f"of 32 layers at every width, bf16, batch {T['batch']} x {T['seq']} in "
+        f"{T['micro']} microbatches, {MESH_TRAIN['steps']} steps from seed {T['seed']}: "
+        f"loss, grad norm and all {len(plain['steps'][0]['digests'])} leaves of params, "
+        "mu and nu equal to the unmeshed steps bit for bit; ms a step unmeshed "
+        + ", ".join(f"{x['ms']:.3f}" for x in plain["steps"])
+        + ", meshed " + ", ".join(f"{x['ms']:.3f}" for x in sharded["steps"])
+        + f"; peak {plain['peak']:.2f} GiB unmeshed, {sharded['peak']:.2f} GiB meshed; losses "
+        + ", ".join(f"{x['loss']:.4f}" for x in sharded["steps"])
+        + f"; flash launches a step by shape {want} ({launches} in the meshed run)")
+    return dict(launches=launches, runs=runs)
+
+
 def log_instantiations(source: str, text: str) -> None:
     """Phase 2: registers and spill stores of every kernel instantiation in
     ``source``'s ``-Xptxas -v`` log, by demangled name."""
@@ -4193,6 +4353,19 @@ def main() -> int:
     run_multihost_drill(dev, card)
     run_elastic_twin(dev, card)
     log(f"phase 29 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    lm_mesh = make_production_mesh()
+    try:
+        log(f"phase 30 mesh {dict(zip(lm_mesh.mesh_dim_names, lm_mesh.shape))} on "
+            f"{dist.get_backend()}, world {dist.get_world_size()}")
+        check_meshed_compressed_vs_cpu(dev, lm_mesh)
+        meshed_train = run_meshed_train(dev, card, lm_mesh)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 30 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -4285,6 +4458,10 @@ def main() -> int:
         row("row_top2_regret_mesh", "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
             "src/repro/kernels/knn_topk/kernel.py:37", meshed["launches"], meshed,
             meshed["timing"]),
+        # phase 30b: the meshed llama3-8b train steps' forward launches (the
+        # microbatch's shape, timed in phase 28c)
+        row("flash_attention_train_mesh", flash_sm90, flash_tpu, meshed_train["launches"],
+            train["timing"], train["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

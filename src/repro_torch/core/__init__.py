@@ -8,6 +8,7 @@ from repro_torch.core.ddpg import (DDPGConfig, DDPGState, OfflineDraws,
                                    init_state as ddpg_init)
 from repro_torch.core.agent import (History, greedy_assignment_ddpg,
                                     run_online_agent, run_online_fleet)
+from repro_torch.core.graph_policy import graph_param_specs
 from repro_torch.core.knn_projection import (distance_to, knn_actions,
                                              knn_actions_exact,
                                              knn_assignments_exact,
@@ -19,7 +20,8 @@ __all__ = [
     "ENV_FAMILIES", "Agent", "EpochDraws", "agent_families", "agent_names",
     "make_agent", "make_epoch_step", "params_are_stacked", "register_agent",
     "DDPGConfig", "DDPGState", "OfflineDraws", "ddpg_init", "History",
-    "greedy_assignment_ddpg", "run_online_agent", "run_online_fleet", "distance_to",
+    "greedy_assignment_ddpg", "run_online_agent", "run_online_fleet",
+    "graph_param_specs", "distance_to",
     "knn_actions", "knn_actions_exact", "knn_assignments_exact", "nearest_assignment",
     "ExpertPlacementEnv", "PlacementParams", "jamba_placement_env",
 ]

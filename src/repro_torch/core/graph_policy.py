@@ -388,3 +388,12 @@ def agent_factory(env, **overrides) -> api.Agent:
 
 
 api.register_agent("graph_policy", agent_factory, families=("scheduling",))
+
+
+def graph_param_specs(params, mesh):
+    """Partition specs for a graph-policy parameter tree under the port's
+    name-rule sharding policy: the GNN layer matrices land on the mesh's
+    "model" axis (``fsdp=False``: the data axes carry fleet lanes, not
+    parameter shards).  See ``sharding/policy.py``'s ``gnn/`` rule."""
+    from repro_torch.sharding.policy import ShardingPolicy
+    return ShardingPolicy(mesh, None, fsdp=False).params_tree(params)

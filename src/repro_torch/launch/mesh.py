@@ -24,8 +24,14 @@ does.
 :func:`init_distributed` joins a multi-process job: call it first thing in
 every worker process, before any CUDA call, then build spanning meshes.
 Single-process calls are a no-op, so the same launcher runs unmodified on
-one host.  ``make_production_mesh`` (the LM training mesh) is not ported:
-it comes with the LM sharding."""
+one host.
+
+:func:`make_production_mesh` is the LM training mesh: a ``torch.distributed``
+``DeviceMesh`` over the process group's world, one device a rank, shaped
+``(data, model)`` or ``(pod, data, model)`` by ``fault.elastic.plan_mesh``.
+Its gradients cross devices, so on the card it runs on NCCL; the fleet's
+meshes stay on gloo (``init_distributed``'s default), since NCCL refuses
+two ranks on one card, which is how the multi-host drill runs on one GPU."""
 from __future__ import annotations
 
 import dataclasses
@@ -81,7 +87,8 @@ class Mesh:
 
 def init_distributed(coordinator_address: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> tuple[int, int]:
+                     process_id: int | None = None,
+                     backend: str = "gloo") -> tuple[int, int]:
     """Join (or skip) a multi-process job; returns ``(process_id, n)``.
 
     The arguments default to ``REPRO_COORDINATOR`` (``host:port``),
@@ -91,15 +98,17 @@ def init_distributed(coordinator_address: str | None = None,
     ``(0, 1)``.  Idempotent: a second call returns the current rank and
     world size.
 
-    The process group is ``torch.distributed`` on the ``gloo`` backend, on
-    the CPU and on the card alike.  A fleet's lanes are independent, so
-    nothing crosses processes on the hot path: the only cross-process
-    traffic is on the host (traces and states brought home by
-    ``sharding.fleet.fleet_host``, an ``all_gather`` of host tensors; the
-    checkpoint barrier; the generator state, written once).  NCCL would
-    refuse two ranks on one card, which is how the multi-host drill runs
-    on a single GPU; it comes with the LM sharding, whose gradients do
-    cross devices.  Call this before any CUDA call."""
+    The process group is ``torch.distributed`` on ``backend``: ``"gloo"``
+    (the default) for a fleet, on the CPU and on the card alike.  A fleet's
+    lanes are independent, so nothing crosses processes on the hot path:
+    the only cross-process traffic is on the host (traces and states
+    brought home by ``sharding.fleet.fleet_host``, an ``all_gather`` of
+    host tensors; the checkpoint barrier; the generator state, written
+    once), and NCCL would refuse two ranks on one card, which is how the
+    multi-host drill runs on a single GPU.  LM training passes ``"nccl"``
+    on the card (its gradients cross devices) and ``"gloo"`` on the CPU
+    (:func:`lm_backend`).  Call this before any CUDA call; a failed NCCL
+    initialization raises."""
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     env = os.environ
@@ -111,7 +120,7 @@ def init_distributed(coordinator_address: str | None = None,
         process_id = int(env[PROCESS_ID_ENV])
     if coordinator_address is None or (num_processes or 1) <= 1:
         return 0, 1
-    dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes), rank=int(process_id),
                             timeout=datetime.timedelta(minutes=10))
     return dist.get_rank(), dist.get_world_size()
@@ -178,3 +187,36 @@ def make_fleet_mesh(n_devices: int | None = None, spanning: bool = False,
         raise ValueError(f"a mesh of {n} slots does not fit the {len(slots)} "
                          f"slots available (set {SLOTS_ENV} for more a device)")
     return Mesh((n, 1), ("data", "model"), slot_grid(slots[:n], (n, 1)))
+
+
+def lm_backend(device: str | torch.device | None = None) -> str:
+    """The process group backend of LM training on ``device`` (default
+    CUDA; raises without a GPU): NCCL on the card, gloo on the CPU."""
+    return "nccl" if resolve_device(device).type == "cuda" else "gloo"
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device: str | torch.device | None = None):
+    """The LM training mesh: a ``DeviceMesh`` over every rank of the process
+    group on ``device`` (default CUDA; raises without a GPU), shaped by
+    ``fault.elastic.plan_mesh(world, model_parallel=16, multi_pod=)``: the
+    documented 16×16 (or 2×16×16 with ``multi_pod``) on a full pod, and
+    on anything smaller the largest (data, model) grid that fits, so one
+    process gets a 1×1 mesh.
+
+    With no process group this starts a world of one itself, on an
+    in-process store, so it works without any environment variable (NCCL
+    on the card, gloo on the CPU).  On CUDA each rank takes the card of its
+    rank modulo the visible cards."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.fault.elastic import plan_mesh
+
+    dev = resolve_device(device)
+    if not (dist.is_available() and dist.is_initialized()):
+        dist.init_process_group(lm_backend(dev), store=dist.HashStore(), rank=0,
+                                world_size=1)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
+    plan = plan_mesh(dist.get_world_size(), model_parallel=16, multi_pod=multi_pod)
+    return init_device_mesh(dev.type, tuple(plan.shape), mesh_dim_names=tuple(plan.axes))

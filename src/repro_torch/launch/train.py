@@ -3,10 +3,17 @@
 Binds: config → seeded init → the deterministic data pipeline → the
 microbatched train step → asynchronous checkpoints → heartbeat and
 straggler monitoring.  It runs on the card unless ``--device cpu`` is
-given, in one process (the multi-device port is ROADMAP A13.7).
+given.  With ``--mesh production`` the same path runs over
+``launch.mesh.make_production_mesh`` with the sharding policy applied
+(``trainer.shard_train_state``): one process a card, joined through
+``REPRO_COORDINATOR`` / ``REPRO_NUM_PROCESSES`` / ``REPRO_PROCESS_ID``
+(NCCL on the card, gloo on the CPU; without them a world of one).  Every
+rank reads the same global batch and trains on its rows; rank 0 prints and
+writes the checkpoints, gathered into the unmeshed layout, so a run
+resumes in any world size.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --smoke \\
-      --steps 20 --batch 8 --seq 128 [--device cpu]
+      --steps 20 --batch 8 --seq 128 [--device cpu] [--mesh production]
 
 A vlm's patch embeddings and an encdec's frames, which the reference draws
 with ``jax.random`` a step, come from a ``torch.Generator`` seeded with the
@@ -17,6 +24,7 @@ import argparse
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.checkpointer import AsyncCheckpointer
 from repro_torch.configs import get_config
@@ -24,9 +32,13 @@ from repro_torch.data.pipeline import DataConfig, PrefetchIterator
 from repro_torch.device import resolve_device
 from repro_torch.fault.heartbeat import HeartbeatMonitor
 from repro_torch.fault.straggler import StragglerDetector
+from repro_torch.launch.mesh import (init_distributed, lm_backend, make_production_mesh,
+                                     process_count, process_index)
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding.policy import ShardingPolicy
 from repro_torch.train.trainer import (DTYPES, TrainSetup, cached_train_step,
-                                       init_train_state)
+                                       init_train_state, shard_train_state,
+                                       unshard_train_state)
 
 SEED = 0                 # the parameters' draw, as the reference's PRNGKey(0)
 
@@ -49,16 +61,35 @@ def frontend_inputs(cfg: ModelConfig, step: int, batch: int, seq_len: int,
     return {name: draw.to(DTYPES[cfg.dtype])}
 
 
+def step_times(dt: float, world: int) -> list[float]:
+    """Every rank's wall time of the step, on every rank (one all-gather
+    over the process group; ``[dt]`` alone in one process)."""
+    if world == 1:
+        return [dt]
+    every: list = [None] * world
+    dist.all_gather_object(every, dt)
+    return every
+
+
 def run_training(cfg: ModelConfig, setup: TrainSetup, steps: int, global_batch: int,
                  seq_len: int, ckpt_dir: str | None = None, ckpt_every: int = 50,
-                 resume: bool = True, log_every: int = 1, frames_fn=None,
+                 resume: bool = True, log_every: int = 1, mesh=None, frames_fn=None,
                  device: str | torch.device | None = None) -> dict:
     """Train steps ``[start, steps)`` on the pipeline's batches, the start
     0 or, with ``resume`` and a checkpoint in ``ckpt_dir``, its newest
     step; save every ``ckpt_every`` steps.  ``frames_fn(step, batch)``
     gives a step's frontend inputs (default ``frontend_inputs``).  Returns
-    {"losses" (the steps run), "state", "total_s", "start_step"}."""
+    {"losses" (the steps run), "state", "total_s", "start_step"}.
+
+    With ``mesh`` (a ``DeviceMesh`` over the process group, every rank
+    calling this alike) the state is sharded by the policy and the step
+    runs over the mesh; the returned state is the sharded one.  A
+    checkpoint is gathered whole and written by rank 0 in the unmeshed
+    layout, and every rank restores the newest one before sharding it, so
+    a run resumes at any world size.  The heartbeat and straggler monitors
+    watch every rank's step time; only rank 0 prints."""
     dev = resolve_device(device)
+    rank, world = process_index(), process_count()
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len,
                           global_batch=global_batch)
     if frames_fn is None:
@@ -70,11 +101,14 @@ def run_training(cfg: ModelConfig, setup: TrainSetup, steps: int, global_batch: 
     if ckpt and resume and ckpt.latest_step() is not None:
         state = ckpt.restore(state)
         start_step = int(state.step)
-        print(f"resumed from step {start_step}")
+        if rank == 0:
+            print(f"resumed from step {start_step}")
+    if mesh is not None:
+        state = shard_train_state(state, ShardingPolicy(mesh, cfg))
 
-    train_step = cached_train_step(cfg, setup)
-    monitor = HeartbeatMonitor(num_workers=1)
-    stragglers = StragglerDetector(num_workers=1)
+    train_step = cached_train_step(cfg, setup, mesh)
+    monitor = HeartbeatMonitor(num_workers=world)
+    stragglers = StragglerDetector(num_workers=world)
 
     it = PrefetchIterator(data_cfg, start_step=start_step)
     losses = []
@@ -87,15 +121,18 @@ def run_training(cfg: ModelConfig, setup: TrainSetup, steps: int, global_batch: 
             state, metrics = train_step(state, batch)
             loss = float(metrics["loss"])
             dt = time.time() - t0
-            monitor.beat(0)
-            stragglers.observe(0, dt)
+            for r, t in enumerate(step_times(dt, world)):
+                monitor.beat(r)
+                stragglers.observe(r, t)
             losses.append(loss)
-            if step % log_every == 0:
+            if step % log_every == 0 and rank == 0:
                 print(f"step {step:5d}  loss {loss:8.4f}  "
                       f"gnorm {float(metrics['grad_norm']):7.3f}  {dt:6.2f}s",
                       flush=True)
             if ckpt and (step + 1) % ckpt_every == 0:
-                ckpt.save_async(step + 1, state)
+                whole = state if mesh is None else unshard_train_state(state)
+                if rank == 0:
+                    ckpt.save_async(step + 1, whole)
     finally:
         it.close()
         if ckpt:
@@ -119,16 +156,39 @@ def main(argv: list[str] | None = None) -> None:
                     help="continue from the newest checkpoint in --ckpt-dir")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--mesh", choices=("none", "production"), default="none",
+                    help="production: train over make_production_mesh, one "
+                         "process a card (REPRO_* variables; a world of one "
+                         "without them)")
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
         ap.error("--resume needs --ckpt-dir")
+    mesh, owned = None, False
+    if args.mesh == "production":
+        owned = not dist.is_initialized()
+        init_distributed(backend=lm_backend(args.device))
+        mesh = make_production_mesh(device=args.device)
+    try:
+        _train(args, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def _train(args, mesh) -> None:
+    """The run and its lines (rank 0 prints)."""
     cfg = get_config(args.arch, smoke=args.smoke)
     setup = TrainSetup(micro_batches=args.micro, learning_rate=args.lr,
                        warmup_steps=max(args.steps // 10, 1),
                        total_steps=args.steps)
     out = run_training(cfg, setup, args.steps, args.batch, args.seq,
-                       ckpt_dir=args.ckpt_dir, resume=args.resume, device=args.device)
+                       ckpt_dir=args.ckpt_dir, resume=args.resume, mesh=mesh,
+                       device=args.device)
+    if process_index() != 0:
+        return
+    if mesh is not None:
+        print(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+              f"{process_count()} process(es)")
     if not out["losses"]:
         print(f"nothing left to run: the checkpoint is at step {out['start_step']}")
         return

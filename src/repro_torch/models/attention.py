@@ -11,9 +11,14 @@ ragged S instead of asserting it away.  Non-causal attention takes keys
 of their own length: the reference's twin cuts k/v into chunks by q's
 length, so its cross-attention over a memory longer than q reads only
 the first S rows (ROADMAP C10); here every row is read.  Decode attention is a plain
-masked softmax over the cache, as in the reference.  The
-sequence-parallel variant waits for ``torch.distributed`` (ROADMAP
-A13.7)."""
+masked softmax over the cache, as in the reference.
+
+``flash_attention_seqpar`` is the reference's sequence-parallel variant
+for head counts the model axis does not divide: plain PyTorch in both
+packages (no Pallas kernel), the online softmax over chunks of keys with
+the q rows marked for the model axis (``ctx.constrain``).  The reference
+visits ``S // kv_chunk`` chunks, so past S = 1024 it drops the keys beyond
+the last full chunk; here every key is read (ROADMAP C13)."""
 from __future__ import annotations
 
 import math
@@ -21,6 +26,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.sharding import ctx
 
 NEG_INF = -1e30
 
@@ -30,6 +36,66 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q ``[B, S, H, hd]``; k, v ``[B, Skv, Hkv, hd]`` (Skv = S when
     causal) → ``[B, S, H, hd]``."""
     return fa_ops.flash_attention(q, k, v, causal=causal)
+
+
+def _attend_chunk(q, k, v, mask, scale: float):
+    """One (q tile × kv tile) online-softmax step: q ``[B, Tq, H, hd]``, k/v
+    ``[B, Tk, Hkv, hd]``, mask ``[Tq, Tk]`` or None → the unnormalized
+    float32 (o ``[B, Tq, Hkv, G, hd]``, m, l ``[B, Tq, Hkv, G]``)."""
+    B, Tq, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Tq, Hkv, H // Hkv, hd)
+    s = torch.einsum("bqkgd,bskd->bqkgs", qg.float(), k.float()) * scale
+    if mask is not None:
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return torch.einsum("bqkgs,bskd->bqkgd", p, v.float()), m, p.sum(dim=-1)
+
+
+def _merge(acc, new):
+    """Merge two online-softmax partials."""
+    o1, m1, l1 = acc
+    o2, m2, l2 = new
+    m = torch.maximum(m1, m2)
+    a1 = torch.exp(m1 - m)
+    a2 = torch.exp(m2 - m)
+    return o1 * a1[..., None] + o2 * a2[..., None], m, l1 * a1 + l2 * a2
+
+
+def flash_attention_seqpar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                           causal: bool = True, kv_chunk: int = 1024) -> torch.Tensor:
+    """Sequence-parallel attention: q ``[B, S, H, hd]`` rows marked for the
+    model axis, k/v ``[B, S, Hkv, hd]`` whole (the ring-attention split of
+    the work).  The reference takes this branch when the head count does not
+    divide the model axis (yi-34b's 56 heads, granite's 24).  Every kv chunk
+    is visited (no causal chunk skipping), the last one what is left."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    kv_chunk = min(kv_chunk, S)
+    q = ctx.constrain(q, "dp", "tp", None, None)
+    q_pos = torch.arange(S, device=q.device)
+
+    def shard(o, m, l):
+        return (ctx.constrain(o, "dp", "tp", None, None, None),
+                ctx.constrain(m, "dp", "tp", None, None),
+                ctx.constrain(l, "dp", "tp", None, None))
+
+    acc = shard(torch.zeros(B, S, Hkv, G, hd, dtype=torch.float32, device=q.device),
+                torch.full((B, S, Hkv, G), NEG_INF, dtype=torch.float32, device=q.device),
+                torch.zeros(B, S, Hkv, G, dtype=torch.float32, device=q.device))
+    for j0 in range(0, S, kv_chunk):
+        kj, vj = k[:, j0:j0 + kv_chunk], v[:, j0:j0 + kv_chunk]
+        mask = None
+        if causal:
+            mask = q_pos[:, None] >= torch.arange(j0, j0 + kj.shape[1],
+                                                  device=q.device)[None, :]
+        acc = shard(*_merge(acc, _attend_chunk(q, kj, vj, mask, scale)))
+    o, _, l = acc
+    o = o / torch.clamp(l[..., None], min=1e-30)
+    return o.reshape(B, S, H, hd).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -7,9 +7,13 @@ expert by a cumsum over the one-hot routing matrix, written into a
 per-expert ``[B, E, cap + 1, d]`` buffer whose last slot is the drop bin,
 run through stacked-expert products over the whole buffer, and combined
 back with the router weights.  The reference's sharding hints
-(``ctx.constrain``) are left out: the port runs on one device (ROADMAP
-A13.7).  The expert products are plain ``bmm``s, as the reference left
-them to XLA outside any Pallas kernel."""
+(``ctx.constrain``) sit at its points: no-ops without a mesh, and on the
+meshed train step's plain local tensors (compute on the model axis stays
+replicated).  The Switch aux loss of a batch whose rows are cut over the
+data axes sums its statistics over them (``ctx.batch_sum``), so it is the
+global batch's, as GSPMD gives the reference.  The expert products are
+plain ``bmm``s, as the reference left them to XLA outside any Pallas
+kernel."""
 from __future__ import annotations
 
 import dataclasses
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import nn
+from repro_torch.sharding import ctx
 
 
 def dense_ffn_init(gen, d: int, d_ff: int, dtype=torch.bfloat16,
@@ -87,8 +92,13 @@ def moe_aux(r: Routing, router_aux_coef: float = 0.01) -> torch.Tensor:
     """The Switch load-balancing loss of a routing, a float32 scalar.
     Serving does not compute it; training (ROADMAP A10) will."""
     B, SK, E = r.onehot.shape
-    me = r.probs.mean((0, 1))                                       # [E]
-    ce = r.onehot.sum((0, 1)).float() / (B * SK)
+    n = ctx.batch_split()
+    if n == 1:
+        me = r.probs.mean((0, 1))                                   # [E]
+        ce = r.onehot.sum((0, 1)).float() / (B * SK)
+    else:                       # this rank's rows of the global batch
+        me = ctx.batch_sum(r.probs.sum((0, 1))) / (n * B * r.probs.shape[1])
+        ce = ctx.batch_sum(r.onehot.sum((0, 1))).float() / (n * B * SK)
     return router_aux_coef * E * torch.sum(me * ce)
 
 
@@ -108,13 +118,20 @@ def moe_apply(p: dict, x: torch.Tensor, r: Routing) -> torch.Tensor:
     tok = torch.arange(S, device=x.device).repeat_interleave(K)     # [S·K]
     buf = x.new_zeros(B, E, C, d)
     buf[rows, r.expert, r.slot] = x[:, tok]
+    ep = E % max(ctx.axis_size("tp"), 1) == 0
+    # expert parallelism: experts on the model axis; else TP over d_ff
+    buf = ctx.constrain(buf, "dp", "tp" if ep else None, None, None)
 
     # stacked-expert FFN: E is the batch of the products
     xb = buf.transpose(0, 1).reshape(E, B * C, d)
     h = torch.bmm(xb, p["gate"])
     u = torch.bmm(xb, p["up"])
+    # the reference's [B,E,C,f] hints in this [E,B·C,f] layout
+    h_axes = ("tp", "dp", None) if ep else (None, "dp", "tp")
+    h, u = ctx.constrain(h, *h_axes), ctx.constrain(u, *h_axes)
     y = torch.bmm(F.silu(h) * u, p["down"])                         # [E,B·C,d]
     y = y.reshape(E, B, C, d).transpose(0, 1)                       # [B,E,C,d]
+    y = ctx.constrain(y, "dp", "tp" if ep else None, None, None)
 
     gathered = y[rows, r.expert, r.slot]                            # [B,S·K,d]
     gathered = torch.where(r.keep[..., None], gathered, 0.0)
@@ -122,6 +139,7 @@ def moe_apply(p: dict, x: torch.Tensor, r: Routing) -> torch.Tensor:
     out = x.new_zeros(B, S, d)
     for k in range(K):
         out = out + weighted[:, :, k]
+    out = ctx.constrain(out, "dp", None, None)
     if "shared" in p:
         out = out + nn.swiglu(p["shared"], x)
     return out

@@ -28,7 +28,9 @@ rematerializes them.  Attention goes through the flash-attention kernel
 (cross-attention at the memory's own length, over every row of it) and
 the RWKV6 recurrence through the WKV6 kernel, their gradients through
 the kernels' ``autograd.Function``s (a plain recompute); everything else
-is plain PyTorch, as the reference left it to XLA."""
+is plain PyTorch, as the reference left it to XLA.  The reference's
+activation-sharding hints (``sharding.ctx.constrain``) sit at its points:
+no-ops without a mesh, so every single-device number is unchanged."""
 from __future__ import annotations
 
 from typing import Callable
@@ -41,6 +43,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import nn, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import ctx
 
 Params = dict
 Batch = dict
@@ -191,10 +194,24 @@ def _run_attn(p: Params, x, cfg: ModelConfig, positions, causal: bool = True,
     q = nn.linear(p["wq"], x).reshape(B, S, h, hd)
     k = nn.linear(p["wk"], src).reshape(B, src.shape[1], hkv, hd)
     v = nn.linear(p["wv"], src).reshape(B, src.shape[1], hkv, hd)
+    tp = max(ctx.axis_size("tp"), 1)
+    head_par = cfg.num_heads % tp == 0
+    use_seqpar = (not head_par and cfg.seqpar_attention and S % tp == 0
+                  and memory is None)
+    if head_par:
+        q, k, v = (ctx.constrain(t, "dp", None, "tp", None) for t in (q, k, v))
+    elif not use_seqpar:
+        # unsplittable head counts: shard head_dim (partial-sum attention)
+        q, k, v = (ctx.constrain(t, "dp", None, None, "tp") for t in (q, k, v))
     if memory is None:
         q = nn.apply_rope(q, positions, cfg.rope_theta)
         k = nn.apply_rope(k, positions, cfg.rope_theta)
-    o = attn.flash_attention(q, k, v, causal=causal and memory is None)
+    if use_seqpar:
+        # heads unsplittable (yi 56H, granite 24H): the q rows over the
+        # model axis instead (sequence-parallel attention)
+        o = attn.flash_attention_seqpar(q, k, v, causal=causal)
+    else:
+        o = attn.flash_attention(q, k, v, causal=causal and memory is None)
     return nn.linear(p["wo"], o.reshape(B, S, h * hd))
 
 
@@ -268,10 +285,13 @@ def _block_forward(cfg: ModelConfig, block_params: Params, x, positions,
 def _scan_blocks(cfg: ModelConfig, layers: Params, x, positions, memory=None):
     """Every block in turn, each rematerialized under ``cfg.remat``.
     Returns (x, the summed aux loss)."""
+    res_spec = ("dp", "tp", None) if cfg.seq_sharded_residual else ("dp", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block_params in _blocks(layers, cfg.num_blocks):
+        x = ctx.constrain(x, *res_spec)
         x, aux_b = _recompute(_block_forward, cfg, block_params, x, positions, memory,
                               remat=cfg.remat)
+        x = ctx.constrain(x, *res_spec)
         aux = aux + aux_b
     return x, aux
 
@@ -330,14 +350,14 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Batch):
             targets = torch.cat([targets.new_zeros(pad), targets], dim=1)
             mask = torch.cat([mask.new_zeros(pad), mask], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    return x, targets, mask, positions
+    return ctx.constrain(x, "dp", None, None), targets, mask, positions
 
 
 # ===========================================================================
 # Training loss
 # ===========================================================================
 def _chunk_loss(xc, table_T, tc, mc):
-    logits = (xc @ table_T).float()
+    logits = ctx.constrain((xc @ table_T).float(), "dp", None, "tp")
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
     return ((lse - gold) * mc).sum(), mc.sum()
@@ -349,13 +369,15 @@ def chunked_cross_entropy(x, table_T, targets, mask, chunk: int = 512):
     mask ``[B, S]``.  Chunks of ``chunk`` positions, each rematerialized in
     the backward; the last chunk takes what is left, so every token counts
     (the reference's ``S // (S // chunk)`` chunks drop a tail of S mod
-    that size, ROADMAP C11)."""
+    that size, ROADMAP C11).  When the batch's rows are cut over the data
+    axes, the sum and the count are the global batch's (``ctx.batch_sum``)."""
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for s0 in range(0, x.shape[1], chunk):
         sl = slice(s0, s0 + chunk)
         l, c = _recompute(_chunk_loss, x[:, sl], table_T, targets[:, sl], mask[:, sl])
         tot, cnt = tot + l, cnt + c
+    tot, cnt = ctx.batch_sum(tot), ctx.batch_sum(cnt)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -372,6 +394,9 @@ def train_loss(cfg: ModelConfig):
         memory = encode(cfg, params, batch["frames"]) if cfg.encoder_layers else None
         x, targets, mask, positions = _embed_inputs(cfg, params, batch)
         x, aux = _scan_blocks(cfg, params["layers"], x, positions, memory)
+        if cfg.seq_sharded_residual:
+            # gather the final activation for the vocab projection
+            x = ctx.constrain(x, "dp", None, None)
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         ce = chunked_cross_entropy(x, _head_table_T(cfg, params), targets, mask)
         return ce + aux, {"ce": ce, "aux": aux}

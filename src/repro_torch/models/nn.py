@@ -78,8 +78,13 @@ def swiglu_init(gen, d: int, d_ff: int, dtype=torch.bfloat16,
 
 
 def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
+    from repro_torch.sharding import ctx
     h = linear(p["gate"], x)
     u = linear(p["up"], x)
+    if h.dim() == 3:
+        # Megatron column-parallel: d_ff on the model axis
+        h = ctx.constrain(h, "dp", None, "tp")
+        u = ctx.constrain(u, "dp", None, "tp")
     return linear(p["down"], F.silu(h) * u)
 
 

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.models import nn
+from repro_torch.sharding import ctx
 
 
 # ===========================================================================
@@ -76,6 +77,8 @@ def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
     and checkpointed.  The chunk's outputs are one batched product with C."""
     B, S, d = u.shape
     x, z = nn.linear(p["in_proj"], u).chunk(2, dim=-1)          # [B,S,di]
+    x = ctx.constrain(x, "dp", None, "tp")
+    z = ctx.constrain(z, "dp", None, "tp")
     di = x.shape[-1]
 
     # causal depthwise conv1d
@@ -197,6 +200,9 @@ def _rwkv_mix_projections(p, x, x_prev, head_size):
     k = nn.linear(p["Wk"], xk).reshape(B, T, H, head_size)
     v = nn.linear(p["Wv"], xv).reshape(B, T, H, head_size)
     g = F.silu(nn.linear(p["Wg"], xg))
+    r = ctx.constrain(r, "dp", None, "tp", None)
+    k = ctx.constrain(k, "dp", None, "tp", None)
+    v = ctx.constrain(v, "dp", None, "tp", None)
     return w.reshape(B, T, H, head_size), r, k, v, g
 
 
@@ -225,6 +231,7 @@ def rwkv6_channel_mix(p: dict, x: torch.Tensor) -> torch.Tensor:
     xk = x + dx * p["mu_ck"]
     xr = x + dx * p["mu_cr"]
     k = torch.square(torch.relu(nn.linear(p["Wck"], xk)))
+    k = ctx.constrain(k, "dp", None, "tp")    # column-parallel channel mix
     return torch.sigmoid(nn.linear(p["Wcr"], xr)) * nn.linear(p["Wcv"], k)
 
 

@@ -110,6 +110,18 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_unflatten(tree, leaves: list):
+    """``tree``'s structure with ``leaves`` (in :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return next(it)
+    return build(tree)
+
+
 class TreeAdamState(NamedTuple):
     step: torch.Tensor            # int32 scalar
     mu: Any
@@ -202,11 +214,17 @@ def sgd(learning_rate: float | Schedule, momentum: float = 0.0) -> TreeOptimizer
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, leaf_sum=None):
     """(grads scaled to a global L2 norm of at most ``max_norm``, the norm
     before), the norm a float32 scalar summed over the leaves in the
-    reference's order."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    reference's order.  ``leaf_sum(sums)`` takes the list of each leaf's
+    local sum of squares to the whole leaves' (a sharded state's: summed
+    over the ranks that hold the leaf's other shards, a replicated leaf
+    counted once)."""
+    sums = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    if leaf_sum is not None:
+        sums = leaf_sum(sums)
+    gnorm = torch.sqrt(sum(sums))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), gnorm
 

@@ -13,8 +13,32 @@ The state lives on one device (the card by default), its step counters
 there too, so a step makes no device round trip; the metrics are device
 scalars the caller reads when it wants them.  Nothing is compiled, so the
 reference's ``jitted_train_step`` becomes ``cached_train_step``, one step
-function per (cfg, setup).  The step is functional, as the reference's:
-it returns a new state and leaves the one it was given as it was."""
+function per (cfg, setup, mesh).  The step is functional, as the
+reference's: it returns a new state and leaves the one it was given as it
+was.
+
+Over a mesh (a ``DeviceMesh`` from ``launch.mesh.make_production_mesh``)
+the state is the reference dry-run's layout (``shard_train_state``): the
+parameters, AdamW's moments and the per-leaf EF residuals are DTensors
+with their parameter's placements under the sharding policy, the scalars
+replicated, and each rank stores only its shards.  ``make_train_step(cfg,
+setup, mesh)`` then
+
+  takes this rank's rows of each microbatch (``policy.batch_spec``: cut
+    over the data axes, replicated when they do not divide it);
+  gathers every parameter where the loss uses it (``redistribute`` to
+    ``Replicate``, then ``to_local(grad_placements=...)``), so the model
+    and the kernels' ``autograd.Function``s see plain local tensors;
+  takes the gradients back reduce-scattered to the parameter's placements
+    (``Partial`` over the data axes when the batch is cut: each rank's
+    share of the global batch's mean loss, ``sharding.ctx.batch_sum``);
+  compresses (EF-int8, the scale over the whole leaf), clips (the global
+    norm, a replicated leaf counted once) and updates each rank's shards.
+
+The whole tree is gathered at the start of each microbatch (one full copy
+of the parameters beside the shards), and compute on the ``model`` axis
+is replicated: tensor-parallel compute and per-block gathering are
+ROADMAP items."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,10 +46,14 @@ import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
+from repro_torch.sharding import ctx
+from repro_torch.sharding.policy import ShardingPolicy, mesh_axis_sizes
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.compression import ef_compress_grads
 
@@ -92,16 +120,20 @@ def abstract_train_state(cfg: ModelConfig, setup: TrainSetup) -> TrainState:
 
 
 @functools.lru_cache(maxsize=None)
-def cached_train_step(cfg: ModelConfig, setup: TrainSetup) -> Callable:
-    """One step function per (cfg, setup)."""
-    return make_train_step(cfg, setup)
+def cached_train_step(cfg: ModelConfig, setup: TrainSetup, mesh=None) -> Callable:
+    """One step function per (cfg, setup, mesh)."""
+    return make_train_step(cfg, setup, mesh)
 
 
-def make_train_step(cfg: ModelConfig, setup: TrainSetup) -> Callable:
+def make_train_step(cfg: ModelConfig, setup: TrainSetup, mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (new state, {"loss", "grad_norm",
     "lr"}).  ``batch`` holds ``[B, ...]`` tensors on the state's device
     (``tokens``, ``targets``, and a vlm's ``frontend_embeds`` or an
-    encdec's ``frames``), B a multiple of ``setup.micro_batches``."""
+    encdec's ``frames``), B a multiple of ``setup.micro_batches``.  With a
+    ``mesh`` the state is ``shard_train_state``'s and ``batch`` the global
+    batch, the same on every rank (the module docstring)."""
+    if mesh is not None:
+        return _make_meshed_train_step(cfg, setup, mesh)
     loss_fn = lm.train_loss(cfg)
     optz = make_optimizer(setup)
     sched = opt_lib.warmup_cosine(setup.learning_rate, setup.warmup_steps,
@@ -110,11 +142,7 @@ def make_train_step(cfg: ModelConfig, setup: TrainSetup) -> Callable:
     n_micro = setup.micro_batches
 
     def train_step(state: TrainState, batch: dict):
-        for name, x in batch.items():
-            if x.shape[0] % n_micro:
-                raise ValueError(f"batch {name} has {x.shape[0]} rows, not a multiple "
-                                 f"of {n_micro} microbatches")
-        micro = {name: x.chunk(n_micro) for name, x in batch.items()}
+        micro = _microbatches(batch, n_micro)
         params = opt_lib.tree_map(lambda p: p.detach().requires_grad_(), state.params)
         leaves = opt_lib.tree_leaves(params)
         grads = opt_lib.tree_map(
@@ -143,3 +171,160 @@ def make_train_step(cfg: ModelConfig, setup: TrainSetup) -> Callable:
 
     return train_step
 
+
+
+def _microbatches(batch: dict, n_micro: int) -> dict:
+    for name, x in batch.items():
+        if x.shape[0] % n_micro:
+            raise ValueError(f"batch {name} has {x.shape[0]} rows, not a multiple "
+                             f"of {n_micro} microbatches")
+    return {name: x.chunk(n_micro) for name, x in batch.items()}
+
+
+# ===========================================================================
+# The train state and step over a mesh
+# ===========================================================================
+def shard_train_state(state: TrainState, policy: ShardingPolicy) -> TrainState:
+    """``state`` (the same full tensors on every rank) as DTensors on
+    ``policy.mesh``: parameters, moments and per-leaf EF residuals with the
+    parameter's placements, the step counters and scalar residuals
+    replicated.  Each rank keeps only its shards."""
+    mesh = policy.mesh
+    placed = policy.params_sharding(state.params)
+    rep = policy.replicated()
+
+    def put(x, pl):
+        return distribute_tensor(x.detach(), mesh, pl if x.dim() else rep)
+
+    tree = lambda t: opt_lib.tree_map(put, t, placed)  # noqa: E731
+    return TrainState(distribute_tensor(state.step, mesh, rep), tree(state.params),
+                      opt_lib.TreeAdamState(distribute_tensor(state.opt.step, mesh, rep),
+                                            tree(state.opt.mu), tree(state.opt.nu)),
+                      tree(state.ef_residual))
+
+
+def unshard_train_state(state: TrainState) -> TrainState:
+    """Every DTensor of ``state`` gathered whole on every rank (a collective:
+    every rank calls it), as plain tensors: the unmeshed layout."""
+    def whole(x):
+        if not isinstance(x, DTensor):
+            return x
+        return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
+    return TrainState(whole(state.step), opt_lib.tree_map(whole, state.params),
+                      opt_lib.TreeAdamState(whole(state.opt.step),
+                                            opt_lib.tree_map(whole, state.opt.mu),
+                                            opt_lib.tree_map(whole, state.opt.nu)),
+                      opt_lib.tree_map(whole, state.ef_residual))
+
+
+def _local_rows(policy: ShardingPolicy, rows: int) -> tuple[slice, tuple[str, ...]]:
+    """(this rank's rows of a ``rows``-row batch, the mesh axes they are cut
+    over): cut over the data axes, major first, when ``policy.batch_spec``
+    cuts it; all rows and no axes when it is replicated."""
+    if policy.batch_spec(rows)[0] is None:
+        return slice(None), ()
+    names = list(mesh_axis_sizes(policy.mesh))
+    coord = policy.mesh.get_coordinate()
+    idx = 0
+    for a in policy.axes.dp:
+        idx = idx * policy.mesh.size(names.index(a)) + coord[names.index(a)]
+    n = rows // policy.dp_size
+    return slice(idx * n, (idx + 1) * n), policy.axes.dp
+
+
+def _leaf_reduce(mesh, placements: list, op):
+    """``reduce(values)``: each leaf's scalar over its own shard (in
+    ``tree_leaves`` order) → over the whole leaf: ``op`` over the mesh
+    dimensions that shard it, one collective a dimension for all the leaves
+    sharded alike; a replicated dimension is not reduced (its ranks hold
+    the same values)."""
+    dims = [tuple(i for i, pl in enumerate(pls) if isinstance(pl, Shard)
+                  and mesh.size(i) > 1) for pls in placements]
+
+    def reduce(values: list) -> list:
+        out = list(values)
+        groups: dict = {}
+        for i, d in enumerate(dims):
+            if d:
+                groups.setdefault(d, []).append(i)
+        for d, idx in groups.items():
+            stacked = torch.stack([values[i] for i in idx])
+            for m in d:
+                dist.all_reduce(stacked, op=op, group=mesh.get_group(m))
+            for j, i in enumerate(idx):
+                out[i] = stacked[j]
+        return out
+    return reduce
+
+
+def _make_meshed_train_step(cfg: ModelConfig, setup: TrainSetup, mesh) -> Callable:
+    loss_fn = lm.train_loss(cfg)
+    optz = make_optimizer(setup)
+    sched = opt_lib.warmup_cosine(setup.learning_rate, setup.warmup_steps,
+                                  setup.total_steps)
+    adt = DTYPES[setup.accum_dtype]
+    n_micro = setup.micro_batches
+    policy = ShardingPolicy(mesh, cfg)
+    names = list(mesh_axis_sizes(mesh))
+    whole = [Replicate()] * len(names)
+
+    def local(tree):
+        return opt_lib.tree_map(lambda x: x.to_local(), tree)
+
+    def placed(tree, like):
+        return opt_lib.tree_map(lambda x, d: DTensor.from_local(
+            x, mesh, d.placements, run_check=False), tree, like)
+
+    def train_step(state: TrainState, batch: dict):
+        micro = _microbatches(batch, n_micro)
+        rows, cut = _local_rows(policy, next(iter(batch.values())).shape[0] // n_micro)
+        # the gathered parameters' gradients: each rank's share over the
+        # axes the batch is cut over (summed by the reduce-scatter back to
+        # the parameter's placements), the same on the other axes
+        grad_pl = [Partial() if n in cut else Replicate() for n in names]
+        params = opt_lib.tree_map(lambda p: p.detach().requires_grad_(), state.params)
+        leaves = opt_lib.tree_leaves(params)
+        grads = opt_lib.tree_map(
+            lambda p: torch.zeros(p.to_local().shape, dtype=adt, device=p.device), params)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        with ctx.use_mesh(mesh), ctx.cut_batch(cut):
+            for i in range(n_micro):
+                full = opt_lib.tree_map(lambda p: p.redistribute(mesh, whole).to_local(
+                    grad_placements=grad_pl), params)
+                loss, _ = loss_fn(full, {name: xs[i][rows] for name, xs in micro.items()})
+                micro_grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+                del full
+                for a, g, p in zip(opt_lib.tree_leaves(grads), micro_grads, leaves):
+                    if g is None:
+                        continue
+                    if tuple(g.placements) != tuple(p.placements):
+                        g = g.redistribute(mesh, p.placements)
+                    a.add_(g.to_local().to(adt))
+                loss_sum = loss_sum + loss.detach()
+        grads = opt_lib.tree_map(lambda a: a.div_(n_micro), grads)
+        loss = loss_sum / n_micro
+
+        shards = [p.placements for p in leaves]
+        ef = local(state.ef_residual)
+        if setup.compress_grads:
+            grads, ef = ef_compress_grads(grads, ef, leaf_max=_leaf_reduce(
+                mesh, shards, dist.ReduceOp.MAX))
+        grads, gnorm = opt_lib.clip_by_global_norm(
+            grads, setup.clip_norm, leaf_sum=_leaf_reduce(mesh, shards, dist.ReduceOp.SUM))
+        opt_in = opt_lib.TreeAdamState(state.opt.step.to_local(), local(state.opt.mu),
+                                       local(state.opt.nu))
+        params_l = local(state.params)
+        updates, opt_state = optz.update(grads, opt_in, params_l)
+        new_params = opt_lib.apply_tree_updates(params_l, updates)
+        step = state.step.to_local() + 1
+        new_state = TrainState(
+            DTensor.from_local(step, mesh, state.step.placements, run_check=False),
+            placed(new_params, state.params),
+            opt_lib.TreeAdamState(
+                DTensor.from_local(opt_state.step, mesh, state.opt.step.placements,
+                                   run_check=False),
+                placed(opt_state.mu, state.opt.mu), placed(opt_state.nu, state.opt.nu)),
+            placed(ef, state.ef_residual))
+        return new_state, {"loss": loss, "grad_norm": gnorm, "lr": sched(step)}
+
+    return train_step

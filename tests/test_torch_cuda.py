@@ -1298,3 +1298,49 @@ def test_fleet_mesh_on_cuda_raises_without_a_gpu():
         make_fleet_mesh(device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_host_mesh()
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_meshed_train_step_on_a_nccl_world_of_one(cuda_device, compress):
+    """``make_production_mesh`` over a world of one on NCCL: a float32 smoke
+    llama3-8b step with its state sharded by the policy equals the
+    unmeshed step on the card bit for bit (loss, gradient norm, every leaf
+    of the parameters, moments and EF residuals), under PyTorch's
+    deterministic algorithms, with the unmeshed step's flash launches."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+    from repro_torch.train.optimizer import tree_leaves
+    from torch_lm_cases import on_device, warm_train_state
+
+    setup = trainer.TrainSetup(micro_batches=2, learning_rate=1e-3, warmup_steps=1,
+                               total_steps=10, compress_grads=compress)
+    cfg, state, batch = warm_train_state("llama3-8b", setup, 2, seed=5)
+    state, batch = on_device(state, cuda_device), on_device(batch, cuda_device)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    mesh = make_production_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        fa_ops.LAUNCHES_BY_SHAPE.clear()
+        want, wm = trainer.make_train_step(cfg, setup)(state, batch)
+        plain_launches = dict(fa_ops.LAUNCHES_BY_SHAPE)
+        fa_ops.LAUNCHES_BY_SHAPE.clear()
+        sharded = trainer.shard_train_state(state, ShardingPolicy(mesh, cfg))
+        got, gm = trainer.make_train_step(cfg, setup, mesh)(sharded, batch)
+        torch.cuda.synchronize()
+        assert dict(fa_ops.LAUNCHES_BY_SHAPE) == plain_launches != {}
+        for key in ("loss", "grad_norm"):
+            assert float(gm[key]) == float(wm[key])
+        got = trainer.unshard_train_state(got)
+        for tree in ("params", "ef_residual"):
+            for a, b in zip(tree_leaves(getattr(got, tree)), tree_leaves(getattr(want, tree))):
+                assert torch.equal(a, b), tree
+        for a, b in zip(tree_leaves(got.opt.mu) + tree_leaves(got.opt.nu),
+                        tree_leaves(want.opt.mu) + tree_leaves(want.opt.nu)):
+            assert torch.equal(a, b)
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(was)
