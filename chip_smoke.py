@@ -126,7 +126,16 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   bf16) sharded by the policy, 2 steps on the mesh against 2 unmeshed
   steps from the same seed and batches (loss, gradient norm and every
   leaf of the parameters and moments bit for bit), each step's ms, the
-  peak GiB and the flash launches by shape.
+  peak GiB and the flash launches by shape;
+* the dry-run (``repro_torch.launch.dryrun``): phase 28's step traced on
+  ``meta`` tensors in a fake process group of one rank, then run on the
+  card (NCCL, a world of one): argument bytes equal, flash calls by shape
+  equal to the launches, FLOPs within 1% and the predicted peak within
+  10% of ``max_memory_allocated``; then the dry-run's command on four
+  cells of the reference's grid at full depth on a fake world of 256
+  ranks (llama3-8b ``train_4k``, ``prefill_32k``, ``decode_32k`` and
+  rwkv6-7b ``long_500k``), each cell's FLOPs a rank beside 6·N·D / 256,
+  its predicted peak beside the card's 80 GiB and its wire bytes.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -265,6 +274,13 @@ MESH = dict(fleet=8, epochs=50, slots=2, scenario="one_slow_machine")
 # LM training over a mesh (phase 30): phase 28c's llama3-8b, 2 steps
 # sharded on make_production_mesh (a world of one on NCCL) and 2 unmeshed
 MESH_TRAIN = dict(steps=2)
+# the dry-run (phase 31): phase 28c's step traced on a fake world of one
+# and held to the same step on the card; then the dry-run's command on four
+# cells of the reference's grid at full depth, a fake world of 256 ranks
+DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
+                ("llama3-8b", "decode_32k"), ("rwkv6-7b", "long_500k"))
+DRYRUN_TIMEOUT_S = 300
+CARD_GIB = 80
 DRILL = dict(fleet=8, epochs=40, every=10, kill_at=20, offline=200,
              offline_updates=20)
 
@@ -2069,15 +2085,15 @@ def check_flash(dev) -> dict:
         f"{cross_err[torch.bfloat16]:.3g})")
 
     q, k, v = inputs
-    flops = 4 * B * H * hd * S * (S + 1) // 2            # causal: j <= i
-    elems = 2 * B * S * H * hd + 2 * B * S * Hkv * hd     # q, o and k, v
+    flops = ops.flops(B, S, S, H, hd, causal=True)
     q32, k32, v32 = q.float(), k.float(), v.float()
     f32 = dict(ms=eager_ms(lambda: ops.flash_attention(q32, k32, v32, causal=True),
                            iters=5, warmup=1),
                plain_ms=eager_ms(lambda: flash_attention_ref(q32, k32, v32), iters=5,
                                  warmup=1),
                library_ms=eager_ms(lambda: sdpa(q32, k32, v32), iters=5, warmup=1),
-               bound_ms=max(flops / F32_OPS_PER_S, 4 * elems / HBM_BYTES_PER_S) * 1e3)
+               bound_ms=max(flops / F32_OPS_PER_S, ops.bytes_moved(
+                   B, S, S, H, Hkv, hd, torch.float32) / HBM_BYTES_PER_S) * 1e3)
     log(f"  [{B},{S},{H},{hd}] q x [{B},{S},{Hkv},{hd}] k/v float32 causal, float32 "
         f"route (flash_attention.cu), ms per call: kernel {f32['ms']:.6f}  plain "
         f"{f32['plain_ms']:.6f}  library (SDPA, float32) {f32['library_ms']:.6f}  "
@@ -2091,7 +2107,7 @@ def check_flash(dev) -> dict:
     t = dict(ms=eager_ms(kernel, iters=20, warmup=3),
              plain_ms=eager_ms(plain, iters=5, warmup=1),
              library_ms=eager_ms(library, iters=20, warmup=3))
-    bytes_moved = 2 * elems
+    bytes_moved = ops.bytes_moved(B, S, S, H, Hkv, hd, torch.bfloat16)
     t_ops, t_bytes = flops / BF16_TC_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
     t["bound_ms"] = max(t_ops, t_bytes) * 1e3
     t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -2144,9 +2160,8 @@ def time_flash_shape(dev, gen, what: str, H: int, Hkv: int, hd: int,
     lib_err = float((sdpa(q, k, v, causal).transpose(1, 2).float() - got.float())
                     .abs().max())
     del got, want, diff
-    flops = 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * Skv)
-    elems = 2 * B * S * H * hd + 2 * B * Skv * Hkv * hd                # q, o, k, v
-    bytes_moved = 2 * elems
+    flops = ops.flops(B, S, Skv, H, hd, causal)
+    bytes_moved = ops.bytes_moved(B, S, Skv, H, Hkv, hd, torch.bfloat16)
     t = dict(ms=eager_ms(lambda: ops.flash_attention(q, k, v, causal=causal), iters=20,
                          warmup=3),
              plain_ms=eager_ms(lambda: flash_attention_ref(q, k, v, causal=causal),
@@ -2181,7 +2196,8 @@ def time_flash_shape(dev, gen, what: str, H: int, Hkv: int, hd: int,
                                      iters=3, warmup=1),
                    library_ms=eager_ms(lambda: sdpa(q, k, v, causal), iters=5, warmup=1),
                    max_abs_err=err32)
-        t_ops, t_bytes = flops / F32_OPS_PER_S, 4 * elems / HBM_BYTES_PER_S
+        t_ops = flops / F32_OPS_PER_S
+        t_bytes = ops.bytes_moved(B, S, Skv, H, Hkv, hd, torch.float32) / HBM_BYTES_PER_S
         t32["bound_ms"] = max(t_ops, t_bytes) * 1e3
         t32["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         log(f"  {what}, float32 route (flash_attention.cu), ms per call: kernel "
@@ -2206,7 +2222,7 @@ def time_wide_heads(dev, gen) -> dict:
     B, S, H = LM["batch"], LM["prefill_len"], 32
     out = {}
     for hd in (256, 512):
-        flops = 4 * B * H * hd * S * (S + 1) // 2
+        flops = ops.flops(B, S, S, H, hd, causal=True)
         wide = hd > ops.HEAD_DIMS[-1]
         for dtype, peak in ((torch.float32, F32_OPS_PER_S),
                             (torch.bfloat16, BF16_TC_OPS_PER_S)):
@@ -2228,7 +2244,7 @@ def time_wide_heads(dev, gen) -> dict:
                      plain_ms=eager_ms(lambda a=qkv: flash_attention_ref(*a), iters=3,
                                        warmup=1),
                      library_ms=eager_ms(lambda a=qkv: sdpa(*a), iters=5, warmup=1))
-            bytes_moved = 4 * B * S * H * hd * q.element_size()
+            bytes_moved = ops.bytes_moved(B, S, S, H, H, hd, dtype)
             t_ops, t_bytes = flops / peak, bytes_moved / HBM_BYTES_PER_S
             t["bound_ms"] = max(t_ops, t_bytes) * 1e3
             t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -2309,13 +2325,8 @@ def check_wkv(dev) -> dict:
         else:
             t = dict(ms=eager_ms(kernel, iters=20, warmup=3),
                      plain_ms=eager_ms(plain, iters=2, warmup=1))
-        elems = b * T * H * hd
-        state = b * H * hd * hd * 4
-        bytes_moved = elems * (4 + 3 * 2 + 4) + state * (2 if carry else 1)
-        # per state element and step: r_i S_ij into the output (an FMA) and
-        # S_ij = w_i S_ij + k_i v_j (a product and an FMA); the bonus
-        # v_j sum_i r_i u_i k_i is O(hd) per step and left out
-        ops_count = 5 * b * T * H * hd * hd
+        bytes_moved = ops.bytes_moved(b, T, H, hd, torch.bfloat16, carry)
+        ops_count = ops.flops(b, T, H, hd)
         t_ops, t_bytes = ops_count / F32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
         t["bound_ms"] = max(t_ops, t_bytes) * 1e3
         t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -4203,6 +4214,148 @@ def run_meshed_train(dev, card: str, mesh) -> dict:
     return dict(launches=launches, runs=runs)
 
 
+def check_dryrun_vs_card(dev, card: str) -> dict:
+    """Phase 31a: phase 28c's llama3-8b step (4 of 32 layers at every width,
+    bf16, 8 x 2048 in 4 microbatches: the grid's ``train_4k`` cut) first
+    traced by the dry-run on a fake world of one (``dryrun.trace`` on
+    ``meta`` tensors), then run on the card on ``make_production_mesh()``
+    (NCCL, a world of one) from a fresh state, after
+    ``reset_peak_memory_stats``, under ``FlopCounterMode``.  The argument
+    bytes must be equal, the flash calls by shape equal to the card's
+    launches by shape, the FLOPs (aten ops + kernel calls × ``ops.flops``
+    on each side) within 1%, and the predicted peak within 10% of
+    ``max_memory_allocated`` less what earlier phases left allocated
+    before the state was drawn."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+
+    T = TRAIN
+    cfg = dataclasses.replace(get_config(T["arch"]), num_layers=T["layers"])
+    setup = trainer.TrainSetup(micro_batches=T["micro"], learning_rate=T["lr"],
+                               warmup_steps=T["warmup"], total_steps=T["warmup"] + T["timed"])
+    shape = ShapeSpec("train_4k", T["seq"], T["batch"], "train")
+    with dryrun.fake_world(1):
+        pred = dryrun.trace(cfg, shape, make_production_mesh(device="cpu"), setup)
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    mesh = make_production_mesh()
+    try:
+        state = trainer.init_train_state(cfg, setup, torch.Generator(device=dev).manual_seed(
+            T["seed"]), dev)
+        state = trainer.shard_train_state(state, ShardingPolicy(mesh, cfg))
+        data = DataConfig(cfg.vocab_size, T["seq"], T["batch"], seed=T["seed"])
+        batch = {k: v.to(dev) for k, v in batch_at(data, 0).items()}
+        args_bytes = dryrun.local_bytes(state) + dryrun.local_bytes(batch)
+        step = trainer.make_train_step(cfg, setup, mesh)
+        fa_ops.LAUNCHES_BY_SHAPE.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            new, m = step(state, batch)
+            loss = float(m["loss"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = dict(fa_ops.LAUNCHES_BY_SHAPE)
+        del new, m, state, step, batch
+    finally:
+        dist.destroy_process_group()
+    B = T["batch"] // T["micro"]
+    flash = fa_ops.flops(B, T["seq"], T["seq"], cfg.num_heads, cfg.head_dim, True)
+    card_flops = fc.get_total_flops() + sum(launches.values()) * flash
+    calls = pred["kernels"].get("flash_attention", {}).get("by_shape", {})
+    mem = pred["memory"]
+    flop_off = abs(pred["flops_per_device"] - card_flops) / card_flops
+    peak_off = abs(mem["peak_bytes_est"] - peak) / peak
+    log(f"phase 31a the dry-run of phase 28c's step (llama3-8b, the grid's train_4k cut: "
+        f"S 4096 -> {T['seq']}, batch 256 -> {T['batch']}, layers 32 -> {T['layers']}; "
+        f"{T['micro']} microbatches, bf16) on a fake world of one, traced in "
+        f"{pred['trace_s']:.1f} s, against the step on the card ({card}; NCCL world of "
+        f"one, {ms:.3f} ms, loss {loss:.4f}): argument bytes {mem['argument_bytes']} "
+        f"predicted, {args_bytes} held; flash calls {calls} predicted, launches "
+        f"{launches}; FLOPs {pred['flops_per_device']:.6e} predicted "
+        f"({pred['flops_aten']:.6e} aten + {pred['flops_per_device'] - pred['flops_aten']:.6e} "
+        f"kernel), {card_flops:.6e} measured ({fc.get_total_flops():.6e} aten + "
+        f"{card_flops - fc.get_total_flops():.6e} kernel), off by {flop_off:.3%}; peak "
+        f"{mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, {peak / 2**30:.3f} GiB "
+        f"max_memory_allocated less the {base / 2**30:.3f} GiB allocated before the "
+        f"state, off by {peak_off:.2%}; output bytes {mem['output_bytes']} predicted")
+    if mem["argument_bytes"] != args_bytes:
+        raise AssertionError(f"phase 31a: argument bytes {mem['argument_bytes']} "
+                             f"predicted, {args_bytes} on the card")
+    if calls != launches:
+        raise AssertionError(f"phase 31a: flash calls {calls} predicted, launches {launches}")
+    if flop_off > 0.01:
+        raise AssertionError(f"phase 31a: FLOPs off by {flop_off:.3%} (bound 1%)")
+    if peak_off > 0.10:
+        raise AssertionError(f"phase 31a: the predicted peak is off by {peak_off:.2%} "
+                             "(bound 10%)")
+    return dict(launches=sum(launches.values()), pred=pred, peak=peak, flops=card_flops)
+
+
+def run_dryrun_cells() -> dict:
+    """Phase 31b: ``python -m repro_torch.launch.dryrun --mesh single
+    --force`` on each of ``DRYRUN_CELLS`` at full depth, one process a
+    cell, all at once (the dry-run runs on the CPU: it allocates nothing
+    on the card).  For each cell: FLOPs a rank beside 6·N·D / 256 (2·N·D
+    forward only; N the active parameters, D the tokens a step computes),
+    the predicted peak beside the card's 80 GiB (a cell that does not fit
+    is a result), the wire bytes and the trace seconds.  Any status other
+    than ok fails."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.launch import dryrun
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+         cell[1], "--mesh", "single", "--force"], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cell in DRYRUN_CELLS}
+    out = {}
+    try:
+        for (arch, shape), p in procs.items():
+            text, _ = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+            path = dryrun.cell_path(arch, shape, "single")
+            res = json.loads(path.read_text()) if path.exists() else {}
+            if p.returncode != 0 or res.get("status") != "ok":
+                raise AssertionError(f"phase 31b {arch} x {shape}: exit {p.returncode}, "
+                                     f"status {res.get('status')}: "
+                                     f"{res.get('error', text[-2000:])}")
+            sh = SHAPES[shape]
+            tokens = sh.global_batch * (1 if sh.kind == "decode" else sh.seq_len)
+            n_flop = (6 if sh.kind == "train" else 2) * res["param_count_active"] * tokens
+            peak = res["memory"]["peak_bytes_est"] / 2**30
+            log(f"phase 31b {arch} x {shape} x single ({res['devices']} ranks "
+                f"{res['mesh_shape']}, {res['kind']}): {res['flops_per_device']:.4e} FLOP a "
+                f"rank against {'6' if sh.kind == 'train' else '2'}·N·D / {res['devices']} = "
+                f"{n_flop / res['devices']:.4e} ({res['flops_per_device'] * res['devices'] / n_flop:.2f}x); "
+                f"peak {peak:.2f} GiB a rank against the card's {CARD_GIB} "
+                f"({'fits' if peak <= CARD_GIB else 'does not fit'}); arguments "
+                f"{res['memory']['argument_bytes'] / 2**30:.3f} GiB; wire "
+                f"{res['collective_wire_bytes_per_device']:.4e} B a rank "
+                + str({k: v["count"] for k, v in res["collectives"].items()})
+                + f"; kernel calls {({k: v['calls'] for k, v in res['kernels'].items()})}; "
+                f"traced in {res['trace_s']} s on the host's CPU")
+            out[(arch, shape)] = res
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
 def log_instantiations(source: str, text: str) -> None:
     """Phase 2: registers and spill stores of every kernel instantiation in
     ``source``'s ``-Xptxas -v`` log, by demangled name."""
@@ -4366,6 +4519,10 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     log(f"phase 30 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dry = check_dryrun_vs_card(dev, card)
+    run_dryrun_cells()
+    log(f"phase 31 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -4461,6 +4618,10 @@ def main() -> int:
         # phase 30b: the meshed llama3-8b train steps' forward launches (the
         # microbatch's shape, timed in phase 28c)
         row("flash_attention_train_mesh", flash_sm90, flash_tpu, meshed_train["launches"],
+            train["timing"], train["timing"]),
+        # phase 31a: the step the dry-run's prediction is held to (phase
+        # 28c's shape, timed there)
+        row("flash_attention_dryrun_check", flash_sm90, flash_tpu, dry["launches"],
             train["timing"], train["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -28,8 +28,14 @@ encoder's memory under cross-attention): every route's key loop runs to
 ``Skv`` and masks its tail, and the bfloat16 route's K/V tensor maps take
 ``Skv`` as their extent.  Causal attention needs ``Skv == S``.
 
-On CPU tensors it runs the plain version (``ref.py``).  There is no
-fallback from one route to another.
+On CPU tensors it runs the plain version (``ref.py``).  On ``meta``
+tensors (the dry-run, ``launch/dryrun.py``) it makes the card path's
+checks and returns an empty ``meta`` output of the kernel's shape and
+dtype, computing nothing; it records the call by its full shape in
+``META_CALLS``, as the card path counts its launches.  There is no
+fallback from one route to another.  ``flops`` and ``bytes_moved`` give a
+call's work, which the dry-run adds to its count and ``chip_smoke.py``'s
+bounds divide by the card's rates.
 
 ``flash_attention`` goes through ``FlashAttentionFn``, a
 ``torch.autograd.Function``: its forward is the kernel on the card and the
@@ -75,6 +81,26 @@ LAUNCHES_WIDE = 0
 # launches by shape, keyed "S x Skv causal|full dtype" (as "2048x4096 full
 # bfloat16"): cleared by the caller, as the counts above are reset
 LAUNCHES_BY_SHAPE: dict[str, int] = {}
+# calls on meta tensors, keyed by (B, S, Skv, H, Hkv, hd, causal, dtype):
+# cleared by the caller
+META_CALLS: dict[tuple, int] = {}
+
+
+def shape_key(S: int, Skv: int, causal: bool, dtype: torch.dtype) -> str:
+    """The key of ``LAUNCHES_BY_SHAPE`` for a call at these sizes."""
+    return f"{S}x{Skv} {'causal' if causal else 'full'} {str(dtype).removeprefix('torch.')}"
+
+
+def flops(B: int, S: int, Skv: int, H: int, hd: int, causal: bool) -> int:
+    """The operations of one call: q·kᵀ and p·v, 2·hd each a score, over the
+    scores the kernel computes (j ≤ i when causal, which needs Skv = S)."""
+    return 4 * B * H * hd * (S * (S + 1) // 2 if causal else S * Skv)
+
+
+def bytes_moved(B: int, S: int, Skv: int, H: int, Hkv: int, hd: int,
+                dtype: torch.dtype) -> int:
+    """The bytes one call must move: q and k, v read once, o written once."""
+    return (2 * B * S * H * hd + 2 * B * Skv * Hkv * hd) * dtype.itemsize
 
 
 def _check_tma_layout(**tensors: torch.Tensor) -> None:
@@ -171,13 +197,17 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: q, k, v lie on different devices")
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda, cpu or meta, not {q.device}")
     kd = _padded_head_dim(hd)
     wide = kd > HEAD_DIMS[-1]
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention needs the head_dim axis contiguous")
     if q.numel() == 0:
+        return torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        key = (B, S, Skv, H, Hkv, hd, causal, q.dtype)
+        META_CALLS[key] = META_CALLS.get(key, 0) + 1
         return torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     if kd != hd:
         q, k, v = (torch.nn.functional.pad(t, (0, kd - hd)) for t in (q, k, v))
@@ -199,8 +229,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES += 1
     LAUNCHES_WIDE += wide
-    dtype = str(q.dtype).removeprefix("torch.")
-    key = f"{S}x{Skv} {'causal' if causal else 'full'} {dtype}"
+    key = shape_key(S, Skv, causal, q.dtype)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
     if q.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1

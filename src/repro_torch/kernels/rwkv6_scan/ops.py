@@ -2,7 +2,13 @@
 
 On CUDA tensors it launches the hand-written kernel (``csrc/wkv6.cu``) on
 the current stream; on CPU tensors it runs the plain version
-(``ref.py``).  There is no fallback from one to the other.
+(``ref.py``).  On ``meta`` tensors (the dry-run, ``launch/dryrun.py``) it
+makes the card path's checks and returns empty ``meta`` outputs of the
+kernel's shapes and dtypes (the carried state too), computing nothing; it
+records the call by shape in ``META_CALLS``, as the card path counts its
+launches.  There is no fallback from one route to another.  ``flops`` and
+``bytes_moved`` give a call's work, which the dry-run adds to its count
+and ``chip_smoke.py``'s bounds divide by the card's rates.
 
 ``wkv6`` goes through ``WKV6Fn``, a ``torch.autograd.Function``: its
 forward is the kernel on the card and the plain version on the CPU; its
@@ -27,6 +33,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (the plain CPU path does not count)
 LAUNCHES = 0
+# calls on meta tensors, keyed by (B, T, H, hd, r's dtype, carried state):
+# cleared by the caller
+META_CALLS: dict[tuple, int] = {}
+
+
+def flops(B: int, T: int, H: int, hd: int) -> int:
+    """The operations of one call: per state element and step, r_i S_ij into
+    the output (an FMA) and S_ij = w_i S_ij + k_i v_j (a product and an
+    FMA); the bonus v_j sum_i r_i u_i k_i is O(hd) a step and left out."""
+    return 5 * B * T * H * hd * hd
+
+
+def bytes_moved(B: int, T: int, H: int, hd: int, dtype: torch.dtype,
+                carried: bool) -> int:
+    """The bytes one call must move: w float32, r, k, v in ``dtype`` and the
+    float32 output once each; the float32 state written, and read first
+    when one is carried in (u, O(H·hd), left out)."""
+    state = B * H * hd * hd * 4
+    return B * T * H * hd * (4 + 3 * dtype.itemsize + 4) + state * (2 if carried else 1)
 
 
 def wkv6(w: torch.Tensor, r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -93,8 +118,8 @@ def _forward(w, r, k, v, u, S0):
         raise ValueError("wkv6: inputs lie on different devices")
     if r.device.type == "cpu":
         return wkv6_ref(w, r, k, v, u, S0)
-    if r.device.type != "cuda":
-        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    if r.device.type not in ("cuda", "meta"):
+        raise ValueError(f"wkv6 runs on cuda, cpu or meta, not {r.device}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"wkv6 kernel takes head_dim in {HEAD_DIMS}, got {hd}")
     if any(t.stride(-1) != 1 for t in (w, r, k, v)):
@@ -104,6 +129,10 @@ def _forward(w, r, k, v, u, S0):
     out = torch.empty((B, T, H, hd), dtype=torch.float32, device=r.device)
     S_T = torch.empty((B, H, hd, hd), dtype=torch.float32, device=r.device)
     if B * H == 0:
+        return out, S_T
+    if r.device.type == "meta":
+        key = (B, T, H, hd, r.dtype, S0 is not None)
+        META_CALLS[key] = META_CALLS.get(key, 0) + 1
         return out, S_T
     strides = (ctypes.c_int64 * 12)(*(st for t in (w, r, k, v)
                                       for st in t.stride()[:3]))

@@ -232,6 +232,24 @@ def _local_rows(policy: ShardingPolicy, rows: int) -> tuple[slice, tuple[str, ..
     return slice(idx * n, (idx + 1) * n), policy.axes.dp
 
 
+def gather_local(tree, mesh, axes=None, grad_placements=None):
+    """Every DTensor of ``tree`` gathered over the mesh axes ``axes`` (all of
+    them when None; a collective: every rank calls it), its placements on
+    the other axes kept, as plain local tensors; any other leaf as it is.
+    ``grad_placements``: the placements of the gradients that flow back
+    through ``to_local`` (the train step's ``Partial`` over the axes its
+    batch is cut over), replicated when None."""
+    names = list(mesh_axis_sizes(mesh))
+
+    def one(x):
+        if not isinstance(x, DTensor):
+            return x
+        pls = [Replicate() if axes is None or n in axes else pl
+               for n, pl in zip(names, x.placements)]
+        return x.redistribute(mesh, pls).to_local(grad_placements=grad_placements)
+    return opt_lib.tree_map(one, tree)
+
+
 def _leaf_reduce(mesh, placements: list, op):
     """``reduce(values)``: each leaf's scalar over its own shard (in
     ``tree_leaves`` order) → over the whole leaf: ``op`` over the mesh
@@ -266,7 +284,6 @@ def _make_meshed_train_step(cfg: ModelConfig, setup: TrainSetup, mesh) -> Callab
     n_micro = setup.micro_batches
     policy = ShardingPolicy(mesh, cfg)
     names = list(mesh_axis_sizes(mesh))
-    whole = [Replicate()] * len(names)
 
     def local(tree):
         return opt_lib.tree_map(lambda x: x.to_local(), tree)
@@ -289,8 +306,7 @@ def _make_meshed_train_step(cfg: ModelConfig, setup: TrainSetup, mesh) -> Callab
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         with ctx.use_mesh(mesh), ctx.cut_batch(cut):
             for i in range(n_micro):
-                full = opt_lib.tree_map(lambda p: p.redistribute(mesh, whole).to_local(
-                    grad_placements=grad_pl), params)
+                full = gather_local(params, mesh, grad_placements=grad_pl)
                 loss, _ = loss_fn(full, {name: xs[i][rows] for name, xs in micro.items()})
                 micro_grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 del full

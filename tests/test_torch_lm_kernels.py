@@ -121,8 +121,10 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take():
         fa_ops.flash_attention(q, torch.zeros(1, 8, 3, 16), torch.zeros(1, 8, 3, 16))
     with pytest.raises(ValueError, match="rank 4"):
         fa_ops.flash_attention(q[0], k[0], k[0])
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        fa_ops.flash_attention(q.to("meta"), k.to("meta"), k.to("meta"))
+    # a meta tensor takes the card path's checks (the dry-run's route)
+    qm = q.to("meta").transpose(1, 3).contiguous().transpose(1, 3)
+    with pytest.raises(ValueError, match="head_dim axis contiguous"):
+        fa_ops.flash_attention(qm, k.to("meta"), k.to("meta"))
 
 
 def test_flash_cpu_path_runs_the_plain_version_and_counts_no_launch():
@@ -263,9 +265,11 @@ def test_wkv6_wrapper_rejects_what_the_kernel_does_not_take():
         wkv_ops.wkv6(x, x, x, x, u, torch.zeros(1, 2, 8, 4))
     with pytest.raises(ValueError, match="differ"):
         wkv_ops.wkv6(x, x[:, :2], x, x, u)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        m = x.to("meta")
-        wkv_ops.wkv6(m, m, m, m, u.to("meta"))
+    # a meta tensor takes the card path's checks (the dry-run's route)
+    m = x.to("meta")
+    with pytest.raises(ValueError, match="head_dim axis contiguous"):
+        wkv_ops.wkv6(m, m.transpose(1, 3).contiguous().transpose(1, 3), m, m,
+                     u.to("meta"))
 
 
 def test_wkv6_cpu_path_runs_the_plain_version_and_counts_no_launch():

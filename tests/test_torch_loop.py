@@ -165,7 +165,8 @@ def test_port_imports_nothing_of_jax_or_the_reference():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     # the LM serving slice, the baselines, the paper figures, the
-    # multi-process fleet and the LM sharding are among the files checked
+    # multi-process fleet, the LM sharding and the dry-run are among the
+    # files checked
     names = {p.relative_to(pkg).as_posix() for p in files[:-1]}
     assert {"models/config.py", "models/nn.py", "models/attention.py",
             "models/ffn.py", "models/ssm.py", "models/lm.py",
@@ -179,7 +180,7 @@ def test_port_imports_nothing_of_jax_or_the_reference():
             "figures/storm_control.py", "launch/mesh.py", "sharding/fleet.py",
             "fault/elastic.py", "launch/multihost.py",
             "examples/elastic_restart.py", "sharding/policy.py",
-            "sharding/ctx.py"} <= names
+            "sharding/ctx.py", "launch/specs.py", "launch/dryrun.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
