@@ -135,7 +135,18 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   cells of the reference's grid at full depth on a fake world of 256
   ranks (llama3-8b ``train_4k``, ``prefill_32k``, ``decode_32k`` and
   rwkv6-7b ``long_500k``), each cell's FLOPs a rank beside 6·N·D / 256,
-  its predicted peak beside the card's 80 GiB and its wire bytes.
+  its predicted peak beside the card's 80 GiB and its wire bytes;
+* tensor-parallel compute on the ``model`` axis (the meshed step's blocks
+  on DTensor activations): phase 30's and 31's meshed steps run it on a
+  (1, 1) mesh, still bit for bit the unmeshed step; then one rank of a
+  16-way model axis: phase 28's step traced by the dry-run on a fake world
+  of 16 and run for real on the card as rank 0 of a fake process group of
+  16 (real tensors and kernel launches at the rank's local shapes,
+  collectives that return at once without data): argument bytes equal,
+  flash launches by call (2 local q heads against one kv head) equal to
+  the predicted calls, FLOPs within 1% and the peak within 10%; its ms a
+  step, peak GiB and device busy share, and the flash kernel timed at that
+  local shape.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -280,6 +291,15 @@ MESH_TRAIN = dict(steps=2)
 DRYRUN_CELLS = (("llama3-8b", "train_4k"), ("llama3-8b", "prefill_32k"),
                 ("llama3-8b", "decode_32k"), ("rwkv6-7b", "long_500k"))
 DRYRUN_TIMEOUT_S = 300
+# one rank of a 16-way model axis (phase 32): phase 28c's llama3-8b step on
+# a fake process group of 16 (mesh (1, 16)), rank 0 on the card; a counted
+# step held to the dry-run's prediction, then TP_RANK_STEPS timed and as
+# many profiled
+TP_RANK = dict(world=16, steps=2)
+# phase 31b: llama3-8b train_4k's FLOPs a rank at 256 ranks, at most this
+# multiple of 6·N·D / 256 (21.5x while the model axis repeated the work;
+# the recompute and the float32 attention backward leave ~1.35x)
+TP_TRAIN_RATIO = 1.6
 CARD_GIB = 80
 DRILL = dict(fleet=8, epochs=40, every=10, kill_at=20, offline=200,
              offline_updates=20)
@@ -4220,7 +4240,8 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
     traced by the dry-run on a fake world of one (``dryrun.trace`` on
     ``meta`` tensors), then run on the card on ``make_production_mesh()``
     (NCCL, a world of one) from a fresh state, after
-    ``reset_peak_memory_stats``, under ``FlopCounterMode``.  The argument
+    ``reset_peak_memory_stats``, under the dry-run's counter
+    (``dryrun.StepCounter``: FLOPs of the local ops).  The argument
     bytes must be equal, the flash calls by shape equal to the card's
     launches by shape, the FLOPs (aten ops + kernel calls × ``ops.flops``
     on each side) within 1%, and the predicted peak within 10% of
@@ -4229,7 +4250,6 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
     import dataclasses
 
     import torch.distributed as dist
-    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.data.pipeline import DataConfig, batch_at
@@ -4262,7 +4282,8 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with FlopCounterMode(display=False) as fc:
+        fc = dryrun.StepCounter()
+        with fc:
             new, m = step(state, batch)
             loss = float(m["loss"])
         ms = 1e3 * (time.perf_counter() - t0)
@@ -4273,7 +4294,7 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
         dist.destroy_process_group()
     B = T["batch"] // T["micro"]
     flash = fa_ops.flops(B, T["seq"], T["seq"], cfg.num_heads, cfg.head_dim, True)
-    card_flops = fc.get_total_flops() + sum(launches.values()) * flash
+    card_flops = fc.flops + sum(launches.values()) * flash
     calls = pred["kernels"].get("flash_attention", {}).get("by_shape", {})
     mem = pred["memory"]
     flop_off = abs(pred["flops_per_device"] - card_flops) / card_flops
@@ -4286,8 +4307,8 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
         f"predicted, {args_bytes} held; flash calls {calls} predicted, launches "
         f"{launches}; FLOPs {pred['flops_per_device']:.6e} predicted "
         f"({pred['flops_aten']:.6e} aten + {pred['flops_per_device'] - pred['flops_aten']:.6e} "
-        f"kernel), {card_flops:.6e} measured ({fc.get_total_flops():.6e} aten + "
-        f"{card_flops - fc.get_total_flops():.6e} kernel), off by {flop_off:.3%}; peak "
+        f"kernel), {card_flops:.6e} measured ({fc.flops:.6e} aten + "
+        f"{card_flops - fc.flops:.6e} kernel), off by {flop_off:.3%}; peak "
         f"{mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, {peak / 2**30:.3f} GiB "
         f"max_memory_allocated less the {base / 2**30:.3f} GiB allocated before the "
         f"state, off by {peak_off:.2%}; output bytes {mem['output_bytes']} predicted")
@@ -4304,6 +4325,122 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
     return dict(launches=sum(launches.values()), pred=pred, peak=peak, flops=card_flops)
 
 
+def run_tp_rank(dev, card: str) -> dict:
+    """Phase 32: one rank of a 16-way model axis on the card.  Phase 28c's
+    llama3-8b (4 of 32 layers at every width, bf16, 8 x 2048 in 4
+    microbatches) is first traced by the dry-run on ``meta`` tensors in a
+    fake process group of 16 ranks, mesh (1, 16); then the same rank runs
+    for real on the card in a fake process group of 16 (the dry-run's
+    ``"fake"`` backend) over a ``cuda`` mesh (1, 16): its tensors and kernel
+    launches are real, at the rank's local shapes, and its collectives
+    return at once without data.  So this measures a rank's compute time
+    and memory under tensor parallelism, not its values, and checks no
+    loss.  A first step from a fresh state, after
+    ``reset_peak_memory_stats``, under the dry-run's counter: argument
+    bytes equal, flash launches by call equal to the predicted calls, FLOPs
+    within 1%, the predicted peak within 10% of ``max_memory_allocated``
+    less what was allocated before the state; then ``TP_RANK["steps"]``
+    steps timed and as many profiled (the device's busy share)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import dryrun
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+
+    T, n = TRAIN, TP_RANK["world"]
+    cfg = dataclasses.replace(get_config(T["arch"]), num_layers=T["layers"])
+    setup = trainer.TrainSetup(micro_batches=T["micro"], learning_rate=T["lr"],
+                               warmup_steps=T["warmup"], total_steps=T["warmup"] + T["timed"])
+    shape = ShapeSpec("train_4k", T["seq"], T["batch"], "train")
+    names = ("data", "model")
+    with dryrun.fake_world(n):
+        pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", (1, n), mesh_dim_names=names),
+                            setup)
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with dryrun.fake_world(n):
+        mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=names)
+        state = trainer.init_train_state(cfg, setup, torch.Generator(device=dev).manual_seed(
+            T["seed"]), dev)
+        state = trainer.shard_train_state(state, ShardingPolicy(mesh, cfg))
+        data = DataConfig(cfg.vocab_size, T["seq"], T["batch"], seed=T["seed"])
+        batch = {k: v.to(dev) for k, v in batch_at(data, 0).items()}
+        args_bytes = dryrun.local_bytes(state) + dryrun.local_bytes(batch)
+        step = trainer.make_train_step(cfg, setup, mesh)
+        fa_ops.LAUNCHES_BY_CALL.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter = dryrun.StepCounter()
+        t0 = time.perf_counter()
+        with counter:
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        counted_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = dict(fa_ops.LAUNCHES_BY_CALL)
+        del m
+
+        def run():
+            nonlocal state
+            state, _ = step(state, batch)
+        fa_ops.LAUNCHES_BY_CALL.clear()
+        prof = busy_share(run, TP_RANK["steps"], "phase 32 rank step")
+        timed = dict(fa_ops.LAUNCHES_BY_CALL)
+        del state, step, batch
+    torch.cuda.empty_cache()
+    B = T["batch"] // T["micro"]
+    heads = cfg.num_heads // n
+    key = fa_ops.call_key(B, T["seq"], T["seq"], heads, 1, cfg.head_dim, True, torch.bfloat16)
+    flash = fa_ops.flops(B, T["seq"], T["seq"], heads, cfg.head_dim, True)
+    card_flops = counter.flops + sum(launches.values()) * flash
+    calls = pred["kernels"].get("flash_attention", {}).get("by_call", {})
+    mem = pred["memory"]
+    flop_off = abs(pred["flops_per_device"] - card_flops) / card_flops
+    peak_off = abs(mem["peak_bytes_est"] - peak) / peak
+    log(f"phase 32 one rank of a 16-way model axis ({card}): llama3-8b, {cfg.num_layers} of "
+        f"32 layers at every width, bf16, batch {T['batch']} x {T['seq']} in {T['micro']} "
+        f"microbatches, rank 0 of a fake process group of {n} on the mesh (1, {n}): its "
+        "tensors and kernel launches are real at the rank's local shapes, its collectives "
+        "return at once without data, so this is a rank's compute time and memory under "
+        f"tensor parallelism, not its values (no loss is checked); "
+        f"{prof['wall_ms']:.3f} ms a step ({TP_RANK['steps']} steps; device busy "
+        f"{prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = {prof['busy']:.1%} of the "
+        f"wall), the counted first step {counted_ms:.3f} ms; peak {peak / 2**30:.3f} GiB "
+        f"max_memory_allocated less the {base / 2**30:.3f} GiB allocated before the state; "
+        f"flash launches by call {launches} in the counted step, {timed} in the "
+        f"{2 * TP_RANK['steps']} timed and profiled; against phase 28c's unmeshed "
+        "1090.3-1092.6 ms and 53.67-56.08 GiB (PERF.md section 5).  The dry-run of "
+        f"the same rank, traced in {pred['trace_s']:.1f} s: argument bytes "
+        f"{mem['argument_bytes']} predicted, {args_bytes} held; flash calls {calls} "
+        f"predicted; FLOPs {pred['flops_per_device']:.6e} predicted, {card_flops:.6e} "
+        f"counted on the card ({counter.flops:.6e} aten + {card_flops - counter.flops:.6e} "
+        f"kernel), off by {flop_off:.3%}; peak {mem['peak_bytes_est'] / 2**30:.3f} GiB "
+        f"predicted, off by {peak_off:.2%}")
+    if mem["argument_bytes"] != args_bytes:
+        raise AssertionError(f"phase 32: argument bytes {mem['argument_bytes']} predicted, "
+                             f"{args_bytes} on the card")
+    if calls != launches or set(launches) != {key}:
+        raise AssertionError(f"phase 32: flash calls {calls} predicted, launches {launches}, "
+                             f"expected all at {key}")
+    if flop_off > 0.01:
+        raise AssertionError(f"phase 32: FLOPs off by {flop_off:.3%} (bound 1%)")
+    if peak_off > 0.10:
+        raise AssertionError(f"phase 32: the predicted peak is off by {peak_off:.2%} "
+                             "(bound 10%)")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    timing = time_flash_shape(dev, gen, "phase 32 flash at the rank's local shape", heads, 1,
+                              cfg.head_dim, S=T["seq"], B=B)
+    return dict(launches=sum(launches.values()) + sum(timed.values()), timing=timing,
+                ms=prof["wall_ms"], peak=peak, busy=prof["busy"], pred=pred)
+
+
 def run_dryrun_cells() -> dict:
     """Phase 31b: ``python -m repro_torch.launch.dryrun --mesh single
     --force`` on each of ``DRYRUN_CELLS`` at full depth, one process a
@@ -4312,7 +4449,8 @@ def run_dryrun_cells() -> dict:
     forward only; N the active parameters, D the tokens a step computes),
     the predicted peak beside the card's 80 GiB (a cell that does not fit
     is a result), the wire bytes and the trace seconds.  Any status other
-    than ok fails."""
+    than ok fails, and so does llama3-8b ``train_4k`` above
+    ``TP_TRAIN_RATIO`` × 6·N·D / 256."""
     from repro_torch.configs import SHAPES
     from repro_torch.launch import dryrun
 
@@ -4348,6 +4486,11 @@ def run_dryrun_cells() -> dict:
                 + f"; kernel calls {({k: v['calls'] for k, v in res['kernels'].items()})}; "
                 f"traced in {res['trace_s']} s on the host's CPU")
             out[(arch, shape)] = res
+            ratio = res["flops_per_device"] * res["devices"] / n_flop
+            if (arch, shape) == ("llama3-8b", "train_4k") and ratio > TP_TRAIN_RATIO:
+                raise AssertionError(f"phase 31b llama3-8b x train_4k: {ratio:.2f}x 6·N·D / "
+                                     f"{res['devices']} a rank, above {TP_TRAIN_RATIO}x: "
+                                     "the model axis repeats the step's work")
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -4523,6 +4666,9 @@ def main() -> int:
     dry = check_dryrun_vs_card(dev, card)
     run_dryrun_cells()
     log(f"phase 31 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_rank = run_tp_rank(dev, card)
+    log(f"phase 32 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -4623,6 +4769,11 @@ def main() -> int:
         # 28c's shape, timed there)
         row("flash_attention_dryrun_check", flash_sm90, flash_tpu, dry["launches"],
             train["timing"], train["timing"]),
+        # phase 32: one rank of a 16-way model axis, its launches at the
+        # rank's local heads (q [2, 2048, 2, 128] against one kv head),
+        # timed there
+        row("flash_attention_tp_rank", flash_sm90, flash_tpu, tp_rank["launches"],
+            tp_rank["timing"], tp_rank["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -81,6 +81,10 @@ LAUNCHES_WIDE = 0
 # launches by shape, keyed "S x Skv causal|full dtype" (as "2048x4096 full
 # bfloat16"): cleared by the caller, as the counts above are reset
 LAUNCHES_BY_SHAPE: dict[str, int] = {}
+# launches by the whole call, keyed by ``call_key`` (the batch and the head
+# counts too, so a tensor-parallel rank's local heads show): cleared by the
+# caller
+LAUNCHES_BY_CALL: dict[str, int] = {}
 # calls on meta tensors, keyed by (B, S, Skv, H, Hkv, hd, causal, dtype):
 # cleared by the caller
 META_CALLS: dict[tuple, int] = {}
@@ -89,6 +93,15 @@ META_CALLS: dict[tuple, int] = {}
 def shape_key(S: int, Skv: int, causal: bool, dtype: torch.dtype) -> str:
     """The key of ``LAUNCHES_BY_SHAPE`` for a call at these sizes."""
     return f"{S}x{Skv} {'causal' if causal else 'full'} {str(dtype).removeprefix('torch.')}"
+
+
+def call_key(B: int, S: int, Skv: int, H: int, Hkv: int, hd: int, causal: bool,
+             dtype: torch.dtype) -> str:
+    """The key of ``LAUNCHES_BY_CALL`` (and of the dry-run's ``by_call``):
+    q's shape and k's length and heads, as "q[2,2048,2,128] kv[2048,1]
+    causal bfloat16"."""
+    return (f"q[{B},{S},{H},{hd}] kv[{Skv},{Hkv}] "
+            + shape_key(S, Skv, causal, dtype).split(" ", 1)[1])
 
 
 def flops(B: int, S: int, Skv: int, H: int, hd: int, causal: bool) -> int:
@@ -231,6 +244,8 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES_WIDE += wide
     key = shape_key(S, Skv, causal, q.dtype)
     LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+    key = call_key(B, S, Skv, H, Hkv, hd, causal, q.dtype)
+    LAUNCHES_BY_CALL[key] = LAUNCHES_BY_CALL.get(key, 0) + 1
     if q.dtype == torch.bfloat16:
         LAUNCHES_BF16 += 1
         LAUNCHES_BF16_CUDA_CORES += not tma

@@ -17,18 +17,26 @@ sends:
   return at once with outputs of the right shapes; nothing crosses a wire;
 * the step: a ``train`` cell runs the meshed train step
   (``trainer.shard_train_state`` then ``make_train_step(cfg, setup,
-  mesh)``) on the global meta batch; ``prefill`` and ``decode`` cells
-  place the parameters and the cache by ``policy.params_sharding`` and
-  ``policy.cache_sharding`` (the reference's ``in_shardings``), gather the
+  mesh)``, tensor-parallel on the model axis) on the global meta batch;
+  ``prefill`` and ``decode`` cells place the parameters and the cache by
+  ``policy.params_sharding`` and ``policy.cache_sharding`` (the
+  reference's ``in_shardings``) and cut the batch to this rank's rows.  A
+  ``prefill`` cell runs ``lm.prefill_forward`` through the same
+  tensor-parallel blocks as the train step: the parameters gathered over
+  the data axes only (``trainer.gather_model_shards``), the activations
+  DTensors on the model sub-mesh.  A ``decode`` cell gathers the
   parameters whole and the cache over the model axis
-  (``trainer.gather_local``), cut the batch to this rank's rows and run
-  ``lm.prefill_forward`` or ``lm.serve_step``, each rank's new cache cut
-  back to its shard.  The kernels' wrappers take a ``meta`` route: their
-  checks, an empty output, and the call recorded by shape;
-* ``flops_per_device``: ``FlopCounterMode`` over the step (the aten ops:
+  (``trainer.gather_local``) and runs ``lm.serve_step``, each rank's new
+  cache cut back to its shard.  The kernels' wrappers take a ``meta``
+  route: their checks, an empty output, and the call recorded by its
+  local shape;
+* ``flops_per_device``: the FLOPs of the aten ops this rank runs (the
   matmuls, the kernels' plain float32 backward, the rematerialized
-  recompute) plus each recorded kernel call at its formula
-  (``ops.flops``); both parts are kept (``flops_aten``, ``kernels``);
+  recompute), counted by ``torch.utils.flop_counter``'s formulas on the
+  local tensors under DTensor (:class:`StepCounter`; ``FlopCounterMode``
+  would count a DTensor op at its global shape), plus each recorded kernel
+  call at its formula (``ops.flops``); both parts are kept
+  (``flops_aten``, ``kernels``);
 * ``collectives``: a ``TorchDispatchMode`` (:class:`StepCounter`) over the
   ``_c10d_functional``, ``c10d_functional`` and ``c10d`` ops: by the
   reference's kinds, the count, the result bytes and the wire bytes at the
@@ -42,10 +50,11 @@ sends:
   card's allocator counts ``max_memory_allocated``).
 
 The numbers are the port's own, not XLA's: they include the
-rematerialization's recompute, the compute every rank of the model axis
-repeats (the parameters are gathered whole, ROADMAP A3/A4), the kernels'
-plain float32 backward with its ``[B, H, S, S]`` scores, and the gathered
-parameter copy.  There is no HLO, so no ``corrected`` trip-count analysis
+rematerialization's recompute, the compute the model axis still repeats
+(the attention core of head counts it does not divide, the MoE and Mamba
+positions, decode), the kernels' plain float32 backward with its
+``[B, H, S, S]`` scores at the rank's heads, and the parameters gathered
+over the data axes (ROADMAP A4).  There is no HLO, so no ``corrected`` trip-count analysis
 and no ``bytes_accessed``; ``trace_s`` (the step's wall seconds under the
 counters) stands where ``lower_s`` and ``compile_s`` stood.
 
@@ -75,7 +84,9 @@ import weakref
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 from torch.utils._pytree import tree_flatten
 
 ART_DIR = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / "torch" / "dryrun"
@@ -133,10 +144,12 @@ def local_bytes(tree) -> int:
 
 
 class StepCounter(TorchDispatchMode):
-    """Collectives by kind, and the bytes of live storages and their peak,
-    over the plain tensors a step dispatches: an op on DTensors returns
-    ``NotImplemented`` here, so DTensor desugars it into the local ops and
-    collectives this mode then sees, as ``CommDebugMode`` does.
+    """Collectives by kind, FLOPs, and the bytes of live storages and their
+    peak, over the plain tensors a step dispatches: an op on DTensors
+    returns ``NotImplemented`` here, so DTensor desugars it into the local
+    ops and collectives this mode then sees, as ``CommDebugMode`` does.
+    ``flops`` adds each local op's FLOPs at ``torch.utils.flop_counter``'s
+    formula (``FlopCounterMode``'s registry).
 
     ``track(tree)`` counts the storages of tensors made before the mode
     (the step's arguments); every storage an op makes is counted from the
@@ -148,6 +161,7 @@ class StepCounter(TorchDispatchMode):
         self.live: dict[int, int] = {}
         self.live_bytes = 0
         self.peak_bytes = 0
+        self.flops = 0
 
     def track(self, tree) -> None:
         for t in _tensors(tree):
@@ -170,7 +184,15 @@ class StepCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
-        out = func(*args, **(kwargs or {}))
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if any(isinstance(t, FakeTensor) for t in _tensors((args, out))):
+            # DTensor's sharding propagation runs an op on fake global-shape
+            # tensors to learn its output's shape: not the rank's work
+            return out
+        formula = flop_registry.get(func._overloadpacket)
+        if formula is not None:
+            self.flops += int(formula(*args, **kwargs, out_val=out))
         kind = collective_kind(func)
         if kind is not None:
             b = sum(t.nbytes for t in _tensors(out))
@@ -186,34 +208,40 @@ class StepCounter(TorchDispatchMode):
 
 def _meta_kernels() -> dict:
     """The LM kernels' meta-call records, by kernel: (``META_CALLS``, a
-    recorded key -> (its shape's name, one call's FLOPs))."""
+    recorded key -> (its shape's name, its whole call's name, one call's
+    FLOPs))."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rwkv6_scan import ops as wkv
 
     def flash(B, S, Skv, H, Hkv, hd, causal, dt):
-        return fa.shape_key(S, Skv, causal, dt), fa.flops(B, S, Skv, H, hd, causal)
+        return (fa.shape_key(S, Skv, causal, dt), fa.call_key(B, S, Skv, H, Hkv, hd, causal, dt),
+                fa.flops(B, S, Skv, H, hd, causal))
 
     def wkv6(B, T, H, hd, dt, carried):
-        return (f"[{B},{T},{H},{hd}] {str(dt).removeprefix('torch.')}",
-                wkv.flops(B, T, H, hd))
+        key = f"[{B},{T},{H},{hd}] {str(dt).removeprefix('torch.')}"
+        return key, key, wkv.flops(B, T, H, hd)
     return {"flash_attention": (fa.META_CALLS, flash), "wkv6": (wkv.META_CALLS, wkv6)}
 
 
 def _kernel_counts() -> dict:
     """The meta calls recorded since the last reset, by kernel: calls, calls
-    by shape (the flash key is ``LAUNCHES_BY_SHAPE``'s) and FLOPs at the
-    kernel's formula."""
+    by shape (the flash key is ``LAUNCHES_BY_SHAPE``'s), by the whole call
+    at the rank's local shape (the flash key is ``LAUNCHES_BY_CALL``'s,
+    with the head counts) and FLOPs at the kernel's formula."""
     out = {}
     for name, (calls, describe) in _meta_kernels().items():
         if not calls:
             continue
         by_shape: dict = {}
+        by_call: dict = {}
         flops = 0
         for key, n in calls.items():
-            shape, one = describe(*key)
+            shape, call, one = describe(*key)
             by_shape[shape] = by_shape.get(shape, 0) + n
+            by_call[call] = by_call.get(call, 0) + n
             flops += n * one
-        out[name] = {"calls": sum(calls.values()), "by_shape": by_shape, "flops": flops}
+        out[name] = {"calls": sum(calls.values()), "by_shape": by_shape, "by_call": by_call,
+                     "flops": flops}
     return out
 
 
@@ -290,8 +318,6 @@ def trace(cfg, shape, mesh, setup=None, fsdp: bool = True, inputs: dict | None =
     whatever process group is live: the fake one of :func:`run_cell`, or a
     real one (the tests count a gloo world's collectives by the same
     mode); ``inputs`` as :func:`place` takes them."""
-    from torch.utils.flop_counter import FlopCounterMode
-
     from repro_torch.models import lm
     from repro_torch.sharding import ctx
     from repro_torch.train import trainer
@@ -299,7 +325,6 @@ def trace(cfg, shape, mesh, setup=None, fsdp: bool = True, inputs: dict | None =
     placed = place(cfg, shape, mesh, setup, fsdp, inputs)
     rows, cut = placed["rows"], placed["cut"]
     counter = StepCounter()
-    flops = FlopCounterMode(display=False)
     for calls, _ in _meta_kernels().values():
         calls.clear()
     if shape.kind == "train":
@@ -307,30 +332,29 @@ def trace(cfg, shape, mesh, setup=None, fsdp: bool = True, inputs: dict | None =
         step = trainer.make_train_step(cfg, setup, mesh)
         counter.track((state, batch))
         t0 = time.perf_counter()
-        with flops, counter:
+        with counter:
             out = step(state, batch)
         del state
     else:
         params = placed.pop("params")
-        full = lambda: trainer.gather_local(params, mesh)  # noqa: E731
         if shape.kind == "prefill":
             batch = {k: v[rows] for k, v in placed.pop("batch").items()}
             counter.track((params, batch))
             fn = lm.prefill_forward(cfg)
             t0 = time.perf_counter()
-            with flops, counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
-                out = fn(full(), batch)
+            with counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
+                out = fn(trainer.gather_model_shards(params, mesh), batch)
         else:
             cache, tokens = placed.pop("cache"), placed.pop("tokens")[rows]
             counter.track((params, cache, tokens))
             fn = lm.serve_step(cfg)
             tp = placed["policy"].axes.tp
             t0 = time.perf_counter()
-            with flops, counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
+            with counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
                 # the cache first: its gathers' buffers then do not sit on
                 # top of the gathered parameters
                 local = trainer.gather_local(cache, mesh, axes=(tp,))
-                logits, local = fn(full(), local, tokens)
+                logits, local = fn(trainer.gather_local(params, mesh), local, tokens)
                 # each rank keeps its shard of the new cache (a local cut)
                 out = (logits, _reshard(local, cache, mesh, tp))
                 del local
@@ -338,7 +362,7 @@ def trace(cfg, shape, mesh, setup=None, fsdp: bool = True, inputs: dict | None =
         del params
     trace_s = time.perf_counter() - t0
     kernels = _kernel_counts()
-    aten = int(flops.get_total_flops())
+    aten = counter.flops
     coll = counter.collectives
     return {
         "flops_per_device": aten + sum(k["flops"] for k in kernels.values()),

@@ -13,6 +13,17 @@ length, so its cross-attention over a memory longer than q reads only
 the first S rows (ROADMAP C10); here every row is read.  Decode attention is a plain
 masked softmax over the cache, as in the reference.
 
+On DTensor q, k, v (the meshed train step and the dry-run's prefill,
+``sharding/ctx.py``) the kernel runs through ``local_map`` on each rank's
+local heads: q cut by heads over the ``model`` axis, k and v cut alike
+where their head count divides the axis.  Where it does not (llama3-8b's 8
+kv heads at 16 ranks), k and v arrive whole, and each rank slices the kv
+heads its q heads read, ``h // (H / Hkv)`` (the kv-slicing rule), so the
+kernel's GQA check sees local counts; their gradient is then ``Partial``
+over the axis, each rank's share.  Where q's heads do not divide the axis
+(yi-34b's 56, granite's 24 at 16) the caller passes q, k, v whole and the
+attention core is repeated on every rank of the axis.
+
 ``flash_attention_seqpar`` is the reference's sequence-parallel variant
 for head counts the model axis does not divide: plain PyTorch in both
 packages (no Pallas kernel), the online softmax over chunks of keys with
@@ -21,9 +32,12 @@ visits ``S // kv_chunk`` chunks, so past S = 1024 it drops the keys beyond
 the last full chunk; here every key is read (ROADMAP C13)."""
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.sharding import ctx
@@ -34,8 +48,52 @@ NEG_INF = -1e30
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q ``[B, S, H, hd]``; k, v ``[B, Skv, Hkv, hd]`` (Skv = S when
-    causal) → ``[B, S, H, hd]``."""
+    causal) → ``[B, S, H, hd]``.  DTensors run on each rank's local heads
+    (the module docstring)."""
+    if isinstance(q, DTensor):
+        return _flash_local_heads(q, k, v, causal)
     return fa_ops.flash_attention(q, k, v, causal=causal)
+
+
+def kv_heads_of(rank: int, heads: int, H: int, Hkv: int) -> slice:
+    """The kv heads that q heads ``[rank·heads, (rank+1)·heads)`` read (head
+    h reads ``h // (H / Hkv)``), a slice: they must form equal groups in
+    order, so that the kernel's own GQA mapping holds on the local heads
+    (every config's head counts on a model axis that divides H do)."""
+    G = H // Hkv
+    idx = [(rank * heads + h) // G for h in range(heads)]
+    n = idx[-1] - idx[0] + 1
+    if heads % n or any(i != idx[0] + h // (heads // n) for h, i in enumerate(idx)):
+        raise ValueError(f"flash attention: q heads {idx[0]}.. of rank {rank} ({heads} of "
+                         f"{H}) read kv heads {idx} of {Hkv}, not in equal groups")
+    return slice(idx[0], idx[0] + n)
+
+
+def _flash_local_heads(q, k, v, causal: bool):
+    """The kernel on each rank's heads through ``local_map``: q ``Shard(2)``
+    with k, v ``Shard(2)`` or whole (sliced to the rank's kv heads, their
+    gradient ``Partial``), or all three whole (the core repeated)."""
+    mesh = q.device_mesh
+    cut = [Shard(2)]
+    if q.placements[0] != Shard(2):
+        q, k, v = (t.redistribute(mesh, [Replicate()]) for t in (q, k, v))
+        return local_map(functools.partial(fa_ops.flash_attention, causal=causal),
+                         out_placements=[Replicate()], device_mesh=mesh)(q, k, v)
+    if k.placements[0] == Shard(2):
+        return local_map(functools.partial(fa_ops.flash_attention, causal=causal),
+                         out_placements=cut, in_placements=(cut, cut, cut),
+                         device_mesh=mesh)(q, k, v)
+    k, v = (t.redistribute(mesh, [Replicate()]) for t in (k, v))
+    H, Hkv = q.shape[2], k.shape[2]
+    heads = H // mesh.size()
+    sel = kv_heads_of(mesh.get_local_rank(), heads, H, Hkv)
+
+    def body(ql, kl, vl):
+        return fa_ops.flash_attention(ql, kl[:, :, sel], vl[:, :, sel], causal=causal)
+    whole = [Replicate()]
+    return local_map(body, out_placements=cut, in_placements=(cut, whole, whole),
+                     in_grad_placements=(cut, [Partial()], [Partial()]),
+                     device_mesh=mesh)(q, k, v)
 
 
 def _attend_chunk(q, k, v, mask, scale: float):

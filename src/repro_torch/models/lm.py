@@ -30,12 +30,21 @@ the RWKV6 recurrence through the WKV6 kernel, their gradients through
 the kernels' ``autograd.Function``s (a plain recompute); everything else
 is plain PyTorch, as the reference left it to XLA.  The reference's
 activation-sharding hints (``sharding.ctx.constrain``) sit at its points:
-no-ops without a mesh, so every single-device number is unchanged."""
+no-ops without a mesh, so every single-device number is unchanged.
+
+With DTensor parameters on the ``model`` sub-mesh (the meshed train step
+and the dry-run's prefill, ``trainer.gather_model_shards``) the blocks are
+tensor-parallel (``docs/torch_lm_sharding.md``): each branch's input is
+``ctx.tp_input``, its row-parallel output is made whole where it joins the
+residual, the cross-entropy is vocab-parallel where the vocab is cut
+(``vocab_parallel_ce``), and the MoE and Mamba positions run whole on every
+rank of the axis (``ctx.run_local``)."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -187,20 +196,27 @@ def _run_attn(p: Params, x, cfg: ModelConfig, positions, causal: bool = True,
     ``memory`` ``[B, S_enc, d]``, cross-attention: keys and values from the
     memory, no rope, non-causal over every memory row, through the kernel
     at the memory's own length (the reference's pure-JAX twin reads only
-    its first S rows, ROADMAP C10)."""
+    its first S rows, ROADMAP C10).
+
+    On DTensors (tensor-parallel over the model axis) the projections are
+    column-parallel and ``wo`` row-parallel, its output ``Partial``.  Heads
+    the axis divides are cut over it; where q's do not (yi-34b's 56, granite's
+    24 at 16), the reference shards head_dim and lets GSPMD complete a
+    partial-sum attention, which the kernel cannot take: q, k, v are made
+    whole instead and the attention core is repeated on the axis."""
     B, S, d = x.shape
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     src = x if memory is None else memory
-    q = nn.linear(p["wq"], x).reshape(B, S, h, hd)
-    k = nn.linear(p["wk"], src).reshape(B, src.shape[1], hkv, hd)
-    v = nn.linear(p["wv"], src).reshape(B, src.shape[1], hkv, hd)
+    q = nn.split_heads(nn.linear(p["wq"], x), h, hd)
+    k = nn.split_heads(nn.linear(p["wk"], src), hkv, hd)
+    v = nn.split_heads(nn.linear(p["wv"], src), hkv, hd)
     tp = max(ctx.axis_size("tp"), 1)
     head_par = cfg.num_heads % tp == 0
     use_seqpar = (not head_par and cfg.seqpar_attention and S % tp == 0
                   and memory is None)
     if head_par:
         q, k, v = (ctx.constrain(t, "dp", None, "tp", None) for t in (q, k, v))
-    elif not use_seqpar:
+    elif not use_seqpar and not isinstance(q, DTensor):
         # unsplittable head counts: shard head_dim (partial-sum attention)
         q, k, v = (ctx.constrain(t, "dp", None, None, "tp") for t in (q, k, v))
     if memory is None:
@@ -212,16 +228,19 @@ def _run_attn(p: Params, x, cfg: ModelConfig, positions, causal: bool = True,
         o = attn.flash_attention_seqpar(q, k, v, causal=causal)
     else:
         o = attn.flash_attention(q, k, v, causal=causal and memory is None)
-    return nn.linear(p["wo"], o.reshape(B, S, h * hd))
+    return nn.linear(p["wo"], nn.merge_heads(o))
 
 
 def _run_ffn(p: Params, x, cfg: ModelConfig, kind: str):
     """The position's FFN output in serving.  Serving reads no aux loss, so
-    the MoE's is not computed (``_train_ffn`` gives it to training)."""
+    the MoE's is not computed (``_train_ffn`` gives it to training).  The
+    MoE runs whole on every rank of the model axis (``ctx.run_local``)."""
     if kind == "moe":
-        r = ffn_lib.moe_route(p, x, experts_per_token=cfg.experts_per_token,
-                              capacity_factor=cfg.capacity_factor)
-        return ffn_lib.moe_apply(p, x, r)
+        def moe(p, x):
+            r = ffn_lib.moe_route(p, x, experts_per_token=cfg.experts_per_token,
+                                  capacity_factor=cfg.capacity_factor)
+            return ffn_lib.moe_apply(p, x, r)
+        return ctx.run_local(moe, p, x)
     return ffn_lib.dense_ffn(p, x)
 
 
@@ -230,9 +249,9 @@ def _train_ffn(p: Params, x, cfg: ModelConfig, kind: str):
     ``ffn.moe_ffn`` returns the Switch aux loss, as the reference's
     ``_run_ffn`` does.  A dense FFN has none."""
     if kind == "moe":
-        return ffn_lib.moe_ffn(p, x, experts_per_token=cfg.experts_per_token,
-                               capacity_factor=cfg.capacity_factor,
-                               router_aux_coef=cfg.router_aux_coef)
+        return ctx.run_local(ffn_lib.moe_ffn, p, x, experts_per_token=cfg.experts_per_token,
+                             capacity_factor=cfg.capacity_factor,
+                             router_aux_coef=cfg.router_aux_coef)
     return ffn_lib.dense_ffn(p, x), None
 
 
@@ -240,33 +259,41 @@ def _ffn(p: Params, x, cfg: ModelConfig, kind: str, train: bool):
     return _train_ffn(p, x, cfg, kind) if train else (_run_ffn(p, x, cfg, kind), None)
 
 
+def _whole(t):
+    """A sub-layer's output made whole on the model axis before it joins the
+    residual (the all-reduce of a row-parallel ``Partial``); a no-op on
+    plain tensors."""
+    return ctx.constrain(t, "dp", None, None)
+
+
 def _position_forward(cfg: ModelConfig, p: Params, mixer: str, fkind: str, x,
                       positions, memory=None, train: bool = False):
     """One sub-layer position within a block; with ``memory``, the
     position's cross-attention after its mixer.  Returns (x, the MoE's aux
     loss or None; ``train`` computes it)."""
+    def norm(name, x):      # a branch's input (its gradient made whole)
+        return ctx.tp_input(nn.rmsnorm(p[name], x, cfg.norm_eps))
+
     if mixer == "rwkv":
-        x = x + ssm.rwkv6_time_mix(
-            p["mixer"], nn.rmsnorm(p["norm1"], x, cfg.norm_eps),
-            head_size=cfg.rwkv_head_size)
-        return x + ssm.rwkv6_channel_mix(
-            p["mixer"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps)), None
+        x = x + _whole(ssm.rwkv6_time_mix(p["mixer"], norm("norm1", x),
+                                          head_size=cfg.rwkv_head_size))
+        return x + _whole(ssm.rwkv6_channel_mix(p["mixer"], norm("norm2", x))), None
     if cfg.parallel_block and mixer == "attn":
-        hshared = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        hshared = norm("norm1", x)
         a = _run_attn(p["mixer"], hshared, cfg, positions)
         f, aux = _ffn(p["ffn"], hshared, cfg, fkind, train)
-        return x + a + f, aux
-    h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        return x + _whole(a) + _whole(f), aux
+    h = norm("norm1", x)
     if mixer == "attn":
-        x = x + _run_attn(p["mixer"], h, cfg, positions)
+        x = x + _whole(_run_attn(p["mixer"], h, cfg, positions))
     else:  # mamba
-        x = x + ssm.mamba_forward(p["mixer"], h, d_state=cfg.mamba_d_state,
-                                  d_conv=cfg.mamba_d_conv)
+        x = x + ctx.run_local(ssm.mamba_forward, p["mixer"], h, d_state=cfg.mamba_d_state,
+                              d_conv=cfg.mamba_d_conv)
     if "cross" in p and memory is not None:
-        hc = nn.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
-        x = x + _run_attn(p["cross"], hc, cfg, positions, memory=memory)
-    f, aux = _ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps), cfg, fkind, train)
-    return x + f, aux
+        x = x + _whole(_run_attn(p["cross"], norm("norm_cross", x), cfg, positions,
+                                 memory=memory))
+    f, aux = _ffn(p["ffn"], norm("norm2", x), cfg, fkind, train)
+    return x + _whole(f), aux
 
 
 def _block_forward(cfg: ModelConfig, block_params: Params, x, positions,
@@ -300,9 +327,10 @@ def _scan_blocks(cfg: ModelConfig, layers: Params, x, positions, memory=None):
 # Encoder (enc-dec family)
 # ===========================================================================
 def _encoder_layer(cfg: ModelConfig, p: Params, x, positions):
-    h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + _run_attn(p["mixer"], h, cfg, positions, causal=False)
-    return x + ffn_lib.dense_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    h = ctx.tp_input(nn.rmsnorm(p["norm1"], x, cfg.norm_eps))
+    x = x + _whole(_run_attn(p["mixer"], h, cfg, positions, causal=False))
+    h = ctx.tp_input(nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
+    return x + _whole(ffn_lib.dense_ffn(p["ffn"], h))
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
@@ -313,10 +341,10 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
     ``cfg.remat`` (serving calls it under ``no_grad``)."""
     S = frames.shape[1]
     positions = torch.arange(S, device=frames.device)[None, :]
-    x = frames.to(_dt(cfg))
+    x = ctx.enter(frames.to(_dt(cfg)), params["enc_final_norm"]["scale"])
     for p in _blocks(params["enc_layers"], cfg.encoder_layers):
         x = _recompute(_encoder_layer, cfg, p, x, positions, remat=cfg.remat)
-    return nn.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps)
+    return ctx.tp_input(nn.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps))
 
 
 # ===========================================================================
@@ -343,7 +371,7 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Batch):
         mask = (torch.ones(tokens.shape, dtype=torch.float32, device=x.device)
                 if mask is None else mask.float())
     if cfg.frontend is not None and "frontend_embeds" in batch:
-        fe = batch["frontend_embeds"].to(x.dtype)
+        fe = ctx.enter(batch["frontend_embeds"].to(x.dtype), x)
         x = torch.cat([fe, x], dim=1)
         if targets is not None:
             pad = (tokens.shape[0], fe.shape[1])
@@ -358,9 +386,58 @@ def _embed_inputs(cfg: ModelConfig, params: Params, batch: Batch):
 # ===========================================================================
 def _chunk_loss(xc, table_T, tc, mc):
     logits = ctx.constrain((xc @ table_T).float(), "dp", None, "tp")
+    if isinstance(logits, DTensor):
+        if logits.placements[0].is_shard() and logits.device_mesh.size() > 1:
+            return (vocab_parallel_ce(logits, tc) * mc).sum(), mc.sum()
+        logits = ctx.local(logits)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
     return ((lse - gold) * mc).sum(), mc.sum()
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token ``logsumexp(logits) − logits[target]`` over logits whose
+    vocab is cut over a process group, each rank holding ``[..., V/n]``
+    columns from ``lo``: the local max then an all-reduce of the max, the
+    local sum of exp then an all-reduce of the sum, the gold logit where the
+    target falls in the rank's range then an all-reduce of the sum.  Every
+    rank returns the same losses.  Backward: each rank's columns of
+    ``(softmax − onehot(target)) · g``, no collective."""
+
+    @staticmethod
+    def forward(ctx_, logits, targets, group, lo: int):
+        import torch.distributed as dist
+        n = logits.shape[-1]
+        m = logits.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        s = torch.exp(logits - m[..., None]).sum(-1)
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
+        lse = m + torch.log(s)
+        t = targets.long() - lo
+        inside = (t >= 0) & (t < n)
+        t = t.clamp(0, n - 1)
+        gold = torch.where(inside, torch.gather(logits, -1, t[..., None])[..., 0], 0.0)
+        dist.all_reduce(gold, op=dist.ReduceOp.SUM, group=group)
+        ctx_.save_for_backward(logits, lse, t, inside)
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx_, g):
+        logits, lse, t, inside = ctx_.saved_tensors
+        grad = torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, t[..., None], -inside[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def vocab_parallel_ce(logits: DTensor, targets: torch.Tensor) -> torch.Tensor:
+    """The per-token cross-entropy ``[...]`` (a plain tensor, the same on
+    every rank) of float32 logits ``[..., V]`` cut over the vocab (a DTensor
+    ``Shard(-1)`` on the model axis) against ``targets``: the vocab-parallel
+    form of ``logsumexp(logits) − gather(logits, targets)``, which is its
+    plain twin (``_chunk_loss``)."""
+    local = logits.to_local()
+    lo = logits.device_mesh.get_local_rank() * local.shape[-1]
+    return _VocabParallelCE.apply(local, targets, logits.device_mesh.get_group(), lo)
 
 
 def chunked_cross_entropy(x, table_T, targets, mask, chunk: int = 512):
@@ -397,7 +474,7 @@ def train_loss(cfg: ModelConfig):
         if cfg.seq_sharded_residual:
             # gather the final activation for the vocab projection
             x = ctx.constrain(x, "dp", None, None)
-        x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x = ctx.tp_input(nn.rmsnorm(params["final_norm"], x, cfg.norm_eps))
         ce = chunked_cross_entropy(x, _head_table_T(cfg, params), targets, mask)
         return ce + aux, {"ce": ce, "aux": aux}
 
@@ -428,8 +505,8 @@ def prefill_forward(cfg: ModelConfig):
                     # tap the post-RoPE K/V of this layer for the cache
                     # output, re-projected as the reference does
                     hh = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-                    k = nn.linear(p["mixer"]["wk"], hh).reshape(B, S, hkv, hd)
-                    v = nn.linear(p["mixer"]["wv"], hh).reshape(B, S, hkv, hd)
+                    k = ctx.local(nn.split_heads(nn.linear(p["mixer"]["wk"], hh), hkv, hd))
+                    v = ctx.local(nn.split_heads(nn.linear(p["mixer"]["wv"], hh), hkv, hd))
                     k = nn.apply_rope(k, positions, cfg.rope_theta)
                     tap = taps.setdefault(f"pos{pos}", {"k": [], "v": []})
                     tap["k"].append(k)
@@ -438,7 +515,7 @@ def prefill_forward(cfg: ModelConfig):
         kv = {name: {kk: torch.stack(vs) for kk, vs in tap.items()}
               for name, tap in taps.items()}
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = (x[:, -1] @ _head_table_T(cfg, params)).float()
+        logits = ctx.local((x[:, -1] @ _head_table_T(cfg, params)).float())
         return logits, kv
 
     return fn

@@ -5,13 +5,23 @@ linear weight is ``[d_in, d_out]`` and is applied as ``x @ w``, so weights
 carry across without transposes.  The casting points are the
 reference's: norms compute in float32 and scale after the cast back to
 ``x.dtype``; rotary angles are float32 and the result is cast back.
-Initializers draw from an explicit ``torch.Generator`` on ``device``."""
+Initializers draw from an explicit ``torch.Generator`` on ``device``.
+
+Under the meshed train step the parameters are DTensors on the ``model``
+sub-mesh (``sharding/ctx.py``): ``linear`` and ``swiglu`` are then
+column- and row-parallel by DTensor's matmul rules, ``embed`` looks up a
+vocab-sharded table on each rank's rows of it and sums the ranks' rows,
+``split_heads``/``merge_heads`` make whole the heads the axis does not
+divide, and ``apply_rope`` runs on each rank's heads (``local_map``).  On
+plain tensors every function is as it was."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 
 def _normal(gen, shape, scale: float, dtype, device) -> torch.Tensor:
@@ -42,7 +52,29 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.bfloat16,
 
 
 def embed(p: dict, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+    """``table[ids]``.  A DTensor table gives a ``Replicate()`` DTensor:
+    cut over the vocab (``Shard(0)`` on a mesh of more than one rank), each
+    rank looks up the ids in its range, writes zeros for the others, and
+    the ranks' rows are summed (the vocab-parallel embedding: an all-reduce,
+    whose gradient passes to each rank's rows unchanged); otherwise the
+    whole table's rows."""
+    from repro_torch.sharding import ctx
+    table = p["table"]
+    if not isinstance(table, DTensor):
+        return table[ids]
+    mesh = table.device_mesh
+    if table.placements[0] != Shard(0) or mesh.size() == 1:
+        return ctx.enter(ctx.local(table)[ids], table)
+    n = table.to_local().shape[0]
+    lo = mesh.get_local_rank() * n
+
+    def lookup(rows, ids):
+        t = ids - lo
+        inside = (t >= 0) & (t < n)
+        mine = rows[t.clamp(0, n - 1)] * inside[..., None].to(rows.dtype)
+        return ctx.sum_over(mine, [mesh.get_group()])
+    return local_map(lookup, out_placements=[Replicate()], in_placements=([Shard(0)], None),
+                     in_grad_placements=([Shard(0)], None), device_mesh=mesh)(table, ids)
 
 
 def rmsnorm_init(d: int, dtype=torch.bfloat16, device=None) -> dict:
@@ -88,6 +120,30 @@ def swiglu(p: dict, x: torch.Tensor) -> torch.Tensor:
     return linear(p["down"], F.silu(h) * u)
 
 
+# -- heads ----------------------------------------------------------------------
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """``[B, S, n·hd]`` → ``[B, S, n, hd]``.  A DTensor whose head count the
+    model axis does not divide is made whole first (a rank cannot hold part
+    of a head, and ``apply_rope`` splits head_dim in halves)."""
+    from repro_torch.sharding import ctx
+    B, S = t.shape[:2]
+    if isinstance(t, DTensor) and not ctx.divides(n, "tp"):
+        t = ctx.constrain(t, "dp", None, None)
+    return t.reshape(B, S, n, hd)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``[B, S, n, hd]`` → ``[B, S, n·hd]``.  A whole DTensor is flattened on
+    each rank (``local_map``), so a gradient that comes back cut over the
+    flat dimension is made whole before it is split into heads the model
+    axis may not divide."""
+    B, S, n, hd = t.shape
+    if isinstance(t, DTensor) and t.placements[0] == Replicate():
+        return local_map(lambda x: x.reshape(B, S, n * hd), out_placements=[Replicate()],
+                         in_placements=([Replicate()],), device_mesh=t.device_mesh)(t)
+    return t.reshape(B, S, n * hd)
+
+
 # -- rotary position embeddings ----------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     ar = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
@@ -96,7 +152,14 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: ``[..., S, H, hd]``; positions: ``[..., S]``."""
+    """x: ``[..., S, H, hd]``; positions: ``[..., S]``.  A DTensor ``x``
+    (heads cut or replicated, head_dim whole) is rotated on each rank's
+    part."""
+    if isinstance(x, DTensor):
+        pls = list(x.placements)
+        return local_map(lambda t: apply_rope(t, positions, theta), out_placements=pls,
+                         in_placements=(pls,), in_grad_placements=(pls,),
+                         device_mesh=x.device_mesh)(x)
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                        # [hd/2]
     angles = positions[..., :, None].float() * freqs               # [..., S, hd/2]

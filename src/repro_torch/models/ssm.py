@@ -19,13 +19,24 @@ CUDA kernel on the card, its plain version on the CPU; its gradient is
 ``WKV6Fn``'s plain recompute.  The kernel keeps the state on the chip
 over the whole sequence, so the reference's chunked scan (a memory bound
 for its backward) has no counterpart: the full sequence is one launch,
-and a decode step is one launch with T=1 and the carried state."""
+and a decode step is one launch with T=1 and the carried state.
+
+Under the meshed train step (DTensor parameters on the ``model`` sub-mesh,
+``sharding/ctx.py``) RWKV6 is tensor-parallel: r, k, v, g and the decay
+are cut by heads, the WKV kernel runs on each rank's heads through
+``local_map`` (the replicated bonus ``u`` sliced to them), the output is
+made whole for ``ln_x`` (a LayerNorm over all of d, not per head) and
+``Wo`` is row-parallel; the channel mix is column- then row-parallel.
+The Mamba mixer is not cut: the caller runs it whole on every rank
+(``ctx.run_local``)."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
@@ -195,23 +206,51 @@ def _rwkv_mix_projections(p, x, x_prev, head_size):
     xg = x + dx * p["mu"][4]
     # data-dependent decay (the Finch signature)
     w_dd = nn.linear(p["w_lora2"], torch.tanh(nn.linear(p["w_lora1"], xw)))
+    if isinstance(w_dd, DTensor):       # by heads, as r, k, v (a reduce-scatter)
+        w_dd = ctx.constrain(w_dd, "dp", None, "tp" if ctx.divides(H, "tp") else None)
     w = torch.exp(-torch.exp(p["w_base"] + w_dd.float()))       # [B,T,d] in (0,1)
-    r = nn.linear(p["Wr"], xr).reshape(B, T, H, head_size)
-    k = nn.linear(p["Wk"], xk).reshape(B, T, H, head_size)
-    v = nn.linear(p["Wv"], xv).reshape(B, T, H, head_size)
+    r = nn.split_heads(nn.linear(p["Wr"], xr), H, head_size)
+    k = nn.split_heads(nn.linear(p["Wk"], xk), H, head_size)
+    v = nn.split_heads(nn.linear(p["Wv"], xv), H, head_size)
     g = F.silu(nn.linear(p["Wg"], xg))
     r = ctx.constrain(r, "dp", None, "tp", None)
     k = ctx.constrain(k, "dp", None, "tp", None)
     v = ctx.constrain(v, "dp", None, "tp", None)
-    return w.reshape(B, T, H, head_size), r, k, v, g
+    return nn.split_heads(w, H, head_size), r, k, v, g
 
 
 def _wkv_chunk(S0, w, r, k, v, u):
     """The WKV recurrence over ``T`` steps from state ``S0``.
     S0: ``[B, H, hd, hd]`` float32 or None (zeros); w, r, k, v:
     ``[B, T, H, hd]``; u: ``[H, hd]`` → (S_T, out ``[B, T, H, hd]`` float32)."""
-    out, S_T = wkv_ops.wkv6(w, r, k, v, u, S0)
+    if isinstance(r, DTensor):
+        out, S_T = _wkv_local_heads(w, r, k, v, u, S0)
+    else:
+        out, S_T = wkv_ops.wkv6(w, r, k, v, u, S0)
     return S_T, out
+
+
+def _wkv_local_heads(w, r, k, v, u, S0):
+    """The WKV kernel through ``local_map`` on each rank's heads (w, r, k, v
+    ``Shard(2)``; ``u`` whole, sliced to the rank's heads, its gradient
+    ``Partial``), or on every head where they are whole (the carried state
+    too, when given)."""
+    mesh = r.device_mesh
+    u = u.redistribute(mesh, [Replicate()])
+    if r.placements[0] != Shard(2):
+        w, r, k, v = (t.redistribute(mesh, [Replicate()]) for t in (w, r, k, v))
+        return local_map(wkv_ops.wkv6, out_placements=([Replicate()], [Replicate()]),
+                         device_mesh=mesh)(w, r, k, v, u, S0)
+    cut, H = [Shard(2)], r.to_local().shape[2]
+    lo = mesh.get_local_rank() * H
+
+    def body(w, r, k, v, u, S0):
+        return wkv_ops.wkv6(w, r, k, v, u[lo:lo + H], S0)
+    state = None if S0 is None else [Shard(1)]
+    return local_map(body, out_placements=(cut, [Shard(1)]),
+                     in_placements=(cut, cut, cut, cut, [Replicate()], state),
+                     in_grad_placements=(cut, cut, cut, cut, [Partial()], state),
+                     device_mesh=mesh)(w, r, k, v, u, S0)
 
 
 def rwkv6_time_mix(p: dict, x: torch.Tensor, *, head_size: int) -> torch.Tensor:
@@ -220,7 +259,9 @@ def rwkv6_time_mix(p: dict, x: torch.Tensor, *, head_size: int) -> torch.Tensor:
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :S]
     w, r, k, v, g = _rwkv_mix_projections(p, x, x_prev, head_size)
     _, out = _wkv_chunk(None, w, r, k, v, p["u"])
-    out = nn.layernorm(p["ln_x"], out.reshape(B, S, d).to(x.dtype))
+    # ln_x normalizes over all of d: the heads made whole first
+    out = ctx.constrain(nn.merge_heads(out).to(x.dtype), "dp", None, None)
+    out = nn.layernorm(p["ln_x"], out)
     return nn.linear(p["Wo"], out * g)
 
 
@@ -232,7 +273,12 @@ def rwkv6_channel_mix(p: dict, x: torch.Tensor) -> torch.Tensor:
     xr = x + dx * p["mu_cr"]
     k = torch.square(torch.relu(nn.linear(p["Wck"], xk)))
     k = ctx.constrain(k, "dp", None, "tp")    # column-parallel channel mix
-    return torch.sigmoid(nn.linear(p["Wcr"], xr)) * nn.linear(p["Wcv"], k)
+    kv = nn.linear(p["Wcv"], k)
+    if isinstance(kv, DTensor):
+        # the row-parallel Partial reduce-scattered to Wcr's column cut:
+        # the gate's product then stays local
+        kv = ctx.constrain(kv, "dp", None, "tp")
+    return torch.sigmoid(nn.linear(p["Wcr"], xr)) * kv
 
 
 def rwkv6_init_cache(B: int, d: int, head_size: int, dtype=torch.float32,

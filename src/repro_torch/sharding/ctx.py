@@ -4,18 +4,30 @@ Model code calls ``constrain(x, "dp", None, "tp")`` at the reference's
 activation boundaries.  With no mesh set (every single-device caller) it
 returns its argument unchanged, so the numbers are those of a model without
 the calls.  Under a mesh (:func:`use_mesh`, which the meshed train step
-sets) a DTensor argument is redistributed to the divisibility-checked spec,
-as the reference's ``with_sharding_constraint``; a plain tensor is returned
-as it is.  The meshed train step hands the model plain local tensors (the
-parameters gathered where they are used), so on its path every
-``constrain`` returns its argument: compute on the ``model`` axis is
-replicated, and the calls mark where tensor-parallel compute will cut.
+and the dry-run set) a DTensor argument is redistributed to the
+divisibility-checked spec, as the reference's ``with_sharding_constraint``;
+a plain tensor is returned as it is.
+
+The meshed train step computes tensor-parallel on the ``model`` axis.  It
+gathers the parameters over the data axes only and hands the model each
+leaf's ``model``-axis shard as a DTensor on the 1-D ``model`` sub-mesh
+(``trainer.gather_model_shards``).  Activations are DTensors on that
+sub-mesh too: :func:`enter` makes a plain activation a ``Replicate()``
+one where the parameters it meets are DTensors, DTensor's matmul rules
+give column- then row-parallel products (the row-parallel output
+``Partial``), and ``constrain`` at the reference's points redistributes
+over the model axis alone (a ``"dp"`` entry names no axis of the
+sub-mesh).  :func:`local` turns a DTensor back into a plain tensor, whole.
+:func:`run_local` runs a block the port does not cut (the MoE FFN and the
+Mamba mixer) on plain tensors: its parameters gathered over the model
+axis, its compute repeated there.
 
 The port adds one reduction the reference leaves to GSPMD: when the train
 step cuts a microbatch's rows over the data axes (:func:`cut_batch`),
 :func:`batch_sum` sums a per-rank partial over them, so a mean over the
 batch (the loss's token count, the MoE's load-balancing statistics) is the
-global batch's."""
+global batch's.  The data axes never appear in an activation's
+placements."""
 from __future__ import annotations
 
 import contextlib
@@ -23,7 +35,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.sharding.policy import (P, axis_size as _axis_size, mesh_axis_sizes,
                                          placements)
@@ -96,6 +108,78 @@ def constrain(x: torch.Tensor, *axes) -> torch.Tensor:
     return x.redistribute(x.device_mesh, placements(x.device_mesh, spec))
 
 
+# -- the boundaries of the tensor-parallel blocks ------------------------------
+def enter(x: torch.Tensor, like) -> torch.Tensor:
+    """``x`` as a ``Replicate()`` DTensor on ``like``'s device mesh when
+    ``like`` (a parameter the activation meets) is a DTensor; else ``x``.
+    ``x`` is the same on every rank of that mesh."""
+    if not isinstance(like, DTensor) or isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, like.device_mesh, [Replicate()] * like.device_mesh.ndim,
+                              run_check=False)
+
+
+def local(x):
+    """A DTensor gathered whole on every rank of its mesh, as a plain tensor
+    (differentiable); any other value as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def run_local(fn, params, x: torch.Tensor, *args, **kwargs):
+    """``fn(params, x, *args, **kwargs)`` for a block the port does not cut
+    on the model axis: with DTensor ``params`` its leaves gathered over the
+    model axis and ``x`` made whole, ``fn`` run on plain tensors (its
+    compute repeated on every rank of the axis), and its output (or the
+    first of a tuple's) made a ``Replicate()`` DTensor again.  Without
+    DTensors, ``fn`` itself."""
+    if not isinstance(x, DTensor):
+        return fn(params, x, *args, **kwargs)
+    out = fn(_tree(local, params), local(x), *args, **kwargs)
+    if isinstance(out, tuple):
+        return (enter(out[0], x), *out[1:])
+    return enter(out, x)
+
+
+class _WholeGrad(torch.autograd.Function):
+    """The identity; in the backward a ``Partial`` gradient is made whole
+    (an all-reduce over its mesh)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and any(p.is_partial() for p in grad.placements):
+            grad = grad.redistribute(grad.device_mesh, [Replicate()] * grad.device_mesh.ndim)
+        return grad
+
+
+def tp_input(x: torch.Tensor) -> torch.Tensor:
+    """A whole activation entering tensor-parallel products: the identity
+    forward; backward, the ``Partial`` sum of its branches' gradients made
+    whole (an all-reduce), so the residual stream's gradient stays
+    ``Replicate()`` and every product's backward stays cut (a ``Partial``
+    gradient would make DTensor gather the weights it meets).  A no-op on
+    plain tensors."""
+    return _WholeGrad.apply(x) if isinstance(x, DTensor) else x
+
+
+def sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` all-reduced (summed) over each process group in ``groups``;
+    the gradient passes through unchanged (each rank's partial feeds one
+    sum that every rank uses alike)."""
+    return _SumOver.apply(x, groups)
+
+
 # -- the data axes a microbatch's rows are cut over -----------------------------
 @contextlib.contextmanager
 def cut_batch(axes: tuple[str, ...]):
@@ -117,11 +201,12 @@ def batch_split() -> int:
     return _axis_size(_STATE["mesh"], _STATE["batch"])
 
 
-class _SumOverBatch(torch.autograd.Function):
-    """All-reduce (sum) over the groups of the batch's mesh axes; the
-    backward passes each rank's gradient through unchanged, so a rank's
-    parameters receive its own rows' share of the global batch's gradient,
-    and the ranks' shares sum (``Partial``) to the whole of it."""
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over process groups (the batch's mesh axes, or the
+    model axis); the backward passes each rank's gradient through
+    unchanged: every rank uses the sum alike, so a rank's partial receives
+    the sum's gradient, and the ranks' shares sum (``Partial``) to the
+    whole of it."""
 
     @staticmethod
     def forward(ctx, x, groups):
@@ -143,4 +228,4 @@ def batch_sum(x: torch.Tensor) -> torch.Tensor:
     mesh = _STATE["mesh"]
     names = list(mesh_axis_sizes(mesh))
     groups = [mesh.get_group(names.index(a)) for a in _STATE["batch"]]
-    return _SumOverBatch.apply(x, groups)
+    return _SumOver.apply(x, groups)

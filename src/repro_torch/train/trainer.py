@@ -26,19 +26,23 @@ setup, mesh)`` then
 
   takes this rank's rows of each microbatch (``policy.batch_spec``: cut
     over the data axes, replicated when they do not divide it);
-  gathers every parameter where the loss uses it (``redistribute`` to
-    ``Replicate``, then ``to_local(grad_placements=...)``), so the model
-    and the kernels' ``autograd.Function``s see plain local tensors;
+  gathers every parameter over the data axes only and hands the model
+    its ``model``-axis shard as a DTensor on the model sub-mesh
+    (:func:`gather_model_shards`), so the blocks compute tensor-parallel
+    on DTensor activations (``sharding/ctx.py``): column- and
+    row-parallel products, the kernels on each rank's heads, a
+    vocab-parallel embedding and cross-entropy;
   takes the gradients back reduce-scattered to the parameter's placements
     (``Partial`` over the data axes when the batch is cut: each rank's
     share of the global batch's mean loss, ``sharding.ctx.batch_sum``);
   compresses (EF-int8, the scale over the whole leaf), clips (the global
     norm, a replicated leaf counted once) and updates each rank's shards.
 
-The whole tree is gathered at the start of each microbatch (one full copy
-of the parameters beside the shards), and compute on the ``model`` axis
-is replicated: tensor-parallel compute and per-block gathering are
-ROADMAP items."""
+The tree is gathered over the data axes at the start of each microbatch
+(a copy of the rank's model-axis shards beside its own shards; per-block
+gathering is a ROADMAP item).  The MoE FFN and the Mamba mixer are not
+cut: their leaves are gathered over the model axis too and their compute
+is repeated there (``ctx.run_local``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -53,7 +57,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import ctx
-from repro_torch.sharding.policy import ShardingPolicy, mesh_axis_sizes
+from repro_torch.sharding.policy import (P, ShardingPolicy, keystr_path, mesh_axis_sizes,
+                                         placements, tree_map_with_path)
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.compression import ef_compress_grads
 
@@ -232,13 +237,11 @@ def _local_rows(policy: ShardingPolicy, rows: int) -> tuple[slice, tuple[str, ..
     return slice(idx * n, (idx + 1) * n), policy.axes.dp
 
 
-def gather_local(tree, mesh, axes=None, grad_placements=None):
+def gather_local(tree, mesh, axes=None):
     """Every DTensor of ``tree`` gathered over the mesh axes ``axes`` (all of
     them when None; a collective: every rank calls it), its placements on
-    the other axes kept, as plain local tensors; any other leaf as it is.
-    ``grad_placements``: the placements of the gradients that flow back
-    through ``to_local`` (the train step's ``Partial`` over the axes its
-    batch is cut over), replicated when None."""
+    the other axes kept, as plain local tensors; any other leaf as it is
+    (the dry-run's decode cells)."""
     names = list(mesh_axis_sizes(mesh))
 
     def one(x):
@@ -246,8 +249,41 @@ def gather_local(tree, mesh, axes=None, grad_placements=None):
             return x
         pls = [Replicate() if axes is None or n in axes else pl
                for n, pl in zip(names, x.placements)]
-        return x.redistribute(mesh, pls).to_local(grad_placements=grad_placements)
+        return x.redistribute(mesh, pls).to_local()
     return opt_lib.tree_map(one, tree)
+
+
+def gather_model_shards(tree, mesh, cut: tuple[str, ...] = ()):
+    """Every DTensor of ``tree`` gathered over the data axes only, its
+    ``model``-axis shard rewrapped as a DTensor on the 1-D model sub-mesh
+    (``mesh["model"]``) with its placement there: what the tensor-parallel
+    blocks take (a collective: every rank calls it).  A stacked leaf the
+    policy cuts over the model axis by its block dimension (a dense FFN
+    ``[nb, d, d_ff]``, which the reference's rule reads as stacked experts)
+    is recut there as one block's weight is (``param_spec`` of its
+    ``[d, d_ff]``), so each block's product is tensor-parallel.  Gradients
+    flow back through ``to_local`` as ``Partial`` over the data axes in
+    ``cut`` (the axes the batch is cut over) and in the model-axis
+    placement used; the reduce-scatter back to the parameter's placements is
+    the caller's.  Any other leaf as it is."""
+    names = list(mesh_axis_sizes(mesh))
+    m = names.index("model")
+    tp_mesh = mesh["model"]
+    policy = ShardingPolicy(mesh, None)
+
+    def one(path, x):
+        if not isinstance(x, DTensor):
+            return x
+        pl = x.placements[m]
+        if pl == Shard(0) and x.dim() >= 2 and path[0] in ("layers", "enc_layers"):
+            spec = policy.param_spec(keystr_path(path), tuple(x.shape[1:]))
+            pl = placements(mesh, P(None, *spec))[m]
+        pls = [pl if i == m else Replicate() for i in range(len(names))]
+        grad = [pl if i == m else Partial() if n in cut else Replicate()
+                for i, n in enumerate(names)]
+        shard = x.redistribute(mesh, pls).to_local(grad_placements=grad)
+        return DTensor.from_local(shard, tp_mesh, [pl], run_check=False)
+    return tree_map_with_path(one, tree)
 
 
 def _leaf_reduce(mesh, placements: list, op):
@@ -283,7 +319,6 @@ def _make_meshed_train_step(cfg: ModelConfig, setup: TrainSetup, mesh) -> Callab
     adt = DTYPES[setup.accum_dtype]
     n_micro = setup.micro_batches
     policy = ShardingPolicy(mesh, cfg)
-    names = list(mesh_axis_sizes(mesh))
 
     def local(tree):
         return opt_lib.tree_map(lambda x: x.to_local(), tree)
@@ -295,10 +330,6 @@ def _make_meshed_train_step(cfg: ModelConfig, setup: TrainSetup, mesh) -> Callab
     def train_step(state: TrainState, batch: dict):
         micro = _microbatches(batch, n_micro)
         rows, cut = _local_rows(policy, next(iter(batch.values())).shape[0] // n_micro)
-        # the gathered parameters' gradients: each rank's share over the
-        # axes the batch is cut over (summed by the reduce-scatter back to
-        # the parameter's placements), the same on the other axes
-        grad_pl = [Partial() if n in cut else Replicate() for n in names]
         params = opt_lib.tree_map(lambda p: p.detach().requires_grad_(), state.params)
         leaves = opt_lib.tree_leaves(params)
         grads = opt_lib.tree_map(
@@ -306,7 +337,7 @@ def _make_meshed_train_step(cfg: ModelConfig, setup: TrainSetup, mesh) -> Callab
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         with ctx.use_mesh(mesh), ctx.cut_batch(cut):
             for i in range(n_micro):
-                full = gather_local(params, mesh, grad_placements=grad_pl)
+                full = gather_model_shards(params, mesh, cut)
                 loss, _ = loss_fn(full, {name: xs[i][rows] for name, xs in micro.items()})
                 micro_grads = torch.autograd.grad(loss, leaves, allow_unused=True)
                 del full

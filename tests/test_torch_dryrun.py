@@ -16,7 +16,12 @@
 * ``run_cell`` leaves no process group behind and refuses to start while
   one is live; the command writes ``status: ok`` with 256 devices (the
   artifact directory redirected to a temporary one) and records skipped
-  cells as the reference does."""
+  cells as the reference does;
+* tensor-parallel compute on a fake (1, 16) world: a rank of llama3-8b's
+  ``train_4k`` (2 layers by override) computes at most 1.15 × 1/16 of a
+  world of one's FLOPs, its flash calls at 2 local q heads against 1 kv
+  head; rwkv6-7b (1 layer, at full width over 64 tokens: its WKV6 plain
+  backward is a loop over T) likewise, its WKV6 calls at 4 of 64 heads."""
 import json
 import sys
 
@@ -288,3 +293,28 @@ def test_train_setup_overrides_reach_the_step():
     res = dryrun.run_cell("llama3-8b", "train_4k", "single",
                           {"num_layers": 1, "micro_batches": 2})
     assert res["kernels"]["flash_attention"]["calls"] == 4
+
+
+@pytest.mark.parametrize("arch,shape,local", [
+    ("llama3-8b", "train_4k", {"flash_attention": "q[32,4096,2,128] kv[4096,1] causal bfloat16"}),
+    ("rwkv6-7b", ShapeSpec("tp_rwkv", 64, 16, "train"), {"wkv6": "[16,64,4,64] bfloat16"})],
+    ids=["llama3-8b", "rwkv6-7b"])
+def test_model_axis_cuts_a_ranks_flops_sixteen_ways(arch, shape, local):
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import specs
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=2 if arch == "llama3-8b" else 1)
+    shape = SHAPES.get(shape, shape)
+    setup = specs.train_setup(cfg, shape)
+    res = {}
+    for world in (1, 16):
+        with dryrun.fake_world(world):
+            mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+            res[world] = dryrun.trace(cfg, shape, mesh, setup)
+    assert res[16]["flops_per_device"] <= 1.15 * res[1]["flops_per_device"] / 16
+    (kernel, key), = local.items()
+    calls = res[1]["kernels"][kernel]["calls"]
+    assert res[16]["kernels"][kernel]["by_call"] == {key: calls}
+    assert res[16]["kernels"][kernel]["flops"] * 16 == res[1]["kernels"][kernel]["flops"]
