@@ -146,7 +146,17 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   flash launches by call (2 local q heads against one kv head) equal to
   the predicted calls, FLOPs within 1% and the peak within 10%; its ms a
   step, peak GiB and device busy share, and the flash kernel timed at that
-  local shape.
+  local shape;
+* the tensor-parallel decode (``lm.serve_step`` on DTensor parameters and a
+  cache cut over the model axis, ``trainer.cache_model_shards``): on the
+  (1, 1) NCCL mesh llama3-8b and rwkv6-7b (4 of 32 layers at every width,
+  bf16, a cache of 2048 positions) take 16 steps bit for bit the unmeshed
+  steps (logits and every cache leaf); then one rank of a 16-way model
+  axis at ``decode_32k``'s local shapes (8 rows, 32768 positions, full
+  depth) in a fake process group of 16, traced by the dry-run first:
+  argument bytes equal, WKV6 launches by call (4 of 64 heads, carried
+  state) equal to the predicted calls, FLOPs within 1%, peak within 10%;
+  its ms a step and busy share, and WKV6 timed at that shape.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -301,6 +311,20 @@ TP_RANK = dict(world=16, steps=2)
 # the recompute and the float32 attention backward leave ~1.35x)
 TP_TRAIN_RATIO = 1.6
 CARD_GIB = 80
+# the tensor-parallel decode (phase 33): 33a llama3-8b and rwkv6-7b, 4 of 32
+# layers at every width, bf16, batch 4, a cache of 2048 positions (llama's
+# filled by prefill_forward over its first 2032, rwkv's states by a 64-token
+# prompt through the unmeshed step), 16 steps meshed on a (1, 1) NCCL mesh
+# and unmeshed; 33b one rank of a 16-way model axis at decode_32k's local
+# shapes (8 rows, 32768 positions), full depth, in a fake process group of
+# 16, its first step held to the dry-run, then ``timed`` steps timed and as
+# many profiled
+TP_DECODE = dict(layers=4, batch=4, max_seq=2048, steps=16, rwkv_prompt=64, world=16,
+                 rows=8, seq=32768, timed=3)
+# phase 31b: llama3-8b decode_32k at 256 ranks, FLOP and peak a rank at most
+# these (2.5751e11 and 66.06 GiB while the decode gathered the cache and the
+# tree whole: 1.25/16 of the first, and the card's tenth of the second)
+TP_DECODE_CELL = dict(flops=2.01e10, peak_gib=8)
 DRILL = dict(fleet=8, epochs=40, every=10, kill_at=20, offline=200,
              offline_updates=20)
 
@@ -2294,14 +2318,7 @@ def check_wkv(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(10)
 
     def make(b, T, h, d, dtype, carry):
-        shape = (b, T, h, d)
-        # the model's decays: exp(-exp(-6 + small)) is close to 1
-        w = torch.exp(-torch.exp(-6 + 0.5 * torch.randn(shape, generator=gen, device=dev)))
-        r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-                   for _ in range(3))
-        u = torch.randn(h, d, generator=gen, device=dev) * 0.5
-        S0 = torch.randn(b, h, d, d, generator=gen, device=dev) if carry else None
-        return w, r, k, v, u, S0
+        return wkv_inputs(gen, dev, b, T, h, d, dtype, carry)
 
     batcher = (BATCHER["slots"], 1, H, hd, torch.bfloat16, True)
     cases = [(B, 1, H, hd, torch.bfloat16, False), (B, 1, H, hd, torch.bfloat16, True),
@@ -2334,28 +2351,49 @@ def check_wkv(dev) -> dict:
         f"(max |err| {max_abs:.3g}; max |err|/(1+max|x|) {max_rel:.3g}, tol 1e-5; "
         f"at the batcher's step {list(batcher[:4])}: max |err| {batcher_abs:.3g})")
 
-    timings = {}
-    for name, b, T, carry in (("decode", B, 1, True), ("prefill", B, LM["prefill_len"], False),
-                              ("batcher", BATCHER["slots"], 1, True)):
-        args = make(b, T, H, hd, torch.bfloat16, carry)
-        kernel = lambda a=args: ops.wkv6(*a)                 # noqa: E731
-        plain = lambda a=args: wkv6_ref(*a)                  # noqa: E731
-        if T == 1:
-            t = dict(ms=graph_ms(kernel), plain_ms=graph_ms(plain))
-        else:
-            t = dict(ms=eager_ms(kernel, iters=20, warmup=3),
-                     plain_ms=eager_ms(plain, iters=2, warmup=1))
-        bytes_moved = ops.bytes_moved(b, T, H, hd, torch.bfloat16, carry)
-        ops_count = ops.flops(b, T, H, hd)
-        t_ops, t_bytes = ops_count / F32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
-        t["bound_ms"] = max(t_ops, t_bytes) * 1e3
-        t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-        timings[name] = t
-        log(f"  {name} [{b},{T},{H},{hd}] bf16 r/k/v, ms per call: kernel "
-            f"{t['ms']:.6f}  plain {t['plain_ms']:.6f}  library none  bound "
-            f"{t['bound_ms']:.6f} ({t['bound_by']}: {ops_count / 1e9:.3f} GFLOP, "
-            f"{bytes_moved / 1e6:.2f} MB)")
+    timings = {name: wkv_timing(name, make(b, T, H, hd, torch.bfloat16, carry))
+               for name, b, T, carry in (("decode", B, 1, True),
+                                         ("prefill", B, LM["prefill_len"], False),
+                                         ("batcher", BATCHER["slots"], 1, True))}
     return dict(max_abs_err=max_abs, batcher_max_abs_err=batcher_abs, timings=timings)
+
+
+def wkv_inputs(gen, dev, b: int, T: int, h: int, d: int, dtype, carry: bool) -> tuple:
+    """Seeded WKV6 inputs ``[b, T, h, d]``: the model's decays (exp(-exp(-6 +
+    small)), close to 1), r, k, v in ``dtype``, u, and a carried state
+    where ``carry``."""
+    shape = (b, T, h, d)
+    w = torch.exp(-torch.exp(-6 + 0.5 * torch.randn(shape, generator=gen, device=dev)))
+    r, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype) for _ in range(3))
+    u = torch.randn(h, d, generator=gen, device=dev) * 0.5
+    S0 = torch.randn(b, h, d, d, generator=gen, device=dev) if carry else None
+    return w, r, k, v, u, S0
+
+
+def wkv_timing(name: str, args: tuple) -> dict:
+    """The WKV6 kernel and its plain version on ``args`` (``wkv_inputs``), ms
+    a call (in a CUDA graph at T = 1, eager otherwise), beside the bound."""
+    from repro_torch.kernels.rwkv6_scan import ops, wkv6_ref
+
+    b, T, H, hd = args[1].shape
+    dtype, carry = args[1].dtype, args[5] is not None
+    kernel = lambda: ops.wkv6(*args)                 # noqa: E731
+    plain = lambda: wkv6_ref(*args)                  # noqa: E731
+    if T == 1:
+        t = dict(ms=graph_ms(kernel), plain_ms=graph_ms(plain))
+    else:
+        t = dict(ms=eager_ms(kernel, iters=20, warmup=3),
+                 plain_ms=eager_ms(plain, iters=2, warmup=1))
+    bytes_moved = ops.bytes_moved(b, T, H, hd, dtype, carry)
+    ops_count = ops.flops(b, T, H, hd)
+    t_ops, t_bytes = ops_count / F32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S
+    t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"  {name} [{b},{T},{H},{hd}] {str(dtype).removeprefix('torch.')} r/k/v, ms per call: "
+        f"kernel {t['ms']:.6f}  plain {t['plain_ms']:.6f}  library none  bound "
+        f"{t['bound_ms']:.6f} ({t['bound_by']}: {ops_count / 1e9:.3f} GFLOP, "
+        f"{bytes_moved / 1e6:.2f} MB)")
+    return t
 
 
 LM_ARCHS = ("llama3-8b", "rwkv6-7b", "yi-34b", "command-r-plus-104b", "qwen1.5-110b",
@@ -4441,6 +4479,262 @@ def run_tp_rank(dev, card: str) -> dict:
                 ms=prof["wall_ms"], peak=peak, busy=prof["busy"], pred=pred)
 
 
+def decode_lm(dev, arch: str, layers: int):
+    """(config at ``layers`` of ``arch``'s layers at full width, bf16; its
+    seeded parameters on the card, an RWKV config's bonus u seeded too)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    params = lm.init_params(cfg, gen, dev)
+    if cfg.family == "ssm":
+        u = params["layers"]["pos0"]["mixer"]["u"]
+        u.copy_(torch.randn(u.shape, generator=gen, device=dev) * 0.5)
+    return cfg, params
+
+
+def run_tp_decode_one(dev, card: str) -> dict:
+    """Phase 33a: the tensor-parallel decode on ``make_production_mesh()``
+    (NCCL, a world of one: a (1, 1) mesh).  llama3-8b and rwkv6-7b, 4 of 32
+    layers at full width, bf16, batch 4, a cache of 2048 positions: llama's
+    filled by ``prefill_forward`` over its first 2032 (its K/V taps), rwkv's
+    states by a 64-token prompt stepped through the unmeshed step.  Then
+    16 greedy steps from copies of that cache, unmeshed and meshed (the
+    parameters placed by the policy and ``gather_model_shards``, the cache
+    placed and ``cache_model_shards``), under ``fixed_order_sums()``: the
+    logits of every step and every cache leaf after the last bit for bit
+    equal, and the meshed run's WKV6 launches counted by call."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+
+    T = TP_DECODE
+    B, S, N = T["batch"], T["max_seq"], T["steps"]
+    out = {}
+    mesh = make_production_mesh()
+    try:
+        for arch in ("llama3-8b", "rwkv6-7b"):
+            torch.cuda.empty_cache()
+            cfg, params = decode_lm(dev, arch, T["layers"])
+            step = lm.serve_step(cfg)
+            gen = torch.Generator(device=dev).manual_seed(330)
+            cache = lm.init_cache(cfg, B, S, dev)
+            if cfg.family == "ssm":
+                prompt = torch.randint(1, cfg.vocab_size, (B, T["rwkv_prompt"]),
+                                       generator=gen, device=dev, dtype=torch.int32)
+                for t in range(prompt.shape[1]):
+                    logits, cache = step(params, cache, prompt[:, t:t + 1])
+            else:
+                P = S - N
+                prompt = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device=dev,
+                                       dtype=torch.int32)
+                logits, taps = lm.prefill_forward(cfg)(params, {"tokens": prompt})
+                for name, kv in taps.items():
+                    for kk, rows in kv.items():
+                        cache[name][kk][:, :, :P].copy_(rows)
+                cache["len"] = P
+                del taps
+            first = logits.argmax(-1, keepdim=True).to(torch.int32)
+            policy = ShardingPolicy(mesh, cfg)
+            copy = _tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, cache)
+            runs = {}
+            with fixed_order_sums():
+                tok, got = first, []
+                for _ in range(N):
+                    logits, cache = step(params, cache, tok)
+                    got.append(logits)
+                    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+                runs[False] = got
+                tp_params = trainer.gather_model_shards(
+                    policy.distribute(params, policy.params_sharding(params)), mesh)
+                tp_cache = trainer.cache_model_shards(
+                    policy.distribute(copy, policy.cache_sharding(copy)), mesh)
+                wkv_ops.LAUNCHES_BY_CALL.clear()
+                tok, got = first, []
+                with ctx.use_mesh(mesh):
+                    for _ in range(N):
+                        logits, tp_cache = step(tp_params, tp_cache, tok)
+                        got.append(logits)
+                        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+                runs[True] = got
+                launches = dict(wkv_ops.LAUNCHES_BY_CALL)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(runs[False], runs[True]))
+            leaves = [(path, a, b) for (path, a), (_, b) in zip(_named_leaves(cache),
+                                                                _named_leaves(tp_cache))]
+            differ = [path for path, a, b in leaves if isinstance(a, torch.Tensor)
+                      and not torch.equal(a, b.to_local())]
+            log(f"phase 33a {arch} ({card}): {cfg.num_layers} of 32 layers, bf16, batch {B}, "
+                f"a cache of {S} positions from len {copy['len']}, {N} greedy steps "
+                f"unmeshed and on the (1, 1) mesh: logits "
+                f"{'bit for bit' if same else 'DIFFER'}, {len(leaves) - len(differ)} of "
+                f"{len(leaves)} cache leaves bit for bit, len {cache['len']} and "
+                f"{tp_cache['len']}; WKV6 launches by call on the mesh {launches}")
+            if not same or differ or cache["len"] != tp_cache["len"]:
+                raise AssertionError(f"phase 33a {arch}: the meshed decode differs from "
+                                     f"the unmeshed (logits equal: {same}; leaves {differ})")
+            want = ({wkv_ops.call_key(B, 1, cfg.rwkv_heads, cfg.rwkv_head_size,
+                                      torch.bfloat16): N * cfg.num_layers}
+                    if cfg.family == "ssm" else {})
+            if launches != want:
+                raise AssertionError(f"phase 33a {arch}: WKV6 launches {launches}, "
+                                     f"expected {want}")
+            out[arch] = dict(launches=sum(launches.values()))
+            del params, cache, copy, tp_params, tp_cache, runs
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_tp_decode_rank(dev, card: str) -> dict:
+    """Phase 33b: one rank of a 16-way model axis decoding at ``decode_32k``'s
+    local shapes (8 rows, a cache of 32768 positions cut by positions for
+    llama3-8b, 2048 a rank, and by heads for rwkv6-7b, 4 of 64), at full
+    depth, bf16.  Each is first traced by the dry-run on ``meta`` tensors in
+    a fake process group of 16 (mesh (1, 16)); then the same rank runs on
+    the card as rank 0 of a fake process group of 16 over a ``cuda`` mesh
+    (1, 16): real tensors and launches at the rank's shapes, collectives
+    that return at once without data (so no value is checked).  The
+    parameters are drawn whole, placed by the policy and the whole freed;
+    the cache is made at its local shapes.  A first step (the parameters'
+    and the cache's rewrap included, as the dry-run traces it) from len 0,
+    after ``reset_peak_memory_stats``, under the dry-run's counter:
+    argument bytes equal, WKV6 launches by call equal to the predicted
+    calls, FLOPs within 1%, the predicted peak within 10% of
+    ``max_memory_allocated`` less what was allocated before; then
+    ``TP_DECODE["timed"]`` steps on the rewrapped tree timed and as many
+    profiled (the device's busy share)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import wkv6_ref
+    from repro_torch.launch import dryrun
+    from repro_torch.models import lm
+    from repro_torch.sharding import ctx
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+
+    T, n = TP_DECODE, TP_DECODE["world"]
+    names = ("data", "model")
+    shape = ShapeSpec("decode_32k", T["seq"], T["rows"], "decode")
+    out = {}
+    for arch in ("llama3-8b", "rwkv6-7b"):
+        cfg = get_config(arch)
+        with dryrun.fake_world(n):
+            pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", (1, n), mesh_dim_names=names))
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        with dryrun.fake_world(n):
+            mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=names)
+            policy = ShardingPolicy(mesh, cfg)
+            _, whole = decode_lm(dev, arch, cfg.num_layers)
+            params = policy.distribute(whole, policy.params_sharding(whole))
+            del whole
+            torch.cuda.empty_cache()
+            meta = lm.init_cache(cfg, T["rows"], T["seq"], "meta")
+            # the rank's shards made at their local shapes: the whole cache
+            # (2 x 32 GB for llama3-8b) is not drawn
+            cache = _tree_map(lambda x: DTensor.from_local(
+                torch.zeros_like(x.to_local(), device=dev), mesh, x.placements,
+                run_check=False) if isinstance(x, DTensor) else x,
+                policy.distribute(meta, policy.cache_sharding(meta)))
+            tokens = torch.randint(1, cfg.vocab_size, (T["rows"], 1), device=dev,
+                                   generator=torch.Generator(device=dev).manual_seed(331),
+                                   dtype=torch.int32)
+            args_bytes = dryrun.local_bytes((params, cache)) + dryrun.local_bytes(tokens)
+            step = lm.serve_step(cfg)
+            wkv_ops.LAUNCHES_BY_CALL.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counter = dryrun.StepCounter()
+            t0 = time.perf_counter()
+            with counter, ctx.use_mesh(mesh):
+                tp_params = trainer.gather_model_shards(params, mesh)
+                logits, tp_cache = step(tp_params, trainer.cache_model_shards(cache, mesh),
+                                        tokens)
+            torch.cuda.synchronize()
+            counted_ms = 1e3 * (time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = dict(wkv_ops.LAUNCHES_BY_CALL)
+
+            def run():
+                nonlocal logits
+                with ctx.use_mesh(mesh):
+                    logits, _ = step(tp_params, tp_cache, tokens)
+            wkv_ops.LAUNCHES_BY_CALL.clear()
+            prof = busy_share(run, T["timed"], f"phase 33b {arch} rank step")
+            timed = dict(wkv_ops.LAUNCHES_BY_CALL)
+            if logits.shape != (T["rows"], cfg.vocab_size):
+                raise AssertionError(f"phase 33b {arch}: logits {tuple(logits.shape)}, not "
+                                     "[rows, V] (their values are not the rank's: the fake "
+                                     "group's collectives carry no data)")
+            del params, cache, tp_params, tp_cache, logits
+        torch.cuda.empty_cache()
+        flops = counter.flops + sum(launches.values()) * wkv_ops.flops(
+            T["rows"], 1, cfg.rwkv_heads // n, cfg.rwkv_head_size)
+        calls = pred["kernels"].get("wkv6", {}).get("by_call", {})
+        mem = pred["memory"]
+        flop_off = abs(pred["flops_per_device"] - flops) / flops
+        peak_off = abs(mem["peak_bytes_est"] - peak) / peak
+        cut = (f"positions ({T['seq'] // n} a rank)" if cfg.family != "ssm"
+               else f"heads ({cfg.rwkv_heads // n} of {cfg.rwkv_heads} a rank)")
+        log(f"phase 33b one rank of a 16-way model axis decoding ({card}): {arch}, "
+            f"{cfg.num_layers} layers at every width, bf16, {T['rows']} rows against a cache of "
+            f"{T['seq']} positions cut by {cut}, rank 0 of a fake process group of {n} on the "
+            f"mesh (1, {n}) (real tensors and launches at the rank's shapes, collectives that "
+            f"return at once: no values); {prof['wall_ms']:.3f} ms a step ({T['timed']} steps; "
+            f"device busy {prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = "
+            f"{prof['busy']:.1%} of the wall), the counted first step (the rewrap included) "
+            f"{counted_ms:.3f} ms; peak {peak / 2**30:.3f} GiB max_memory_allocated less the "
+            f"{base / 2**30:.3f} GiB allocated before; WKV6 launches by call {launches} in the "
+            f"counted step, {timed} in the {2 * T['timed']} timed and profiled.  The dry-run "
+            f"of the same rank, traced in {pred['trace_s']:.1f} s: argument bytes "
+            f"{mem['argument_bytes']} predicted, {args_bytes} held; WKV6 calls {calls}; FLOPs "
+            f"{pred['flops_per_device']:.6e} predicted, {flops:.6e} counted on the card "
+            f"({counter.flops:.6e} aten), off by {flop_off:.3%}; peak "
+            f"{mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, off by {peak_off:.2%}; "
+            f"collectives {({k: v['count'] for k, v in counter.collectives.items()})} on the "
+            f"card, {({k: v['count'] for k, v in pred['collectives'].items()})} predicted")
+        if mem["argument_bytes"] != args_bytes:
+            raise AssertionError(f"phase 33b {arch}: argument bytes {mem['argument_bytes']} "
+                                 f"predicted, {args_bytes} on the card")
+        if calls != launches:
+            raise AssertionError(f"phase 33b {arch}: WKV6 calls {calls} predicted, launches "
+                                 f"{launches}")
+        if flop_off > 0.01:
+            raise AssertionError(f"phase 33b {arch}: FLOPs off by {flop_off:.3%} (bound 1%)")
+        if peak_off > 0.10:
+            raise AssertionError(f"phase 33b {arch}: the predicted peak is off by "
+                                 f"{peak_off:.2%} (bound 10%)")
+        out[arch] = dict(launches=sum(launches.values()) + sum(timed.values()),
+                         ms=prof["wall_ms"], busy=prof["busy"], peak=peak, pred=pred)
+    gen = torch.Generator(device=dev).manual_seed(332)
+    rwkv = get_config("rwkv6-7b")
+    args = wkv_inputs(gen, dev, T["rows"], 1, rwkv.rwkv_heads // n, rwkv.rwkv_head_size,
+                      torch.bfloat16, True)
+    got, want = wkv_ops.wkv6(*args), wkv6_ref(*args)
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = 1 + max(float(b.abs().max()) for b in want)
+    if not err / scale <= 1e-5:
+        raise AssertionError(f"phase 33b: WKV6 at a rank's decode shape off its plain "
+                             f"version by {err}")
+    out["timing"] = wkv_timing("phase 33b WKV6 at a rank's decode shape (carried state)",
+                               args)
+    out["max_abs_err"] = err
+    return out
+
+
 def run_dryrun_cells() -> dict:
     """Phase 31b: ``python -m repro_torch.launch.dryrun --mesh single
     --force`` on each of ``DRYRUN_CELLS`` at full depth, one process a
@@ -4491,6 +4785,13 @@ def run_dryrun_cells() -> dict:
                 raise AssertionError(f"phase 31b llama3-8b x train_4k: {ratio:.2f}x 6·N·D / "
                                      f"{res['devices']} a rank, above {TP_TRAIN_RATIO}x: "
                                      "the model axis repeats the step's work")
+            if (arch, shape) == ("llama3-8b", "decode_32k") and (
+                    res["flops_per_device"] > TP_DECODE_CELL["flops"]
+                    or peak >= TP_DECODE_CELL["peak_gib"]):
+                raise AssertionError(f"phase 31b llama3-8b x decode_32k: "
+                                     f"{res['flops_per_device']:.4e} FLOP and {peak:.2f} GiB a "
+                                     f"rank, not within {TP_DECODE_CELL}: the decode is not "
+                                     "tensor-parallel")
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -4669,6 +4970,10 @@ def main() -> int:
     t0 = time.perf_counter()
     tp_rank = run_tp_rank(dev, card)
     log(f"phase 32 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tp_one = run_tp_decode_one(dev, card)
+    tp_decode = run_tp_decode_rank(dev, card)
+    log(f"phase 33 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -4774,6 +5079,14 @@ def main() -> int:
         # timed there
         row("flash_attention_tp_rank", flash_sm90, flash_tpu, tp_rank["launches"],
             tp_rank["timing"], tp_rank["timing"]),
+        # phase 33: the tensor-parallel decode's WKV6 launches on a rank's
+        # heads with the cache's carried state (33a's meshed steps at
+        # [4, 1, 64, 64] on a mesh of one, 33b's at [8, 1, 4, 64]), timed
+        # and held to the plain version at 33b's shape
+        row("wkv6_tp_decode", "src/repro_torch/kernels/rwkv6_scan/csrc/wkv6.cu",
+            "src/repro/kernels/rwkv6_scan/kernel.py:49",
+            tp_one["rwkv6-7b"]["launches"] + tp_decode["rwkv6-7b"]["launches"], tp_decode,
+            tp_decode["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -33,9 +33,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # kernel launches since the last reset (the plain CPU path does not count)
 LAUNCHES = 0
+# launches by the whole call, keyed by ``call_key`` (a tensor-parallel
+# rank's local heads show): cleared by the caller
+LAUNCHES_BY_CALL: dict[str, int] = {}
 # calls on meta tensors, keyed by (B, T, H, hd, r's dtype, carried state):
 # cleared by the caller
 META_CALLS: dict[tuple, int] = {}
+
+
+def call_key(B: int, T: int, H: int, hd: int, dtype: torch.dtype) -> str:
+    """The key of ``LAUNCHES_BY_CALL`` (and of the dry-run's ``by_call`` and
+    ``by_shape``): r's shape and dtype, as "[8,1,4,64] bfloat16"."""
+    return f"[{B},{T},{H},{hd}] {str(dtype).removeprefix('torch.')}"
 
 
 def flops(B: int, T: int, H: int, hd: int) -> int:
@@ -147,4 +156,6 @@ def _forward(w, r, k, v, u, S0):
     if rc != 0:
         raise RuntimeError(f"wkv6_fwd launch failed: CUDA error {rc}")
     LAUNCHES += 1
+    key = call_key(B, T, H, hd, r.dtype)
+    LAUNCHES_BY_CALL[key] = LAUNCHES_BY_CALL.get(key, 0) + 1
     return out, S_T

@@ -24,12 +24,14 @@ sends:
   ``prefill`` cell runs ``lm.prefill_forward`` through the same
   tensor-parallel blocks as the train step: the parameters gathered over
   the data axes only (``trainer.gather_model_shards``), the activations
-  DTensors on the model sub-mesh.  A ``decode`` cell gathers the
-  parameters whole and the cache over the model axis
-  (``trainer.gather_local``) and runs ``lm.serve_step``, each rank's new
-  cache cut back to its shard.  The kernels' wrappers take a ``meta``
-  route: their checks, an empty output, and the call recorded by its
-  local shape;
+  DTensors on the model sub-mesh.  A ``decode`` cell runs the
+  tensor-parallel ``lm.serve_step`` on the same parameters and on the
+  rank's shard of the cache, rewrapped on the model sub-mesh
+  (``trainer.cache_model_shards``: K/V cut by kv heads or by positions,
+  the RWKV state by heads), which the step updates in place; nothing of
+  the cache is gathered.  The kernels' wrappers take a ``meta`` route:
+  their checks, an empty output, and the call recorded by its local
+  shape;
 * ``flops_per_device``: the FLOPs of the aten ops this rank runs (the
   matmuls, the kernels' plain float32 backward, the rematerialized
   recompute), counted by ``torch.utils.flop_counter``'s formulas on the
@@ -52,7 +54,7 @@ sends:
 The numbers are the port's own, not XLA's: they include the
 rematerialization's recompute, the compute the model axis still repeats
 (the attention core of head counts it does not divide, the MoE and Mamba
-positions, decode), the kernels' plain float32 backward with its
+positions), the kernels' plain float32 backward with its
 ``[B, H, S, S]`` scores at the rank's heads, and the parameters gathered
 over the data axes (ROADMAP A4).  There is no HLO, so no ``corrected`` trip-count analysis
 and no ``bytes_accessed``; ``trace_s`` (the step's wall seconds under the
@@ -83,7 +85,7 @@ import weakref
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor
 from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
@@ -195,7 +197,9 @@ class StepCounter(TorchDispatchMode):
             self.flops += int(formula(*args, **kwargs, out_val=out))
         kind = collective_kind(func)
         if kind is not None:
-            b = sum(t.nbytes for t in _tensors(out))
+            # c10d's all-to-all writes into its first argument and returns
+            # only a work handle
+            b = sum(t.nbytes for t in _tensors(out)) or _tensors(args[:1])[0].nbytes
             d = self.collectives.setdefault(kind, {"count": 0, "result_bytes": 0,
                                                    "wire_bytes": 0.0})
             d["count"] += 1
@@ -218,7 +222,7 @@ def _meta_kernels() -> dict:
                 fa.flops(B, S, Skv, H, hd, causal))
 
     def wkv6(B, T, H, hd, dt, carried):
-        key = f"[{B},{T},{H},{hd}] {str(dt).removeprefix('torch.')}"
+        key = wkv.call_key(B, T, H, hd, dt)
         return key, key, wkv.flops(B, T, H, hd)
     return {"flash_attention": (fa.META_CALLS, flash), "wkv6": (wkv.META_CALLS, wkv6)}
 
@@ -261,14 +265,6 @@ def fake_world(world_size: int):
         dist.destroy_process_group()
 
 
-def _place(tree, mesh, placements):
-    """Each tensor of ``tree`` as a DTensor with its placements (a host
-    number as it is)."""
-    from repro_torch.train.optimizer import tree_map
-    return tree_map(lambda x, pl: distribute_tensor(x, mesh, pl)
-                    if isinstance(x, torch.Tensor) else x, tree, placements)
-
-
 def place(cfg, shape, mesh, setup=None, fsdp: bool = True,
           inputs: dict | None = None) -> dict:
     """The step inputs of the cell (``cfg`` × ``shape``, a
@@ -296,10 +292,10 @@ def place(cfg, shape, mesh, setup=None, fsdp: bool = True,
         held = out["state"]
     else:
         params = lm.init_params(cfg, None, "meta")
-        out["params"] = _place(params, mesh, policy.params_sharding(params))
+        out["params"] = policy.distribute(params, policy.params_sharding(params))
         held = out["params"]
     if shape.kind == "decode":
-        out["cache"] = _place(inputs["cache"], mesh, policy.cache_sharding(inputs["cache"]))
+        out["cache"] = policy.distribute(inputs["cache"], policy.cache_sharding(inputs["cache"]))
         out["tokens"] = inputs["tokens"]
         held = (held, out["cache"])
         rows_of = out["tokens"]
@@ -348,16 +344,10 @@ def trace(cfg, shape, mesh, setup=None, fsdp: bool = True, inputs: dict | None =
             cache, tokens = placed.pop("cache"), placed.pop("tokens")[rows]
             counter.track((params, cache, tokens))
             fn = lm.serve_step(cfg)
-            tp = placed["policy"].axes.tp
             t0 = time.perf_counter()
             with counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
-                # the cache first: its gathers' buffers then do not sit on
-                # top of the gathered parameters
-                local = trainer.gather_local(cache, mesh, axes=(tp,))
-                logits, local = fn(trainer.gather_local(params, mesh), local, tokens)
-                # each rank keeps its shard of the new cache (a local cut)
-                out = (logits, _reshard(local, cache, mesh, tp))
-                del local
+                out = fn(trainer.gather_model_shards(params, mesh),
+                         trainer.cache_model_shards(cache, mesh), tokens)
             del cache
         del params
     trace_s = time.perf_counter() - t0
@@ -375,25 +365,6 @@ def trace(cfg, shape, mesh, setup=None, fsdp: bool = True, inputs: dict | None =
         "collective_wire_bytes_per_device": sum(d["wire_bytes"] for d in coll.values()),
         "trace_s": trace_s,
     }
-
-
-def _reshard(new: dict, like: dict, mesh, tp: str) -> dict:
-    """The step's new cache (gathered over ``tp``) cut back to the
-    placements of ``like``, each rank's shard as a local tensor."""
-    from torch.distributed.tensor import Replicate
-
-    from repro_torch.sharding.policy import mesh_axis_sizes
-    from repro_torch.train.optimizer import tree_map
-
-    names = list(mesh_axis_sizes(mesh))
-
-    def one(x, d):
-        if not isinstance(d, DTensor):
-            return x
-        gathered = [Replicate() if n == tp else pl for n, pl in zip(names, d.placements)]
-        return DTensor.from_local(x, mesh, gathered, run_check=False).redistribute(
-            mesh, d.placements).to_local()
-    return tree_map(one, new, like)
 
 
 def run_cell(arch_id: str, shape_name: str, mesh_kind: str,

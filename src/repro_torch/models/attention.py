@@ -29,7 +29,19 @@ for head counts the model axis does not divide: plain PyTorch in both
 packages (no Pallas kernel), the online softmax over chunks of keys with
 the q rows marked for the model axis (``ctx.constrain``).  The reference
 visits ``S // kv_chunk`` chunks, so past S = 1024 it drops the keys beyond
-the last full chunk; here every key is read (ROADMAP C13)."""
+the last full chunk; here every key is read (ROADMAP C13).
+
+The decode step on a DTensor cache (the tensor-parallel ``lm.serve_step``,
+the cache's leaves rewrapped on the ``model`` sub-mesh by
+``trainer.cache_model_shards``) takes the route of the cache's placement,
+which ``policy.cache_spec`` chose: cut by kv heads where the axis divides
+them, each rank attends its q heads to its kv heads (``local_map``); cut
+by positions where it divides ``Smax`` instead (the reference's
+"flash-decoding style partial softmax"), q is made whole, each rank takes
+a float32 partial ``(o, m, l)`` over its own rows and the partials are
+combined over the axis (:func:`decode_attention_seqpar`); whole, the
+attention is repeated on every rank.  ``update_kv_cache`` writes the new
+row into the rank's own shard, on the rank that holds it."""
 from __future__ import annotations
 
 import functools
@@ -111,14 +123,21 @@ def _attend_chunk(q, k, v, mask, scale: float):
     return torch.einsum("bqkgs,bskd->bqkgd", p, v.float()), m, p.sum(dim=-1)
 
 
+def _rescaled(o, m, l, m_new):
+    """An online-softmax partial's ``o`` and ``l`` at the larger max
+    ``m_new``: each times ``e^(m − m_new)``."""
+    a = torch.exp(m - m_new)
+    return o * a[..., None], l * a
+
+
 def _merge(acc, new):
     """Merge two online-softmax partials."""
     o1, m1, l1 = acc
     o2, m2, l2 = new
     m = torch.maximum(m1, m2)
-    a1 = torch.exp(m1 - m)
-    a2 = torch.exp(m2 - m)
-    return o1 * a1[..., None] + o2 * a2[..., None], m, l1 * a1 + l2 * a2
+    o1, l1 = _rescaled(o1, m1, l1, m)
+    o2, l2 = _rescaled(o2, m2, l2, m)
+    return o1 + o2, m, l1 + l2
 
 
 def flash_attention_seqpar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -159,7 +178,10 @@ def flash_attention_seqpar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int) -> torch.Tensor:
     """q ``[B, 1, H, hd]`` (one new token) against the first ``cache_len``
-    positions of k/v_cache ``[B, Smax, Hkv, hd]``."""
+    positions of k/v_cache ``[B, Smax, Hkv, hd]``.  A DTensor cache takes
+    the route of its placement (the module docstring)."""
+    if isinstance(k_cache, DTensor):
+        return _decode_cut(q, k_cache, v_cache, cache_len)
     B, _, H, hd = q.shape
     Hkv = k_cache.shape[2]
     G = H // Hkv
@@ -173,11 +195,94 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 
+def _decode_cut(q, k_cache: DTensor, v_cache: DTensor, cache_len: int):
+    """Decode attention on a cache cut over the model axis: by kv heads
+    (``Shard(2)``; q cut alike, each rank's q heads read its own kv heads),
+    by positions (``Shard(1)``, :func:`decode_attention_seqpar`) or whole
+    (the attention repeated on every rank)."""
+    mesh = k_cache.device_mesh
+    if k_cache.placements[0] == Shard(2):
+        cut = [Shard(2)]
+        return local_map(functools.partial(decode_attention, cache_len=cache_len),
+                         out_placements=cut, in_placements=(cut, cut, cut),
+                         device_mesh=mesh)(q.redistribute(mesh, cut), k_cache, v_cache)
+    if k_cache.placements[0] == Shard(1):
+        return decode_attention_seqpar(q, k_cache, v_cache, cache_len)
+    return ctx.enter(decode_attention(ctx.local(q), k_cache.to_local(), v_cache.to_local(),
+                                      cache_len), k_cache)
+
+
+def decode_attention_seqpar(q: torch.Tensor, k_cache: DTensor, v_cache: DTensor,
+                            cache_len: int) -> DTensor:
+    """Decode attention over a cache cut by positions over the model axis
+    (k/v_cache ``Shard(1)`` of ``[B, Smax, Hkv, hd]``, rank ``i`` holding
+    rows ``[i·Smax/n, (i+1)·Smax/n)``): q ``[B, 1, H, hd]`` made whole (a
+    small all-gather), each rank's float32 partial ``(o, m, l)`` over its
+    rows masked at ``cache_len`` by global position, and the partials
+    combined over the axis: the max all-reduced, then ``o·e^(m−M)`` and
+    ``l·e^(m−M)`` summed (one all-reduce).  A rank whose rows all lie at or
+    past ``cache_len`` computes nothing and adds zeros.  Returns the output
+    cut by q heads (``Shard(2)``) where the axis divides them, else whole."""
+    import torch.distributed as dist
+
+    mesh = k_cache.device_mesh
+    q = ctx.local(q)
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    B, _, H, hd = q.shape
+    Hkv, rows = kl.shape[2], kl.shape[1]
+    G = H // Hkv
+    lo = mesh.get_local_rank() * rows
+    if lo < cache_len:
+        qg = q.reshape(B, Hkv, G, hd)
+        s = torch.einsum("bkgd,bskd->bkgs", qg.float(), kl.float()) * (1.0 / math.sqrt(hd))
+        pos = lo + torch.arange(rows, device=q.device)
+        s = s.masked_fill(pos >= cache_len, NEG_INF)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        o, l = torch.einsum("bkgs,bskd->bkgd", p, vl.float()), p.sum(dim=-1)
+    else:
+        o = torch.zeros(B, Hkv, G, hd, dtype=torch.float32, device=q.device)
+        m = torch.full((B, Hkv, G), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros(B, Hkv, G, dtype=torch.float32, device=q.device)
+    group = mesh.get_group()
+    m_all = m.clone()
+    dist.all_reduce(m_all, op=dist.ReduceOp.MAX, group=group)
+    o, l = _rescaled(o, m, l, m_all)
+    ol = torch.cat([o, l[..., None]], dim=-1)
+    dist.all_reduce(ol, op=dist.ReduceOp.SUM, group=group)
+    out = (ol[..., :hd] / torch.clamp(ol[..., hd:], min=1e-30)).reshape(B, 1, H, hd)
+    out = out.to(q.dtype)
+    out = DTensor.from_local(out, mesh, [Replicate()], run_check=False)
+    return out.redistribute(mesh, [Shard(2)]) if H % mesh.size() == 0 else out
+
+
 def update_kv_cache(k_cache, v_cache, k_new, v_new, cache_len: int):
     """Write ``[B, T, Hkv, hd]`` new keys/values at position ``cache_len``,
     in place (the reference returns updated copies), and return the
-    caches."""
+    caches.  A DTensor cache is written in the rank's own shard: its kv
+    heads of the new rows (a cache cut by heads), the new rows that fall in
+    its positions (cut by positions), or all of them (whole)."""
+    if isinstance(k_cache, DTensor):
+        _write_cut(k_cache, k_new, cache_len)
+        _write_cut(v_cache, v_new, cache_len)
+        return k_cache, v_cache
     T = k_new.shape[1]
     k_cache[:, cache_len:cache_len + T] = k_new.to(k_cache.dtype)
     v_cache[:, cache_len:cache_len + T] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
+
+
+def _write_cut(cache: DTensor, new, t: int) -> None:
+    """Rows ``[t, t + T)`` of ``new`` ``[B, T, Hkv, hd]`` into the rank's
+    shard of ``cache`` (its local tensor, which shares the cache's
+    storage)."""
+    mesh, local = cache.device_mesh, cache.to_local()
+    if cache.placements[0] == Shard(2):
+        new = ctx.enter(new, cache).redistribute(mesh, [Shard(2)]).to_local()
+    else:
+        new = ctx.local(new)
+    T = new.shape[1]
+    lo = mesh.get_local_rank() * local.shape[1] if cache.placements[0] == Shard(1) else 0
+    a, b = max(t, lo), min(t + T, lo + local.shape[1])
+    if a < b:
+        local[:, a - lo:b - lo] = new[:, a - t:b - t].to(local.dtype)

@@ -32,19 +32,22 @@ is plain PyTorch, as the reference left it to XLA.  The reference's
 activation-sharding hints (``sharding.ctx.constrain``) sit at its points:
 no-ops without a mesh, so every single-device number is unchanged.
 
-With DTensor parameters on the ``model`` sub-mesh (the meshed train step
-and the dry-run's prefill, ``trainer.gather_model_shards``) the blocks are
-tensor-parallel (``docs/torch_lm_sharding.md``): each branch's input is
-``ctx.tp_input``, its row-parallel output is made whole where it joins the
-residual, the cross-entropy is vocab-parallel where the vocab is cut
+With DTensor parameters on the ``model`` sub-mesh (the meshed train step,
+the dry-run's prefill and the tensor-parallel decode,
+``trainer.gather_model_shards``) the blocks are tensor-parallel
+(``docs/torch_lm_sharding.md``): each branch's input is ``ctx.tp_input``,
+its row-parallel output is made whole where it joins the residual, the
+cross-entropy is vocab-parallel where the vocab is cut
 (``vocab_parallel_ce``), and the MoE and Mamba positions run whole on every
-rank of the axis (``ctx.run_local``)."""
+rank of the axis (``ctx.run_local``).  The decode step takes the cache cut
+over the axis (``trainer.cache_model_shards``) and updates each rank's
+shard in place (``serve_step``)."""
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -559,26 +562,49 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _decode_attn(p: Params, x_t, cfg: ModelConfig, kc, vc, t: int):
     """x_t: [B,1,d]; kc/vc: [B,Smax,hkv,hd], row t written in place; t:
-    the position.  Returns the attention output [B,1,d]."""
+    the position.  Returns the attention output [B,1,d] (on DTensors the
+    row-parallel ``wo``'s ``Partial``; the cache's route is
+    ``attention.decode_attention``'s)."""
     B = x_t.shape[0]
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     pos = torch.full((B, 1), t, dtype=torch.int32, device=x_t.device)
-    q = nn.apply_rope(nn.linear(p["wq"], x_t).reshape(B, 1, h, hd), pos, cfg.rope_theta)
-    k = nn.apply_rope(nn.linear(p["wk"], x_t).reshape(B, 1, hkv, hd), pos, cfg.rope_theta)
-    v = nn.linear(p["wv"], x_t).reshape(B, 1, hkv, hd)
+    q = nn.apply_rope(nn.split_heads(nn.linear(p["wq"], x_t), h, hd), pos, cfg.rope_theta)
+    k = nn.apply_rope(nn.split_heads(nn.linear(p["wk"], x_t), hkv, hd), pos, cfg.rope_theta)
+    v = nn.split_heads(nn.linear(p["wv"], x_t), hkv, hd)
     attn.update_kv_cache(kc, vc, k, v, t)
     o = attn.decode_attention(q, kc, vc, t + 1)
-    return nn.linear(p["wo"], o.reshape(B, 1, h * hd))
+    return nn.linear(p["wo"], nn.merge_heads(o))
 
 
 def _decode_cross_attn(p: Params, x_t, cfg: ModelConfig, ck, cv, enc_len: int):
     """x_t ``[B,1,d]`` against the memory's K/V ``[B, enc_len, hkv, hd]``:
     no rope, every row."""
-    B = x_t.shape[0]
-    h, hd = cfg.num_heads, cfg.head_dim
-    q = nn.linear(p["wq"], x_t).reshape(B, 1, h, hd)
+    q = nn.split_heads(nn.linear(p["wq"], x_t), cfg.num_heads, cfg.head_dim)
     o = attn.decode_attention(q, ck, cv, enc_len)
-    return nn.linear(p["wo"], o.reshape(B, 1, h * hd))
+    return nn.linear(p["wo"], nn.merge_heads(o))
+
+
+def _cache_block(leaf, b: int):
+    """Block ``b`` of a stacked cache leaf, a view; of a DTensor leaf, the
+    view of its local shard as a DTensor with the placement one dimension
+    down."""
+    if not isinstance(leaf, DTensor):
+        return leaf[b]
+    pl = leaf.placements[0]
+    pl = Shard(pl.dim - 1) if isinstance(pl, Shard) else pl
+    return DTensor.from_local(leaf.to_local()[b], leaf.device_mesh, [pl], run_check=False)
+
+
+def _store(leaf, b: int, value) -> None:
+    """Block ``b`` of a stacked cache leaf set to ``value`` in place; of a
+    DTensor leaf, the rank's shard of ``value`` (plain or a DTensor, made
+    the block's placement) written into its local tensor."""
+    if not isinstance(leaf, DTensor):
+        leaf[b].copy_(value)
+        return
+    block = _cache_block(leaf, b)
+    value = ctx.enter(value, block).redistribute(block.device_mesh, block.placements)
+    block.to_local().copy_(value.to_local())
 
 
 def serve_step(cfg: ModelConfig):
@@ -589,7 +615,17 @@ def serve_step(cfg: ModelConfig):
     rows at position ``len``, the RWKV and Mamba states, ``len`` itself)
     and returns it: the caller passes each cache once.  An encdec config
     reads the cross-attention K/V that ``prefill_encoder`` wrote (all
-    ``enc_len`` rows; none with ``enc_len`` 0, which adds nothing)."""
+    ``enc_len`` rows; none with ``enc_len`` 0, which adds nothing).
+
+    Tensor-parallel on the model axis (``docs/torch_lm_sharding.md``):
+    under ``ctx.use_mesh(mesh)``, with the parameters from
+    ``trainer.gather_model_shards`` and the cache from
+    ``trainer.cache_model_shards`` (DTensors on ``mesh["model"]``) and
+    ``tokens`` this rank's rows, the step computes on DTensor activations
+    as the train step's blocks do, each rank updating its shard of the
+    cache in place; the logits come back whole, ``[B_rank, V]``.  The MoE
+    FFN and the Mamba mixer run whole on every rank (``ctx.run_local``),
+    the Mamba state gathered for the step and cut back."""
 
     @torch.no_grad()
     def step_fn(params: Params, cache: dict, tokens: torch.Tensor):
@@ -603,43 +639,46 @@ def serve_step(cfg: ModelConfig):
                 if mixer == "rwkv":
                     h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
                     y, tm_cache = ssm.rwkv6_time_mix_step(
-                        p["mixer"], h, {"S": c["S"][b], "x_tm": c["x_tm"][b],
-                                        "x_cm": c["x_cm"][b]},
+                        p["mixer"], h, {name: _cache_block(c[name], b)
+                                        for name in ("S", "x_tm", "x_cm")},
                         head_size=cfg.rwkv_head_size)
-                    x = x + y
+                    x = x + _whole(y)
                     h2 = nn.rmsnorm(p["norm2"], x, cfg.norm_eps)
                     y2, cm_cache = ssm.rwkv6_channel_mix_step(p["mixer"], h2, tm_cache)
-                    x = x + y2
+                    x = x + _whole(y2)
                     for name in ("S", "x_tm", "x_cm"):
-                        c[name][b].copy_(cm_cache[name])
+                        _store(c[name], b, cm_cache[name])
                     continue
                 h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
                 if mixer == "attn":
                     if t >= c["k"].shape[2]:
                         raise ValueError(f"the cache holds {c['k'].shape[2]} positions; "
                                          f"position {t} does not fit")
-                    a = _decode_attn(p["mixer"], h, cfg, c["k"][b], c["v"][b], t)
+                    a = _decode_attn(p["mixer"], h, cfg, _cache_block(c["k"], b),
+                                     _cache_block(c["v"], b), t)
                     if cfg.parallel_block:
-                        x = x + a + _run_ffn(p["ffn"], h, cfg, fkind)
+                        x = x + _whole(a) + _whole(_run_ffn(p["ffn"], h, cfg, fkind))
                         continue
-                    x = x + a
+                    x = x + _whole(a)
                 else:  # mamba
-                    y, mc = ssm.mamba_step(p["mixer"], h, {"h": c["h"][b],
-                                                           "conv": c["conv"][b]},
-                                           d_state=cfg.mamba_d_state,
-                                           d_conv=cfg.mamba_d_conv)
+                    state = {name: ctx.local(_cache_block(c[name], b))
+                             for name in ("h", "conv")}
+                    y, mc = ctx.run_local(ssm.mamba_step, p["mixer"], h, state,
+                                          d_state=cfg.mamba_d_state,
+                                          d_conv=cfg.mamba_d_conv)
                     x = x + y
-                    c["h"][b].copy_(mc["h"])
-                    c["conv"][b].copy_(mc["conv"])
+                    _store(c["h"], b, mc["h"])
+                    _store(c["conv"], b, mc["conv"])
                 if "cross" in p and "ck" in c:
                     hc = nn.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
-                    x = x + _decode_cross_attn(p["cross"], hc, cfg, c["ck"][b],
-                                               c["cv"][b], c["ck"].shape[2])
-                x = x + _run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                                 cfg, fkind)
+                    x = x + _whole(_decode_cross_attn(
+                        p["cross"], hc, cfg, _cache_block(c["ck"], b),
+                        _cache_block(c["cv"], b), c["ck"].shape[2]))
+                x = x + _whole(_run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                                        cfg, fkind))
         cache["len"] = t + 1
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        logits = (x[:, 0] @ _head_table_T(cfg, params)).float()
+        logits = ctx.local((x[:, 0] @ _head_table_T(cfg, params)).float())
         return logits, cache
 
     return step_fn

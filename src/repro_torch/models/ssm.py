@@ -21,12 +21,14 @@ over the whole sequence, so the reference's chunked scan (a memory bound
 for its backward) has no counterpart: the full sequence is one launch,
 and a decode step is one launch with T=1 and the carried state.
 
-Under the meshed train step (DTensor parameters on the ``model`` sub-mesh,
-``sharding/ctx.py``) RWKV6 is tensor-parallel: r, k, v, g and the decay
-are cut by heads, the WKV kernel runs on each rank's heads through
-``local_map`` (the replicated bonus ``u`` sliced to them), the output is
-made whole for ``ln_x`` (a LayerNorm over all of d, not per head) and
-``Wo`` is row-parallel; the channel mix is column- then row-parallel.
+Under the meshed train step and the tensor-parallel decode (DTensor
+parameters on the ``model`` sub-mesh, ``sharding/ctx.py``) RWKV6 is
+tensor-parallel: r, k, v, g and the decay are cut by heads, the WKV
+kernel runs on each rank's heads through ``local_map`` (the replicated
+bonus ``u`` sliced to them; a decode step's carried state is the cache's
+shard of those heads), the output is made whole for ``ln_x`` (a
+LayerNorm over all of d, not per head) and ``Wo`` is row-parallel; the
+channel mix is column- then row-parallel.
 The Mamba mixer is not cut: the caller runs it whole on every rank
 (``ctx.run_local``)."""
 from __future__ import annotations
@@ -294,12 +296,16 @@ def rwkv6_init_cache(B: int, d: int, head_size: int, dtype=torch.float32,
 
 def rwkv6_time_mix_step(p: dict, x_t: torch.Tensor, cache: dict, *,
                         head_size: int) -> tuple[torch.Tensor, dict]:
-    """x_t: ``[B, 1, d]`` single-token decode."""
-    B, _, d = x_t.shape
+    """x_t: ``[B, 1, d]`` single-token decode.  On DTensors (the
+    tensor-parallel decode) the carried state ``cache["S"]`` is the rank's
+    heads (``Shard(1)``), the kernel runs on them and returns their
+    ``S_T``; ``x_tm`` stays whole."""
     x_prev = cache["x_tm"][:, None]
     w, r, k, v, g = _rwkv_mix_projections(p, x_t, x_prev, head_size)
     S_T, out = _wkv_chunk(cache["S"], w, r, k, v, p["u"])
-    out = nn.layernorm(p["ln_x"], out.reshape(B, 1, d).to(x_t.dtype))
+    # ln_x normalizes over all of d: the heads made whole first
+    out = ctx.constrain(nn.merge_heads(out).to(x_t.dtype), "dp", None, None)
+    out = nn.layernorm(p["ln_x"], out)
     y = nn.linear(p["Wo"], out * g)
     return y, dict(cache, S=S_T, x_tm=x_t[:, 0])
 
@@ -311,5 +317,9 @@ def rwkv6_channel_mix_step(p: dict, x_t: torch.Tensor,
     xk = x_t + dx * p["mu_ck"]
     xr = x_t + dx * p["mu_cr"]
     k = torch.square(torch.relu(nn.linear(p["Wck"], xk)))
-    y = torch.sigmoid(nn.linear(p["Wcr"], xr)) * nn.linear(p["Wcv"], k)
+    k = ctx.constrain(k, "dp", None, "tp")    # column-parallel channel mix
+    kv = nn.linear(p["Wcv"], k)
+    if isinstance(kv, DTensor):               # as rwkv6_channel_mix
+        kv = ctx.constrain(kv, "dp", None, "tp")
+    y = torch.sigmoid(nn.linear(p["Wcr"], xr)) * kv
     return y, dict(cache, x_cm=x_t[:, 0])

@@ -3,23 +3,28 @@
 Model code calls ``constrain(x, "dp", None, "tp")`` at the reference's
 activation boundaries.  With no mesh set (every single-device caller) it
 returns its argument unchanged, so the numbers are those of a model without
-the calls.  Under a mesh (:func:`use_mesh`, which the meshed train step
-and the dry-run set) a DTensor argument is redistributed to the
-divisibility-checked spec, as the reference's ``with_sharding_constraint``;
-a plain tensor is returned as it is.
+the calls.  Under a mesh (:func:`use_mesh`, which the meshed train step,
+the tensor-parallel decode and the dry-run set) a DTensor argument is
+redistributed to the divisibility-checked spec, as the reference's
+``with_sharding_constraint``; a plain tensor is returned as it is.
 
-The meshed train step computes tensor-parallel on the ``model`` axis.  It
-gathers the parameters over the data axes only and hands the model each
-leaf's ``model``-axis shard as a DTensor on the 1-D ``model`` sub-mesh
-(``trainer.gather_model_shards``).  Activations are DTensors on that
-sub-mesh too: :func:`enter` makes a plain activation a ``Replicate()``
-one where the parameters it meets are DTensors, DTensor's matmul rules
-give column- then row-parallel products (the row-parallel output
-``Partial``), and ``constrain`` at the reference's points redistributes
-over the model axis alone (a ``"dp"`` entry names no axis of the
-sub-mesh).  :func:`local` turns a DTensor back into a plain tensor, whole.
-:func:`run_local` runs a block the port does not cut (the MoE FFN and the
-Mamba mixer) on plain tensors: its parameters gathered over the model
+The meshed train step, the dry-run's prefill and the tensor-parallel decode
+(``lm.serve_step``) compute tensor-parallel on the ``model`` axis.  The
+parameters are gathered over the data axes only and each leaf's
+``model``-axis shard is handed to the model as a DTensor on the 1-D
+``model`` sub-mesh (``trainer.gather_model_shards``); a decode cache's
+leaves are the rank's shards rewrapped there alike
+(``trainer.cache_model_shards``: K/V cut by kv heads or by positions, the
+RWKV state by heads, the Mamba state by ``d_inner``).  Activations are
+DTensors on that sub-mesh too: :func:`enter` makes a plain activation a
+``Replicate()`` one where the parameters it meets are DTensors, DTensor's
+matmul rules give column- then row-parallel products (the row-parallel
+output ``Partial``), and ``constrain`` at the reference's points
+redistributes over the model axis alone (a ``"dp"`` entry names no axis of
+the sub-mesh).  :func:`local` turns a DTensor back into a plain tensor,
+whole.  :func:`run_local` runs a block the port does not cut (the MoE FFN,
+and the Mamba mixer in training and in decode, its decode state gathered
+for the step) on plain tensors: its parameters gathered over the model
 axis, its compute repeated there.
 
 The port adds one reduction the reference leaves to GSPMD: when the train

@@ -29,7 +29,8 @@ import dataclasses
 import math
 from typing import Any
 
-from torch.distributed.tensor import Replicate, Shard
+from torch import Tensor
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from repro_torch.models.config import ModelConfig
 
@@ -297,6 +298,17 @@ class ShardingPolicy:
     def cache_sharding(self, cache) -> Any:
         return tree_map_with_path(lambda path, leaf: placements(
             self.mesh, self.cache_spec(keystr_path(path), _shape(leaf))), cache)
+
+    def distribute(self, tree, shardings) -> Any:
+        """Each tensor of ``tree`` as a DTensor on the mesh with its
+        placements in ``shardings`` (``params_sharding``'s or
+        ``cache_sharding``'s tree); each rank keeps its shard (on a mesh of
+        one, the tensor itself).  A host number as it is."""
+        if isinstance(tree, dict):
+            return {k: self.distribute(v, shardings[k]) for k, v in tree.items()}
+        if not isinstance(tree, Tensor):
+            return tree
+        return distribute_tensor(tree, self.mesh, shardings)
 
     def replicated(self) -> tuple:
         return placements(self.mesh, P())

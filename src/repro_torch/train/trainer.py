@@ -237,22 +237,6 @@ def _local_rows(policy: ShardingPolicy, rows: int) -> tuple[slice, tuple[str, ..
     return slice(idx * n, (idx + 1) * n), policy.axes.dp
 
 
-def gather_local(tree, mesh, axes=None):
-    """Every DTensor of ``tree`` gathered over the mesh axes ``axes`` (all of
-    them when None; a collective: every rank calls it), its placements on
-    the other axes kept, as plain local tensors; any other leaf as it is
-    (the dry-run's decode cells)."""
-    names = list(mesh_axis_sizes(mesh))
-
-    def one(x):
-        if not isinstance(x, DTensor):
-            return x
-        pls = [Replicate() if axes is None or n in axes else pl
-               for n, pl in zip(names, x.placements)]
-        return x.redistribute(mesh, pls).to_local()
-    return opt_lib.tree_map(one, tree)
-
-
 def gather_model_shards(tree, mesh, cut: tuple[str, ...] = ()):
     """Every DTensor of ``tree`` gathered over the data axes only, its
     ``model``-axis shard rewrapped as a DTensor on the 1-D model sub-mesh
@@ -261,7 +245,8 @@ def gather_model_shards(tree, mesh, cut: tuple[str, ...] = ()):
     policy cuts over the model axis by its block dimension (a dense FFN
     ``[nb, d, d_ff]``, which the reference's rule reads as stacked experts)
     is recut there as one block's weight is (``param_spec`` of its
-    ``[d, d_ff]``), so each block's product is tensor-parallel.  Gradients
+    ``[d, d_ff]``; an all-to-all over the model axis after the gather), so
+    each block's product is tensor-parallel.  Gradients
     flow back through ``to_local`` as ``Partial`` over the data axes in
     ``cut`` (the axes the batch is cut over) and in the model-axis
     placement used; the reduce-scatter back to the parameter's placements is
@@ -275,15 +260,70 @@ def gather_model_shards(tree, mesh, cut: tuple[str, ...] = ()):
         if not isinstance(x, DTensor):
             return x
         pl = x.placements[m]
-        if pl == Shard(0) and x.dim() >= 2 and path[0] in ("layers", "enc_layers"):
-            spec = policy.param_spec(keystr_path(path), tuple(x.shape[1:]))
-            pl = placements(mesh, P(None, *spec))[m]
         pls = [pl if i == m else Replicate() for i in range(len(names))]
         grad = [pl if i == m else Partial() if n in cut else Replicate()
                 for i, n in enumerate(names)]
         shard = x.redistribute(mesh, pls).to_local(grad_placements=grad)
+        if pl == Shard(0) and x.dim() >= 2 and path[0] in ("layers", "enc_layers"):
+            # recut after the gather over the data axes, on the model axis
+            # alone: DTensor would gather the whole leaf on the way
+            spec = policy.param_spec(keystr_path(path), tuple(x.shape[1:]))
+            pl = placements(mesh, P(None, *spec))[m]
+            if isinstance(pl, Shard):
+                if tp_mesh.size() > 1:      # one rank's shard is the leaf
+                    shard = _Recut.apply(shard, 0, pl.dim, tp_mesh.get_group())
+            else:
+                shard = DTensor.from_local(shard, tp_mesh, [Shard(0)], run_check=False
+                                           ).redistribute(tp_mesh, [pl]).to_local()
         return DTensor.from_local(shard, tp_mesh, [pl], run_check=False)
     return tree_map_with_path(one, tree)
+
+
+def _all_to_all(x: torch.Tensor, a: int, b: int, group) -> torch.Tensor:
+    """A rank's part of a tensor cut over ``group``'s n ranks by dimension
+    ``a`` → its part cut by dimension ``b`` instead: chunk ``j`` of ``x``
+    along ``b`` goes to rank ``j``, and what the ranks send back is joined
+    along ``a`` in rank order."""
+    n = dist.get_world_size(group)
+    send = torch.stack(x.chunk(n, dim=b))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=a)
+
+
+class _Recut(torch.autograd.Function):
+    """A shard moved from one cut dimension to another over a process group
+    (an all-to-all); the backward moves the gradient back."""
+
+    @staticmethod
+    def forward(ctx_, x, a: int, b: int, group):
+        ctx_.cut = (a, b, group)
+        return _all_to_all(x, a, b, group)
+
+    @staticmethod
+    def backward(ctx_, grad):
+        a, b, group = ctx_.cut
+        return _all_to_all(grad.contiguous(), b, a, group), None, None, None
+
+
+def cache_model_shards(cache: dict, mesh) -> dict:
+    """A decode cache placed on ``mesh`` by ``policy.cache_sharding`` (its
+    rows cut over the data axes where they divide the batch), each leaf's
+    local shard rewrapped as a DTensor on the 1-D model sub-mesh
+    (``mesh["model"]``) with its model-axis placement there: K/V cut by kv
+    heads or by positions, the RWKV state by heads, the Mamba state by
+    ``d_inner``, the rest whole.  No collective and no copy: the new leaves
+    share the shards' storage, so the tensor-parallel ``lm.serve_step``
+    updates the placed cache in place.  ``len`` and any other plain value
+    as it is, in a new dict."""
+    m = list(mesh_axis_sizes(mesh)).index("model")
+    tp_mesh = mesh["model"]
+
+    def one(x):
+        if not isinstance(x, DTensor):
+            return x
+        return DTensor.from_local(x.to_local(), tp_mesh, [x.placements[m]], run_check=False)
+    return opt_lib.tree_map(one, cache)
 
 
 def _leaf_reduce(mesh, placements: list, op):

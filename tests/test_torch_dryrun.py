@@ -21,7 +21,12 @@
   ``train_4k`` (2 layers by override) computes at most 1.15 × 1/16 of a
   world of one's FLOPs, its flash calls at 2 local q heads against 1 kv
   head; rwkv6-7b (1 layer, at full width over 64 tokens: its WKV6 plain
-  backward is a loop over T) likewise, its WKV6 calls at 4 of 64 heads."""
+  backward is a loop over T) likewise, its WKV6 calls at 4 of 64 heads;
+* the tensor-parallel decode on a fake (1, 16) world: a rank of llama3-8b's
+  ``decode_32k`` (1 layer) computes at most 1.25 × 1/16 of a world of one's
+  FLOPs, its cache cut by positions, and its peak stays below one whole
+  K leaf (no whole-cache buffer); rwkv6-7b's (1 layer) likewise, its WKV6
+  call at 4 of 64 heads with the carried state."""
 import json
 import sys
 
@@ -93,9 +98,10 @@ def test_collectives_equal_a_real_gloo_world_of_4():
                 for m in MESHES for a in COLL_ARCHS}
     assert json.loads(json.dumps(fake)) == real
     # the (2, 2) mesh cuts the batch: gathers, reduce-scatters and the
-    # batch sums' all-reduces all cross it
+    # batch sums' all-reduces all cross it; the dense FFN stacked over its
+    # 2 blocks, cut by block on the model axis, is recut there by all-to-all
     assert set(real[f"{(2, 2)}|llama3-8b"]) == {"all-gather", "reduce-scatter",
-                                                "all-reduce"}
+                                                "all-reduce", "all-to-all"}
     assert all(d["count"] > 0 and d["result_bytes"] > 0 for v in real.values()
                for d in v.values())
 
@@ -318,3 +324,31 @@ def test_model_axis_cuts_a_ranks_flops_sixteen_ways(arch, shape, local):
     calls = res[1]["kernels"][kernel]["calls"]
     assert res[16]["kernels"][kernel]["by_call"] == {key: calls}
     assert res[16]["kernels"][kernel]["flops"] * 16 == res[1]["kernels"][kernel]["flops"]
+
+
+# llama3-8b's K cache at decode_32k, one layer: 128 rows x 32768 positions x
+# 8 kv heads x 128, bfloat16
+WHOLE_K = 128 * 32768 * 8 * 128 * 2
+
+
+@pytest.mark.parametrize("arch,local,whole", [
+    ("llama3-8b", None, WHOLE_K),
+    ("rwkv6-7b", {"wkv6": "[128,1,4,64] bfloat16"}, None)], ids=["llama3-8b", "rwkv6-7b"])
+def test_tensor_parallel_decode_keeps_the_cache_cut(arch, local, whole):
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    res = {}
+    for world in (1, 16):
+        with dryrun.fake_world(world):
+            mesh = init_device_mesh("cpu", (1, world), mesh_dim_names=("data", "model"))
+            res[world] = dryrun.trace(cfg, SHAPES["decode_32k"], mesh)
+    assert res[16]["flops_per_device"] <= 1.25 * res[1]["flops_per_device"] / 16
+    if whole:
+        assert res[16]["memory"]["peak_bytes_est"] < whole
+    if local:
+        (kernel, key), = local.items()
+        assert res[16]["kernels"][kernel]["by_call"] == {key: res[1]["kernels"][kernel]["calls"]}
+        assert res[16]["kernels"][kernel]["flops"] * 16 == res[1]["kernels"][kernel]["flops"]
