@@ -156,7 +156,20 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   depth) in a fake process group of 16, traced by the dry-run first:
   argument bytes equal, WKV6 launches by call (4 of 64 heads, carried
   state) equal to the predicted calls, FLOPs within 1%, peak within 10%;
-  its ms a step and busy share, and WKV6 timed at that shape.
+  its ms a step and busy share, and WKV6 timed at that shape;
+* expert parallelism and the tensor-parallel Mamba (the MoE FFN cut by
+  experts or by each expert's d_ff, the Mamba mixer by d_inner): on the
+  (1, 1) NCCL mesh granite-moe-3b at full size decodes 16 steps and jamba
+  (one period-8 block, 4 of its 16 experts a MoE layer) as many, bit for
+  bit the unmeshed steps (logits and every cache leaf), and granite-moe at
+  4 of 32 layers takes one train step of 2 x 2048 bit for bit (loss, grad
+  norm, every leaf); then one rank of a 16-way model axis decoding at
+  ``decode_32k``'s local shapes (granite-moe and qwen2-moe at full depth,
+  jamba at one of 9 blocks with all 16 experts, each rank's shards drawn
+  alone) and one rank of a qwen2-moe train step (4 of 24 layers, 2 x
+  2048), each held to its dry-run (argument bytes equal, FLOPs within 1%,
+  peak within 10%, flash launches by call equal), its ms a step and busy
+  share, and the flash kernel timed at the rank's local heads.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -325,6 +338,17 @@ TP_DECODE = dict(layers=4, batch=4, max_seq=2048, steps=16, rwkv_prompt=64, worl
 # these (2.5751e11 and 66.06 GiB while the decode gathered the cache and the
 # tree whole: 1.25/16 of the first, and the card's tenth of the second)
 TP_DECODE_CELL = dict(flops=2.01e10, peak_gib=8)
+# expert parallelism and the tensor-parallel Mamba (phase 34): 34a on a (1, 1)
+# NCCL mesh against unmeshed, bit for bit, granite-moe at full size decoding
+# as 33a, jamba at one period-8 block with 4 of its 16 experts a MoE layer
+# (30.3 GiB: the placed and gathered copies of the mesh of one sit beside
+# the unmeshed weights, and phase 25's 12 experts, 66.3 GiB, leave no room
+# for them) decoding as many steps, and granite-moe at 4 of 32 layers taking
+# one train step of 2 x 2048; 34b one rank of 16 decoding as 33b (granite
+# and qwen2-moe at full depth, jamba at 1 of 9 blocks with all 16 experts);
+# 34c one rank of 16 of a qwen2-moe train step, 4 of 24 layers, 2 x 2048
+# (both train steps cut to train_layers)
+EP = dict(jamba_experts=4, train_layers=4, train_rows=2, train_seq=2048)
 DRILL = dict(fleet=8, epochs=40, every=10, kill_at=20, offline=200,
              offline_updates=20)
 
@@ -4191,42 +4215,55 @@ def check_meshed_compressed_vs_cpu(dev, mesh) -> dict:
 
 def run_meshed_train(dev, card: str, mesh) -> dict:
     """Phase 30b: phase 28c's llama3-8b (4 of 32 layers at every width,
-    bf16, 8 x 2048 in 4 microbatches) from the same seed, 2 steps unmeshed
-    then 2 steps with the state sharded by the policy on the mesh, each run
-    alone on the card (the first freed before the second is drawn), under
-    ``fixed_order_sums()``: loss, gradient norm and every leaf of the
-    parameters and both moments after each step equal bit for bit (leaves
-    by ``leaf_digest``); each step's ms, each run's peak GiB, the flash
-    launches of each step by shape."""
+    bf16, 8 x 2048 in 4 microbatches), ``MESH_TRAIN["steps"]`` steps
+    (``train_on_mesh_of_one``)."""
     import dataclasses
 
-    import torch.distributed as dist
-
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import DataConfig, batch_at
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.sharding.policy import ShardingPolicy
     from repro_torch.train import trainer
 
     T = TRAIN
     cfg = dataclasses.replace(get_config(T["arch"]), num_layers=T["layers"])
     setup = trainer.TrainSetup(micro_batches=T["micro"], learning_rate=T["lr"],
                                warmup_steps=T["warmup"], total_steps=T["warmup"] + T["timed"])
-    data = DataConfig(cfg.vocab_size, T["seq"], T["batch"], seed=T["seed"])
-    shape = f"{T['seq']}x{T['seq']} causal bfloat16"
-    want = {shape: cfg.num_layers * T["micro"] * 2}
+    return train_on_mesh_of_one(dev, card, mesh, "30b", cfg, setup, T["batch"], T["seq"],
+                                MESH_TRAIN["steps"])
+
+
+def train_on_mesh_of_one(dev, card: str, mesh, phase: str, cfg, setup, rows: int, seq: int,
+                         steps: int) -> dict:
+    """One case of phases 30b and 34a: ``cfg`` (bf16) from the seed
+    ``TRAIN["seed"]``, ``steps`` steps of ``rows`` x ``seq`` token batches
+    unmeshed then as many with the state sharded by the policy on the mesh,
+    each run alone on the card (the first freed before the second is
+    drawn), under ``fixed_order_sums()``: loss, gradient norm and every leaf
+    of the parameters and both moments after each step equal bit for bit
+    (leaves by ``leaf_digest``); each step's ms, each run's peak GiB, the
+    flash launches of each step by shape (a forward and a recompute a layer
+    and microbatch)."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.sharding.policy import ShardingPolicy
+    from repro_torch.train import trainer
+
+    data = DataConfig(cfg.vocab_size, seq, rows, seed=TRAIN["seed"])
+    shape = f"{seq}x{seq} causal bfloat16"
+    attn = sum(mixer == "attn" for mixer, _ in cfg.block_program()) * cfg.num_blocks
+    want = {shape: attn * setup.micro_batches * 2}
     runs = {}
     for meshed in (False, True):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state = trainer.init_train_state(cfg, setup, torch.Generator(device=dev).manual_seed(
-            T["seed"]), dev)
+            TRAIN["seed"]), dev)
         if meshed:
             state = trainer.shard_train_state(state, ShardingPolicy(mesh, cfg))
         step = trainer.make_train_step(cfg, setup, mesh if meshed else None)
         out = []
         with fixed_order_sums():
-            for i in range(MESH_TRAIN["steps"]):
+            for i in range(steps):
                 batch = {k: v.to(dev) for k, v in batch_at(data, i).items()}
                 fa_ops.LAUNCHES_BY_SHAPE.clear()
                 torch.cuda.synchronize()
@@ -4236,7 +4273,7 @@ def run_meshed_train(dev, card: str, mesh) -> dict:
                 dt = time.perf_counter() - t0
                 got = dict(fa_ops.LAUNCHES_BY_SHAPE)
                 if got != want:
-                    raise AssertionError(f"phase 30b step {i} (meshed {meshed}): flash "
+                    raise AssertionError(f"phase {phase} step {i} (meshed {meshed}): flash "
                                          f"launches {got}, expected {want}")
                 local = (lambda x: x.to_local()) if meshed else (lambda x: x)  # noqa: E731
                 digests = [leaf_digest(local(x)) for tree in (
@@ -4248,20 +4285,21 @@ def run_meshed_train(dev, card: str, mesh) -> dict:
     plain, sharded = runs[False], runs[True]
     for i, (a, b) in enumerate(zip(plain["steps"], sharded["steps"])):
         if not np.isfinite(a["loss"]):
-            raise AssertionError(f"phase 30b: step {i} loss {a['loss']}")
+            raise AssertionError(f"phase {phase}: step {i} loss {a['loss']}")
         if (a["loss"], a["gnorm"]) != (b["loss"], b["gnorm"]):
-            raise AssertionError(f"phase 30b step {i}: meshed loss, grad norm "
+            raise AssertionError(f"phase {phase} step {i}: meshed loss, grad norm "
                                  f"{b['loss']}, {b['gnorm']} against {a['loss']}, "
                                  f"{a['gnorm']}")
         off = sum(x != y for x, y in zip(a["digests"], b["digests"]))
         if off:
-            raise AssertionError(f"phase 30b step {i}: {off} of {len(a['digests'])} "
+            raise AssertionError(f"phase {phase} step {i}: {off} of {len(a['digests'])} "
                                  "leaves differ from the unmeshed step's bits")
     launches = sum(x["launches"] for x in sharded["steps"])
-    log(f"phase 30b llama3-8b training on the mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
-        f"({dist.get_backend()}, world {dist.get_world_size()}; {card}), {cfg.num_layers} "
-        f"of 32 layers at every width, bf16, batch {T['batch']} x {T['seq']} in "
-        f"{T['micro']} microbatches, {MESH_TRAIN['steps']} steps from seed {T['seed']}: "
+    log(f"phase {phase} {cfg.name} training on the mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({dist.get_backend()}, world "
+        f"{dist.get_world_size()}; {card}), {cfg.num_layers} of "
+        f"{get_config_layers(cfg.name)} layers at every width, bf16, batch {rows} x {seq} in "
+        f"{setup.micro_batches} microbatches, {steps} steps from seed {TRAIN['seed']}: "
         f"loss, grad norm and all {len(plain['steps'][0]['digests'])} leaves of params, "
         "mu and nu equal to the unmeshed steps bit for bit; ms a step unmeshed "
         + ", ".join(f"{x['ms']:.3f}" for x in plain["steps"])
@@ -4364,38 +4402,50 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
 
 
 def run_tp_rank(dev, card: str) -> dict:
-    """Phase 32: one rank of a 16-way model axis on the card.  Phase 28c's
-    llama3-8b (4 of 32 layers at every width, bf16, 8 x 2048 in 4
-    microbatches) is first traced by the dry-run on ``meta`` tensors in a
-    fake process group of 16 ranks, mesh (1, 16); then the same rank runs
-    for real on the card in a fake process group of 16 (the dry-run's
+    """Phase 32: phase 28c's llama3-8b (4 of 32 layers at every width,
+    bf16, 8 x 2048 in 4 microbatches) as one rank of a 16-way model axis
+    (``train_rank_case``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import trainer
+
+    T = TRAIN
+    cfg = dataclasses.replace(get_config(T["arch"]), num_layers=T["layers"])
+    setup = trainer.TrainSetup(micro_batches=T["micro"], learning_rate=T["lr"],
+                               warmup_steps=T["warmup"], total_steps=T["warmup"] + T["timed"])
+    return train_rank_case(dev, card, "32", cfg, setup, T["batch"], T["seq"])
+
+
+def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int) -> dict:
+    """One case of phases 32 and 34c: one rank of a 16-way model axis on the
+    card, training ``cfg`` (bf16) on ``rows`` x ``seq`` token batches.  The
+    step is first traced by the dry-run on ``meta`` tensors in a fake
+    process group of 16 ranks, mesh (1, 16); then the same rank runs for
+    real on the card in a fake process group of 16 (the dry-run's
     ``"fake"`` backend) over a ``cuda`` mesh (1, 16): its tensors and kernel
     launches are real, at the rank's local shapes, and its collectives
     return at once without data.  So this measures a rank's compute time
     and memory under tensor parallelism, not its values, and checks no
     loss.  A first step from a fresh state, after
     ``reset_peak_memory_stats``, under the dry-run's counter: argument
-    bytes equal, flash launches by call equal to the predicted calls, FLOPs
-    within 1%, the predicted peak within 10% of ``max_memory_allocated``
-    less what was allocated before the state; then ``TP_RANK["steps"]``
-    steps timed and as many profiled (the device's busy share)."""
-    import dataclasses
-
-    import torch.distributed as dist
+    bytes equal, flash launches by call equal to the predicted calls (all
+    at the rank's q heads against one kv head), FLOPs within 1%, the
+    predicted peak within 10% of ``max_memory_allocated`` less what was
+    allocated before the state; then ``TP_RANK["steps"]`` steps timed and
+    as many profiled (the device's busy share), and the flash kernel timed
+    at the rank's local shape."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.configs import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import dryrun
     from repro_torch.sharding.policy import ShardingPolicy
     from repro_torch.train import trainer
 
-    T, n = TRAIN, TP_RANK["world"]
-    cfg = dataclasses.replace(get_config(T["arch"]), num_layers=T["layers"])
-    setup = trainer.TrainSetup(micro_batches=T["micro"], learning_rate=T["lr"],
-                               warmup_steps=T["warmup"], total_steps=T["warmup"] + T["timed"])
-    shape = ShapeSpec("train_4k", T["seq"], T["batch"], "train")
+    n = TP_RANK["world"]
+    shape = ShapeSpec("train_4k", seq, rows, "train")
     names = ("data", "model")
     with dryrun.fake_world(n):
         pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", (1, n), mesh_dim_names=names),
@@ -4406,9 +4456,9 @@ def run_tp_rank(dev, card: str) -> dict:
     with dryrun.fake_world(n):
         mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=names)
         state = trainer.init_train_state(cfg, setup, torch.Generator(device=dev).manual_seed(
-            T["seed"]), dev)
+            TRAIN["seed"]), dev)
         state = trainer.shard_train_state(state, ShardingPolicy(mesh, cfg))
-        data = DataConfig(cfg.vocab_size, T["seq"], T["batch"], seed=T["seed"])
+        data = DataConfig(cfg.vocab_size, seq, rows, seed=TRAIN["seed"])
         batch = {k: v.to(dev) for k, v in batch_at(data, 0).items()}
         args_bytes = dryrun.local_bytes(state) + dryrun.local_bytes(batch)
         step = trainer.make_train_step(cfg, setup, mesh)
@@ -4429,32 +4479,31 @@ def run_tp_rank(dev, card: str) -> dict:
             nonlocal state
             state, _ = step(state, batch)
         fa_ops.LAUNCHES_BY_CALL.clear()
-        prof = busy_share(run, TP_RANK["steps"], "phase 32 rank step")
+        prof = busy_share(run, TP_RANK["steps"], f"phase {phase} rank step")
         timed = dict(fa_ops.LAUNCHES_BY_CALL)
         del state, step, batch
     torch.cuda.empty_cache()
-    B = T["batch"] // T["micro"]
+    B = rows // setup.micro_batches
     heads = cfg.num_heads // n
-    key = fa_ops.call_key(B, T["seq"], T["seq"], heads, 1, cfg.head_dim, True, torch.bfloat16)
-    flash = fa_ops.flops(B, T["seq"], T["seq"], heads, cfg.head_dim, True)
+    key = fa_ops.call_key(B, seq, seq, heads, 1, cfg.head_dim, True, torch.bfloat16)
+    flash = fa_ops.flops(B, seq, seq, heads, cfg.head_dim, True)
     card_flops = counter.flops + sum(launches.values()) * flash
     calls = pred["kernels"].get("flash_attention", {}).get("by_call", {})
     mem = pred["memory"]
     flop_off = abs(pred["flops_per_device"] - card_flops) / card_flops
     peak_off = abs(mem["peak_bytes_est"] - peak) / peak
-    log(f"phase 32 one rank of a 16-way model axis ({card}): llama3-8b, {cfg.num_layers} of "
-        f"32 layers at every width, bf16, batch {T['batch']} x {T['seq']} in {T['micro']} "
-        f"microbatches, rank 0 of a fake process group of {n} on the mesh (1, {n}): its "
-        "tensors and kernel launches are real at the rank's local shapes, its collectives "
-        "return at once without data, so this is a rank's compute time and memory under "
-        f"tensor parallelism, not its values (no loss is checked); "
-        f"{prof['wall_ms']:.3f} ms a step ({TP_RANK['steps']} steps; device busy "
-        f"{prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = {prof['busy']:.1%} of the "
-        f"wall), the counted first step {counted_ms:.3f} ms; peak {peak / 2**30:.3f} GiB "
-        f"max_memory_allocated less the {base / 2**30:.3f} GiB allocated before the state; "
-        f"flash launches by call {launches} in the counted step, {timed} in the "
-        f"{2 * TP_RANK['steps']} timed and profiled; against phase 28c's unmeshed "
-        "1090.3-1092.6 ms and 53.67-56.08 GiB (PERF.md section 5).  The dry-run of "
+    log(f"phase {phase} one rank of a 16-way model axis ({card}): {cfg.name}, "
+        f"{cfg.num_layers} of {get_config_layers(cfg.name)} layers at every width, bf16, "
+        f"batch {rows} x {seq} in {setup.micro_batches} microbatches, rank 0 of a fake "
+        f"process group of {n} on the mesh (1, {n}): its tensors and kernel launches are "
+        "real at the rank's local shapes, its collectives return at once without data, so "
+        "this is a rank's compute time and memory under tensor parallelism, not its values "
+        f"(no loss is checked); {prof['wall_ms']:.3f} ms a step ({TP_RANK['steps']} steps; "
+        f"device busy {prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = "
+        f"{prof['busy']:.1%} of the wall), the counted first step {counted_ms:.3f} ms; peak "
+        f"{peak / 2**30:.3f} GiB max_memory_allocated less the {base / 2**30:.3f} GiB "
+        f"allocated before the state; flash launches by call {launches} in the counted "
+        f"step, {timed} in the {2 * TP_RANK['steps']} timed and profiled.  The dry-run of "
         f"the same rank, traced in {pred['trace_s']:.1f} s: argument bytes "
         f"{mem['argument_bytes']} predicted, {args_bytes} held; flash calls {calls} "
         f"predicted; FLOPs {pred['flops_per_device']:.6e} predicted, {card_flops:.6e} "
@@ -4462,32 +4511,51 @@ def run_tp_rank(dev, card: str) -> dict:
         f"kernel), off by {flop_off:.3%}; peak {mem['peak_bytes_est'] / 2**30:.3f} GiB "
         f"predicted, off by {peak_off:.2%}")
     if mem["argument_bytes"] != args_bytes:
-        raise AssertionError(f"phase 32: argument bytes {mem['argument_bytes']} predicted, "
-                             f"{args_bytes} on the card")
+        raise AssertionError(f"phase {phase}: argument bytes {mem['argument_bytes']} "
+                             f"predicted, {args_bytes} on the card")
     if calls != launches or set(launches) != {key}:
-        raise AssertionError(f"phase 32: flash calls {calls} predicted, launches {launches}, "
-                             f"expected all at {key}")
+        raise AssertionError(f"phase {phase}: flash calls {calls} predicted, launches "
+                             f"{launches}, expected all at {key}")
     if flop_off > 0.01:
-        raise AssertionError(f"phase 32: FLOPs off by {flop_off:.3%} (bound 1%)")
+        raise AssertionError(f"phase {phase}: FLOPs off by {flop_off:.3%} (bound 1%)")
     if peak_off > 0.10:
-        raise AssertionError(f"phase 32: the predicted peak is off by {peak_off:.2%} "
+        raise AssertionError(f"phase {phase}: the predicted peak is off by {peak_off:.2%} "
                              "(bound 10%)")
-    gen = torch.Generator(device=dev).manual_seed(32)
-    timing = time_flash_shape(dev, gen, "phase 32 flash at the rank's local shape", heads, 1,
-                              cfg.head_dim, S=T["seq"], B=B)
+    gen = torch.Generator(device=dev).manual_seed(int(phase[:2]))
+    timing = time_flash_shape(dev, gen, f"phase {phase} flash at the rank's local shape",
+                              heads, 1, cfg.head_dim, S=seq, B=B)
     return dict(launches=sum(launches.values()) + sum(timed.values()), timing=timing,
                 ms=prof["wall_ms"], peak=peak, busy=prof["busy"], pred=pred)
 
 
-def decode_lm(dev, arch: str, layers: int):
-    """(config at ``layers`` of ``arch``'s layers at full width, bf16; its
-    seeded parameters on the card, an RWKV config's bonus u seeded too)."""
+def run_ep_train_rank(dev, card: str) -> dict:
+    """Phase 34c: qwen2-moe at ``EP["train_layers"]`` of its 24 layers
+    (every width; its 60 experts and shared experts cut by d_ff, its 16
+    heads by heads: one a rank) as one rank of a 16-way model axis, a
+    batch of ``EP["train_rows"]`` x ``EP["train_seq"]`` tokens in one
+    microbatch (``train_rank_case``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import trainer
+
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=EP["train_layers"])
+    setup = trainer.TrainSetup(micro_batches=1, learning_rate=TRAIN["lr"],
+                               warmup_steps=TRAIN["warmup"],
+                               total_steps=TRAIN["warmup"] + TRAIN["timed"])
+    return train_rank_case(dev, card, "34c", cfg, setup, EP["train_rows"], EP["train_seq"])
+
+
+def decode_lm(dev, arch: str, layers: int, **over):
+    """(config at ``layers`` of ``arch``'s layers at full width, bf16, with
+    the overrides ``over``; its seeded parameters on the card, an RWKV
+    config's bonus u seeded too)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), **{"num_layers": layers, **over})
     gen = torch.Generator(device=dev).manual_seed(33)
     params = lm.init_params(cfg, gen, dev)
     if cfg.family == "ssm":
@@ -4496,21 +4564,22 @@ def decode_lm(dev, arch: str, layers: int):
     return cfg, params
 
 
-def run_tp_decode_one(dev, card: str) -> dict:
-    """Phase 33a: the tensor-parallel decode on ``make_production_mesh()``
-    (NCCL, a world of one: a (1, 1) mesh).  llama3-8b and rwkv6-7b, 4 of 32
-    layers at full width, bf16, batch 4, a cache of 2048 positions: llama's
-    filled by ``prefill_forward`` over its first 2032 (its K/V taps), rwkv's
-    states by a 64-token prompt stepped through the unmeshed step.  Then
-    16 greedy steps from copies of that cache, unmeshed and meshed (the
-    parameters placed by the policy and ``gather_model_shards``, the cache
+def decode_on_mesh_of_one(dev, card: str, mesh, phase: str, arch: str, layers: int,
+                          over: dict | None = None) -> dict:
+    """One case of phases 33a and 34a: ``arch`` at ``layers`` layers (full
+    width, bf16, the config overrides ``over``), batch ``TP_DECODE["batch"]``,
+    a cache of ``TP_DECODE["max_seq"]`` positions filled by
+    ``prefill_forward`` over all but the last ``TP_DECODE["steps"]`` of them
+    (an attention-only stack), else by a ``TP_DECODE["rwkv_prompt"]``-token
+    prompt stepped through the unmeshed step (its RWKV or Mamba states).
+    Then ``TP_DECODE["steps"]`` greedy steps from copies of that cache,
+    unmeshed and on the (1, 1) ``mesh`` (the parameters placed by the policy
+    and ``gather_model_shards``, the unmeshed copy freed first; the cache
     placed and ``cache_model_shards``), under ``fixed_order_sums()``: the
     logits of every step and every cache leaf after the last bit for bit
-    equal, and the meshed run's WKV6 launches counted by call."""
-    import torch.distributed as dist
-
+    equal; the meshed run's WKV6 launches by call, one a layer and step for
+    an RWKV stack, none otherwise."""
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
-    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import lm
     from repro_torch.sharding import ctx
     from repro_torch.sharding.policy import ShardingPolicy
@@ -4518,107 +4587,151 @@ def run_tp_decode_one(dev, card: str) -> dict:
 
     T = TP_DECODE
     B, S, N = T["batch"], T["max_seq"], T["steps"]
-    out = {}
+    torch.cuda.empty_cache()
+    cfg, params = decode_lm(dev, arch, layers, **(over or {}))
+    step = lm.serve_step(cfg)
+    gen = torch.Generator(device=dev).manual_seed(330)
+    cache = lm.init_cache(cfg, B, S, dev)
+    if any(mixer != "attn" for mixer, _ in cfg.block_program()):
+        prompt = torch.randint(1, cfg.vocab_size, (B, T["rwkv_prompt"]), generator=gen,
+                               device=dev, dtype=torch.int32)
+        for t in range(prompt.shape[1]):
+            logits, cache = step(params, cache, prompt[:, t:t + 1])
+    else:
+        P = S - N
+        prompt = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device=dev,
+                               dtype=torch.int32)
+        logits, taps = lm.prefill_forward(cfg)(params, {"tokens": prompt})
+        for name, kv in taps.items():
+            for kk, rows in kv.items():
+                cache[name][kk][:, :, :P].copy_(rows)
+        cache["len"] = P
+        del taps
+    first = logits.argmax(-1, keepdim=True).to(torch.int32)
+    policy = ShardingPolicy(mesh, cfg)
+    copy = _tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, cache)
+    start = copy["len"]
+    runs = {}
+    with fixed_order_sums():
+        tok, got = first, []
+        for _ in range(N):
+            logits, cache = step(params, cache, tok)
+            got.append(logits)
+            tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        runs[False] = got
+        placed = policy.distribute(params, policy.params_sharding(params))
+        del params                      # the card holds two copies, not three
+        torch.cuda.empty_cache()
+        tp_params = trainer.gather_model_shards(placed, mesh)
+        del placed
+        tp_cache = trainer.cache_model_shards(
+            policy.distribute(copy, policy.cache_sharding(copy)), mesh)
+        del copy
+        wkv_ops.LAUNCHES_BY_CALL.clear()
+        tok, got = first, []
+        with ctx.use_mesh(mesh):
+            for _ in range(N):
+                logits, tp_cache = step(tp_params, tp_cache, tok)
+                got.append(logits)
+                tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        runs[True] = got
+        launches = dict(wkv_ops.LAUNCHES_BY_CALL)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(runs[False], runs[True]))
+    leaves = [(path, a, b) for (path, a), (_, b) in zip(_named_leaves(cache),
+                                                        _named_leaves(tp_cache))]
+    differ = [path for path, a, b in leaves if isinstance(a, torch.Tensor)
+              and not torch.equal(a, b.to_local())]
+    full = get_config_layers(arch)
+    cut = f"{cfg.num_layers} of {full} layers" + (
+        f", {cfg.num_experts} of its experts a MoE layer" if over and "num_experts" in over
+        else "")
+    log(f"phase {phase} {arch} ({card}): {cut}, bf16, batch {B}, a cache of {S} positions "
+        f"from len {start}, {N} greedy steps unmeshed and on the (1, 1) mesh: logits "
+        f"{'bit for bit' if same else 'DIFFER'}, {len(leaves) - len(differ)} of "
+        f"{len(leaves)} cache leaves bit for bit, len {cache['len']} and {tp_cache['len']}; "
+        f"WKV6 launches by call on the mesh {launches}")
+    if not same or differ or cache["len"] != tp_cache["len"]:
+        raise AssertionError(f"phase {phase} {arch}: the meshed decode differs from the "
+                             f"unmeshed (logits equal: {same}; leaves {differ})")
+    want = ({wkv_ops.call_key(B, 1, cfg.rwkv_heads, cfg.rwkv_head_size,
+                              torch.bfloat16): N * cfg.num_layers}
+            if cfg.family == "ssm" else {})
+    if launches != want:
+        raise AssertionError(f"phase {phase} {arch}: WKV6 launches {launches}, expected "
+                             f"{want}")
+    del cache, tp_params, tp_cache, runs
+    torch.cuda.empty_cache()
+    return dict(launches=sum(launches.values()))
+
+
+def get_config_layers(arch: str) -> int:
+    from repro_torch.configs import get_config
+    return get_config(arch).num_layers
+
+
+def run_tp_decode_one(dev, card: str) -> dict:
+    """Phase 33a: the tensor-parallel decode on ``make_production_mesh()``
+    (NCCL, a world of one: a (1, 1) mesh), llama3-8b and rwkv6-7b at 4 of
+    32 layers (``decode_on_mesh_of_one``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+
     mesh = make_production_mesh()
     try:
-        for arch in ("llama3-8b", "rwkv6-7b"):
-            torch.cuda.empty_cache()
-            cfg, params = decode_lm(dev, arch, T["layers"])
-            step = lm.serve_step(cfg)
-            gen = torch.Generator(device=dev).manual_seed(330)
-            cache = lm.init_cache(cfg, B, S, dev)
-            if cfg.family == "ssm":
-                prompt = torch.randint(1, cfg.vocab_size, (B, T["rwkv_prompt"]),
-                                       generator=gen, device=dev, dtype=torch.int32)
-                for t in range(prompt.shape[1]):
-                    logits, cache = step(params, cache, prompt[:, t:t + 1])
-            else:
-                P = S - N
-                prompt = torch.randint(1, cfg.vocab_size, (B, P), generator=gen, device=dev,
-                                       dtype=torch.int32)
-                logits, taps = lm.prefill_forward(cfg)(params, {"tokens": prompt})
-                for name, kv in taps.items():
-                    for kk, rows in kv.items():
-                        cache[name][kk][:, :, :P].copy_(rows)
-                cache["len"] = P
-                del taps
-            first = logits.argmax(-1, keepdim=True).to(torch.int32)
-            policy = ShardingPolicy(mesh, cfg)
-            copy = _tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, cache)
-            runs = {}
-            with fixed_order_sums():
-                tok, got = first, []
-                for _ in range(N):
-                    logits, cache = step(params, cache, tok)
-                    got.append(logits)
-                    tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-                runs[False] = got
-                tp_params = trainer.gather_model_shards(
-                    policy.distribute(params, policy.params_sharding(params)), mesh)
-                tp_cache = trainer.cache_model_shards(
-                    policy.distribute(copy, policy.cache_sharding(copy)), mesh)
-                wkv_ops.LAUNCHES_BY_CALL.clear()
-                tok, got = first, []
-                with ctx.use_mesh(mesh):
-                    for _ in range(N):
-                        logits, tp_cache = step(tp_params, tp_cache, tok)
-                        got.append(logits)
-                        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
-                runs[True] = got
-                launches = dict(wkv_ops.LAUNCHES_BY_CALL)
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(runs[False], runs[True]))
-            leaves = [(path, a, b) for (path, a), (_, b) in zip(_named_leaves(cache),
-                                                                _named_leaves(tp_cache))]
-            differ = [path for path, a, b in leaves if isinstance(a, torch.Tensor)
-                      and not torch.equal(a, b.to_local())]
-            log(f"phase 33a {arch} ({card}): {cfg.num_layers} of 32 layers, bf16, batch {B}, "
-                f"a cache of {S} positions from len {copy['len']}, {N} greedy steps "
-                f"unmeshed and on the (1, 1) mesh: logits "
-                f"{'bit for bit' if same else 'DIFFER'}, {len(leaves) - len(differ)} of "
-                f"{len(leaves)} cache leaves bit for bit, len {cache['len']} and "
-                f"{tp_cache['len']}; WKV6 launches by call on the mesh {launches}")
-            if not same or differ or cache["len"] != tp_cache["len"]:
-                raise AssertionError(f"phase 33a {arch}: the meshed decode differs from "
-                                     f"the unmeshed (logits equal: {same}; leaves {differ})")
-            want = ({wkv_ops.call_key(B, 1, cfg.rwkv_heads, cfg.rwkv_head_size,
-                                      torch.bfloat16): N * cfg.num_layers}
-                    if cfg.family == "ssm" else {})
-            if launches != want:
-                raise AssertionError(f"phase 33a {arch}: WKV6 launches {launches}, "
-                                     f"expected {want}")
-            out[arch] = dict(launches=sum(launches.values()))
-            del params, cache, copy, tp_params, tp_cache, runs
+        return {arch: decode_on_mesh_of_one(dev, card, mesh, "33a", arch,
+                                            TP_DECODE["layers"])
+                for arch in ("llama3-8b", "rwkv6-7b")}
     finally:
         dist.destroy_process_group()
-    torch.cuda.empty_cache()
-    return out
 
 
-def run_tp_decode_rank(dev, card: str) -> dict:
-    """Phase 33b: one rank of a 16-way model axis decoding at ``decode_32k``'s
-    local shapes (8 rows, a cache of 32768 positions cut by positions for
-    llama3-8b, 2048 a rank, and by heads for rwkv6-7b, 4 of 64), at full
-    depth, bf16.  Each is first traced by the dry-run on ``meta`` tensors in
-    a fake process group of 16 (mesh (1, 16)); then the same rank runs on
+def rank_shards(dev, cfg, policy, seed: int) -> dict:
+    """``cfg``'s parameters placed by ``policy`` with each rank's shard
+    drawn at its local shape on the card (``randn`` at 0.02, seeded), the
+    whole tree never made (a jamba block with all 16 experts would take
+    84.3 GiB).  The values are not the init's; in a fake process group
+    none is read back."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import lm
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    meta = lm.init_params(cfg, None, "meta")
+
+    def draw(x):
+        local = torch.randn(x.to_local().shape, generator=gen, device=dev).mul_(0.02)
+        return DTensor.from_local(local.to(x.dtype), x.device_mesh, x.placements,
+                                  run_check=False)
+    return _tree_map(draw, policy.distribute(meta, policy.params_sharding(meta)))
+
+
+def decode_rank_case(dev, card: str, phase: str, arch: str, over: dict | None = None) -> dict:
+    """One case of phases 33b and 34b: one rank of a 16-way model axis
+    decoding at ``decode_32k``'s local shapes (``TP_DECODE["rows"]`` rows, a
+    cache of ``TP_DECODE["seq"]`` positions), bf16, ``arch``'s config with
+    the overrides ``over``.  First traced by the dry-run on ``meta`` tensors
+    in a fake process group of 16 (mesh (1, 16)); then the same rank runs on
     the card as rank 0 of a fake process group of 16 over a ``cuda`` mesh
     (1, 16): real tensors and launches at the rank's shapes, collectives
-    that return at once without data (so no value is checked).  The
-    parameters are drawn whole, placed by the policy and the whole freed;
-    the cache is made at its local shapes.  A first step (the parameters'
-    and the cache's rewrap included, as the dry-run traces it) from len 0,
-    after ``reset_peak_memory_stats``, under the dry-run's counter:
-    argument bytes equal, WKV6 launches by call equal to the predicted
-    calls, FLOPs within 1%, the predicted peak within 10% of
+    that return at once without data (so no value is checked).  Only the
+    rank's shards of the parameters are drawn (``rank_shards``) and of the
+    cache made, at their local shapes.  A first step (the parameters' and the
+    cache's rewrap included, as the dry-run traces it) from len 0, after
+    ``reset_peak_memory_stats``, under the dry-run's counter: argument bytes
+    equal, WKV6 launches by call equal to the predicted calls (none but an
+    RWKV stack's), FLOPs within 1%, the predicted peak within 10% of
     ``max_memory_allocated`` less what was allocated before; then
     ``TP_DECODE["timed"]`` steps on the rewrapped tree timed and as many
     profiled (the device's busy share)."""
+    import dataclasses
+
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
-    from repro_torch.kernels.rwkv6_scan import wkv6_ref
     from repro_torch.launch import dryrun
     from repro_torch.models import lm
     from repro_torch.sharding import ctx
@@ -4628,97 +4741,119 @@ def run_tp_decode_rank(dev, card: str) -> dict:
     T, n = TP_DECODE, TP_DECODE["world"]
     names = ("data", "model")
     shape = ShapeSpec("decode_32k", T["seq"], T["rows"], "decode")
-    out = {}
-    for arch in ("llama3-8b", "rwkv6-7b"):
-        cfg = get_config(arch)
-        with dryrun.fake_world(n):
-            pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", (1, n), mesh_dim_names=names))
-        torch.cuda.empty_cache()
-        base = torch.cuda.memory_allocated()
-        with dryrun.fake_world(n):
-            mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=names)
-            policy = ShardingPolicy(mesh, cfg)
-            _, whole = decode_lm(dev, arch, cfg.num_layers)
-            params = policy.distribute(whole, policy.params_sharding(whole))
-            del whole
-            torch.cuda.empty_cache()
-            meta = lm.init_cache(cfg, T["rows"], T["seq"], "meta")
-            # the rank's shards made at their local shapes: the whole cache
-            # (2 x 32 GB for llama3-8b) is not drawn
-            cache = _tree_map(lambda x: DTensor.from_local(
-                torch.zeros_like(x.to_local(), device=dev), mesh, x.placements,
-                run_check=False) if isinstance(x, DTensor) else x,
-                policy.distribute(meta, policy.cache_sharding(meta)))
-            tokens = torch.randint(1, cfg.vocab_size, (T["rows"], 1), device=dev,
-                                   generator=torch.Generator(device=dev).manual_seed(331),
-                                   dtype=torch.int32)
-            args_bytes = dryrun.local_bytes((params, cache)) + dryrun.local_bytes(tokens)
-            step = lm.serve_step(cfg)
-            wkv_ops.LAUNCHES_BY_CALL.clear()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            counter = dryrun.StepCounter()
-            t0 = time.perf_counter()
-            with counter, ctx.use_mesh(mesh):
-                tp_params = trainer.gather_model_shards(params, mesh)
-                logits, tp_cache = step(tp_params, trainer.cache_model_shards(cache, mesh),
-                                        tokens)
-            torch.cuda.synchronize()
-            counted_ms = 1e3 * (time.perf_counter() - t0)
-            peak = torch.cuda.max_memory_allocated() - base
-            launches = dict(wkv_ops.LAUNCHES_BY_CALL)
+    cfg = dataclasses.replace(get_config(arch), **(over or {}))
+    with dryrun.fake_world(n):
+        pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", (1, n), mesh_dim_names=names))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    with dryrun.fake_world(n):
+        mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=names)
+        policy = ShardingPolicy(mesh, cfg)
+        params = rank_shards(dev, cfg, policy, int(phase[:2]))
+        meta = lm.init_cache(cfg, T["rows"], T["seq"], "meta")
+        # the rank's shards made at their local shapes: the whole cache
+        # (2 x 32 GB for llama3-8b) is not drawn
+        cache = _tree_map(lambda x: DTensor.from_local(
+            torch.zeros_like(x.to_local(), device=dev), mesh, x.placements,
+            run_check=False) if isinstance(x, DTensor) else x,
+            policy.distribute(meta, policy.cache_sharding(meta)))
+        tokens = torch.randint(1, cfg.vocab_size, (T["rows"], 1), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(331),
+                               dtype=torch.int32)
+        args_bytes = dryrun.local_bytes((params, cache)) + dryrun.local_bytes(tokens)
+        step = lm.serve_step(cfg)
+        wkv_ops.LAUNCHES_BY_CALL.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counter = dryrun.StepCounter()
+        t0 = time.perf_counter()
+        with counter, ctx.use_mesh(mesh):
+            tp_params = trainer.gather_model_shards(params, mesh)
+            logits, tp_cache = step(tp_params, trainer.cache_model_shards(cache, mesh),
+                                    tokens)
+        torch.cuda.synchronize()
+        counted_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = dict(wkv_ops.LAUNCHES_BY_CALL)
 
-            def run():
-                nonlocal logits
-                with ctx.use_mesh(mesh):
-                    logits, _ = step(tp_params, tp_cache, tokens)
-            wkv_ops.LAUNCHES_BY_CALL.clear()
-            prof = busy_share(run, T["timed"], f"phase 33b {arch} rank step")
-            timed = dict(wkv_ops.LAUNCHES_BY_CALL)
-            if logits.shape != (T["rows"], cfg.vocab_size):
-                raise AssertionError(f"phase 33b {arch}: logits {tuple(logits.shape)}, not "
-                                     "[rows, V] (their values are not the rank's: the fake "
-                                     "group's collectives carry no data)")
-            del params, cache, tp_params, tp_cache, logits
-        torch.cuda.empty_cache()
-        flops = counter.flops + sum(launches.values()) * wkv_ops.flops(
-            T["rows"], 1, cfg.rwkv_heads // n, cfg.rwkv_head_size)
-        calls = pred["kernels"].get("wkv6", {}).get("by_call", {})
-        mem = pred["memory"]
-        flop_off = abs(pred["flops_per_device"] - flops) / flops
-        peak_off = abs(mem["peak_bytes_est"] - peak) / peak
-        cut = (f"positions ({T['seq'] // n} a rank)" if cfg.family != "ssm"
-               else f"heads ({cfg.rwkv_heads // n} of {cfg.rwkv_heads} a rank)")
-        log(f"phase 33b one rank of a 16-way model axis decoding ({card}): {arch}, "
-            f"{cfg.num_layers} layers at every width, bf16, {T['rows']} rows against a cache of "
-            f"{T['seq']} positions cut by {cut}, rank 0 of a fake process group of {n} on the "
-            f"mesh (1, {n}) (real tensors and launches at the rank's shapes, collectives that "
-            f"return at once: no values); {prof['wall_ms']:.3f} ms a step ({T['timed']} steps; "
-            f"device busy {prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = "
-            f"{prof['busy']:.1%} of the wall), the counted first step (the rewrap included) "
-            f"{counted_ms:.3f} ms; peak {peak / 2**30:.3f} GiB max_memory_allocated less the "
-            f"{base / 2**30:.3f} GiB allocated before; WKV6 launches by call {launches} in the "
-            f"counted step, {timed} in the {2 * T['timed']} timed and profiled.  The dry-run "
-            f"of the same rank, traced in {pred['trace_s']:.1f} s: argument bytes "
-            f"{mem['argument_bytes']} predicted, {args_bytes} held; WKV6 calls {calls}; FLOPs "
-            f"{pred['flops_per_device']:.6e} predicted, {flops:.6e} counted on the card "
-            f"({counter.flops:.6e} aten), off by {flop_off:.3%}; peak "
-            f"{mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, off by {peak_off:.2%}; "
-            f"collectives {({k: v['count'] for k, v in counter.collectives.items()})} on the "
-            f"card, {({k: v['count'] for k, v in pred['collectives'].items()})} predicted")
-        if mem["argument_bytes"] != args_bytes:
-            raise AssertionError(f"phase 33b {arch}: argument bytes {mem['argument_bytes']} "
-                                 f"predicted, {args_bytes} on the card")
-        if calls != launches:
-            raise AssertionError(f"phase 33b {arch}: WKV6 calls {calls} predicted, launches "
-                                 f"{launches}")
-        if flop_off > 0.01:
-            raise AssertionError(f"phase 33b {arch}: FLOPs off by {flop_off:.3%} (bound 1%)")
-        if peak_off > 0.10:
-            raise AssertionError(f"phase 33b {arch}: the predicted peak is off by "
-                                 f"{peak_off:.2%} (bound 10%)")
-        out[arch] = dict(launches=sum(launches.values()) + sum(timed.values()),
-                         ms=prof["wall_ms"], busy=prof["busy"], peak=peak, pred=pred)
+        def run():
+            nonlocal logits
+            with ctx.use_mesh(mesh):
+                logits, _ = step(tp_params, tp_cache, tokens)
+        wkv_ops.LAUNCHES_BY_CALL.clear()
+        prof = busy_share(run, T["timed"], f"phase {phase} {arch} rank step")
+        timed = dict(wkv_ops.LAUNCHES_BY_CALL)
+        if logits.shape != (T["rows"], cfg.vocab_size):
+            raise AssertionError(f"phase {phase} {arch}: logits {tuple(logits.shape)}, not "
+                                 "[rows, V] (their values are not the rank's: the fake "
+                                 "group's collectives carry no data)")
+        del params, cache, tp_params, tp_cache, logits
+    torch.cuda.empty_cache()
+    flops = counter.flops + (sum(launches.values()) * wkv_ops.flops(
+        T["rows"], 1, cfg.rwkv_heads // n, cfg.rwkv_head_size) if launches else 0)
+    calls = pred["kernels"].get("wkv6", {}).get("by_call", {})
+    mem = pred["memory"]
+    flop_off = abs(pred["flops_per_device"] - flops) / flops
+    peak_off = abs(mem["peak_bytes_est"] - peak) / peak
+    if cfg.family == "ssm":
+        cut = f"the cache cut by heads ({cfg.rwkv_heads // n} of {cfg.rwkv_heads} a rank)"
+    elif cfg.num_kv_heads % n:
+        cut = f"the cache cut by positions ({T['seq'] // n} a rank)"
+    else:
+        cut = f"the cache cut by kv heads ({cfg.num_kv_heads // n} a rank)"
+    if cfg.num_experts:
+        cut += (f", the experts cut by experts ({cfg.num_experts // n} of {cfg.num_experts} a "
+                "rank)" if cfg.num_experts % n == 0 else
+                f", each of the {cfg.num_experts} experts cut by d_ff ({cfg.d_ff // n} of "
+                f"{cfg.d_ff} a rank)")
+    if cfg.family == "hybrid":
+        cut += (f", Mamba by d_inner ({cfg.mamba_d_inner // n} of {cfg.mamba_d_inner} "
+                "channels a rank)")
+    log(f"phase {phase} one rank of a 16-way model axis decoding ({card}): {arch}, "
+        f"{cfg.num_layers} of {get_config_layers(arch)} layers at every width, bf16, "
+        f"{T['rows']} rows against a cache of {T['seq']} positions, {cut}, rank 0 of a fake "
+        f"process group of {n} on the mesh (1, {n}) (real tensors and launches at the "
+        f"rank's shapes, collectives that return at once: no values); "
+        f"{prof['wall_ms']:.3f} ms a step ({T['timed']} steps; device busy "
+        f"{prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = {prof['busy']:.1%} of "
+        f"the wall), the counted first step (the rewrap included) {counted_ms:.3f} ms; peak "
+        f"{peak / 2**30:.3f} GiB max_memory_allocated less the {base / 2**30:.3f} GiB "
+        f"allocated before; WKV6 launches by call {launches} in the counted step, {timed} in "
+        f"the {2 * T['timed']} timed and profiled.  The dry-run of the same rank, traced in "
+        f"{pred['trace_s']:.1f} s: argument bytes {mem['argument_bytes']} predicted, "
+        f"{args_bytes} held; WKV6 calls {calls}; FLOPs {pred['flops_per_device']:.6e} "
+        f"predicted, {flops:.6e} counted on the card ({counter.flops:.6e} aten), off by "
+        f"{flop_off:.3%}; peak {mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, off by "
+        f"{peak_off:.2%}; collectives "
+        f"{({k: v['count'] for k, v in counter.collectives.items()})} on the card, "
+        f"{({k: v['count'] for k, v in pred['collectives'].items()})} predicted")
+    if mem["argument_bytes"] != args_bytes:
+        raise AssertionError(f"phase {phase} {arch}: argument bytes {mem['argument_bytes']} "
+                             f"predicted, {args_bytes} on the card")
+    if calls != launches:
+        raise AssertionError(f"phase {phase} {arch}: WKV6 calls {calls} predicted, "
+                             f"launches {launches}")
+    if flop_off > 0.01:
+        raise AssertionError(f"phase {phase} {arch}: FLOPs off by {flop_off:.3%} "
+                             "(bound 1%)")
+    if peak_off > 0.10:
+        raise AssertionError(f"phase {phase} {arch}: the predicted peak is off by "
+                             f"{peak_off:.2%} (bound 10%)")
+    return dict(launches=sum(launches.values()) + sum(timed.values()), ms=prof["wall_ms"],
+                busy=prof["busy"], peak=peak, pred=pred)
+
+
+def run_tp_decode_rank(dev, card: str) -> dict:
+    """Phase 33b: ``decode_rank_case`` for llama3-8b (its cache cut by
+    positions, 2048 of 32768 a rank) and rwkv6-7b (by heads, 4 of 64) at
+    full depth; then WKV6 held to its plain
+    version and timed at the rank's decode shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
+    from repro_torch.kernels.rwkv6_scan import wkv6_ref
+
+    T, n = TP_DECODE, TP_DECODE["world"]
+    out = {arch: decode_rank_case(dev, card, "33b", arch) for arch in ("llama3-8b", "rwkv6-7b")}
     gen = torch.Generator(device=dev).manual_seed(332)
     rwkv = get_config("rwkv6-7b")
     args = wkv_inputs(gen, dev, T["rows"], 1, rwkv.rwkv_heads // n, rwkv.rwkv_head_size,
@@ -4733,6 +4868,54 @@ def run_tp_decode_rank(dev, card: str) -> dict:
                                args)
     out["max_abs_err"] = err
     return out
+
+
+def run_ep_one(dev, card: str) -> dict:
+    """Phase 34a: expert parallelism and the tensor-parallel Mamba on
+    ``make_production_mesh()`` (NCCL, a world of one: a (1, 1) mesh), bit
+    for bit the unmeshed runs.  granite-moe-3b at full size decodes
+    ``TP_DECODE["steps"]`` steps (``decode_on_mesh_of_one``); jamba at one
+    period-8 block, every width kept, with ``EP["jamba_experts"]`` of its 16
+    experts a MoE layer (the ``EP`` comment says why), decodes as many;
+    granite-moe at 4 of 32 layers takes one train step of
+    ``EP["train_rows"]`` x ``EP["train_seq"]`` unmeshed and one on the mesh
+    (``train_on_mesh_of_one``)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train import trainer
+
+    mesh = make_production_mesh()
+    try:
+        out = {"granite-moe-3b-a800m": decode_on_mesh_of_one(
+            dev, card, mesh, "34a", "granite-moe-3b-a800m",
+            get_config_layers("granite-moe-3b-a800m"))}
+        out["jamba-1.5-large-398b"] = decode_on_mesh_of_one(
+            dev, card, mesh, "34a", "jamba-1.5-large-398b", 8,
+            dict(num_experts=EP["jamba_experts"]))
+        cfg = dataclasses.replace(get_config("granite-moe-3b-a800m"),
+                                  num_layers=EP["train_layers"])
+        setup = trainer.TrainSetup(micro_batches=1, learning_rate=TRAIN["lr"],
+                                   warmup_steps=TRAIN["warmup"],
+                                   total_steps=TRAIN["warmup"] + TRAIN["timed"])
+        out["train"] = train_on_mesh_of_one(dev, card, mesh, "34a", cfg, setup,
+                                            EP["train_rows"], EP["train_seq"], 1)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def run_ep_decode_rank(dev, card: str) -> dict:
+    """Phase 34b: ``decode_rank_case`` for granite-moe (40 experts, each cut
+    by d_ff) and qwen2-moe (60, by d_ff; its shared experts column- and
+    row-parallel) at full depth, and jamba at one of its 9 blocks with all
+    16 experts (one a rank; Mamba by d_inner)."""
+    return {arch: decode_rank_case(dev, card, "34b", arch, over)
+            for arch, over in (("granite-moe-3b-a800m", None), ("qwen2-moe-a2.7b", None),
+                               ("jamba-1.5-large-398b", dict(num_layers=8)))}
 
 
 def run_dryrun_cells() -> dict:
@@ -4974,6 +5157,11 @@ def main() -> int:
     tp_one = run_tp_decode_one(dev, card)
     tp_decode = run_tp_decode_rank(dev, card)
     log(f"phase 33 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ep_one = run_ep_one(dev, card)
+    run_ep_decode_rank(dev, card)
+    ep_train = run_ep_train_rank(dev, card)
+    log(f"phase 34 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -5087,6 +5275,14 @@ def main() -> int:
             "src/repro/kernels/rwkv6_scan/kernel.py:49",
             tp_one["rwkv6-7b"]["launches"] + tp_decode["rwkv6-7b"]["launches"], tp_decode,
             tp_decode["timing"]),
+        # phase 34: expert parallelism and the tensor-parallel Mamba: 34c's
+        # rank of a qwen2-moe train step at its local heads (q [2, 2048, 1,
+        # 128] against one kv head), timed there, and 34a's granite-moe
+        # train steps on the (1, 1) mesh at [2, 2048, 24, 64] (8 kv heads);
+        # the decodes (34a, 34b) attend through the plain decode attention
+        row("flash_attention_tp_moe", flash_sm90, flash_tpu,
+            ep_train["launches"] + ep_one["train"]["launches"], ep_train["timing"],
+            ep_train["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

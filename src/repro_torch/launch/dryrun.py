@@ -28,7 +28,8 @@ sends:
   tensor-parallel ``lm.serve_step`` on the same parameters and on the
   rank's shard of the cache, rewrapped on the model sub-mesh
   (``trainer.cache_model_shards``: K/V cut by kv heads or by positions,
-  the RWKV state by heads), which the step updates in place; nothing of
+  the RWKV state by heads, the Mamba state by ``d_inner``), which the
+  step updates in place; nothing of
   the cache is gathered.  The kernels' wrappers take a ``meta`` route:
   their checks, an empty output, and the call recorded by its local
   shape;
@@ -53,8 +54,8 @@ sends:
 
 The numbers are the port's own, not XLA's: they include the
 rematerialization's recompute, the compute the model axis still repeats
-(the attention core of head counts it does not divide, the MoE and Mamba
-positions), the kernels' plain float32 backward with its
+(the attention core of head counts it does not divide, the MoE's
+routing), the kernels' plain float32 backward with its
 ``[B, H, S, S]`` scores at the rank's heads, and the parameters gathered
 over the data axes (ROADMAP A4).  There is no HLO, so no ``corrected`` trip-count analysis
 and no ``bytes_accessed``; ``trace_s`` (the step's wall seconds under the

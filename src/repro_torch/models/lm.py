@@ -38,10 +38,11 @@ the dry-run's prefill and the tensor-parallel decode,
 (``docs/torch_lm_sharding.md``): each branch's input is ``ctx.tp_input``,
 its row-parallel output is made whole where it joins the residual, the
 cross-entropy is vocab-parallel where the vocab is cut
-(``vocab_parallel_ce``), and the MoE and Mamba positions run whole on every
-rank of the axis (``ctx.run_local``).  The decode step takes the cache cut
-over the axis (``trainer.cache_model_shards``) and updates each rank's
-shard in place (``serve_step``)."""
+(``vocab_parallel_ce``), the MoE FFN is cut by experts or by each expert's
+d_ff (``ffn.moe_apply``) and the Mamba mixer by ``d_inner``
+(``ssm.mamba_forward``).  The decode step takes the cache cut over the axis
+(``trainer.cache_model_shards``) and updates each rank's shard in place
+(``serve_step``), the Mamba state's too."""
 from __future__ import annotations
 
 from typing import Callable
@@ -236,14 +237,11 @@ def _run_attn(p: Params, x, cfg: ModelConfig, positions, causal: bool = True,
 
 def _run_ffn(p: Params, x, cfg: ModelConfig, kind: str):
     """The position's FFN output in serving.  Serving reads no aux loss, so
-    the MoE's is not computed (``_train_ffn`` gives it to training).  The
-    MoE runs whole on every rank of the model axis (``ctx.run_local``)."""
+    the MoE's is not computed (``_train_ffn`` gives it to training)."""
     if kind == "moe":
-        def moe(p, x):
-            r = ffn_lib.moe_route(p, x, experts_per_token=cfg.experts_per_token,
-                                  capacity_factor=cfg.capacity_factor)
-            return ffn_lib.moe_apply(p, x, r)
-        return ctx.run_local(moe, p, x)
+        r = ffn_lib.moe_route(p, x, experts_per_token=cfg.experts_per_token,
+                              capacity_factor=cfg.capacity_factor)
+        return ffn_lib.moe_apply(p, x, r)
     return ffn_lib.dense_ffn(p, x)
 
 
@@ -252,9 +250,9 @@ def _train_ffn(p: Params, x, cfg: ModelConfig, kind: str):
     ``ffn.moe_ffn`` returns the Switch aux loss, as the reference's
     ``_run_ffn`` does.  A dense FFN has none."""
     if kind == "moe":
-        return ctx.run_local(ffn_lib.moe_ffn, p, x, experts_per_token=cfg.experts_per_token,
-                             capacity_factor=cfg.capacity_factor,
-                             router_aux_coef=cfg.router_aux_coef)
+        return ffn_lib.moe_ffn(p, x, experts_per_token=cfg.experts_per_token,
+                               capacity_factor=cfg.capacity_factor,
+                               router_aux_coef=cfg.router_aux_coef)
     return ffn_lib.dense_ffn(p, x), None
 
 
@@ -290,8 +288,8 @@ def _position_forward(cfg: ModelConfig, p: Params, mixer: str, fkind: str, x,
     if mixer == "attn":
         x = x + _whole(_run_attn(p["mixer"], h, cfg, positions))
     else:  # mamba
-        x = x + ctx.run_local(ssm.mamba_forward, p["mixer"], h, d_state=cfg.mamba_d_state,
-                              d_conv=cfg.mamba_d_conv)
+        x = x + _whole(ssm.mamba_forward(p["mixer"], h, d_state=cfg.mamba_d_state,
+                                         d_conv=cfg.mamba_d_conv))
     if "cross" in p and memory is not None:
         x = x + _whole(_run_attn(p["cross"], norm("norm_cross", x), cfg, positions,
                                  memory=memory))
@@ -624,8 +622,8 @@ def serve_step(cfg: ModelConfig):
     ``tokens`` this rank's rows, the step computes on DTensor activations
     as the train step's blocks do, each rank updating its shard of the
     cache in place; the logits come back whole, ``[B_rank, V]``.  The MoE
-    FFN and the Mamba mixer run whole on every rank (``ctx.run_local``),
-    the Mamba state gathered for the step and cut back."""
+    FFN is cut by experts or by d_ff, and the Mamba step runs on the rank's
+    channels of its state, which the cache holds cut alike."""
 
     @torch.no_grad()
     def step_fn(params: Params, cache: dict, tokens: torch.Tensor):
@@ -661,12 +659,10 @@ def serve_step(cfg: ModelConfig):
                         continue
                     x = x + _whole(a)
                 else:  # mamba
-                    state = {name: ctx.local(_cache_block(c[name], b))
-                             for name in ("h", "conv")}
-                    y, mc = ctx.run_local(ssm.mamba_step, p["mixer"], h, state,
-                                          d_state=cfg.mamba_d_state,
-                                          d_conv=cfg.mamba_d_conv)
-                    x = x + y
+                    state = {name: _cache_block(c[name], b) for name in ("h", "conv")}
+                    y, mc = ssm.mamba_step(p["mixer"], h, state, d_state=cfg.mamba_d_state,
+                                           d_conv=cfg.mamba_d_conv)
+                    x = x + _whole(y)
                     _store(c["h"], b, mc["h"])
                     _store(c["conv"], b, mc["conv"])
                 if "cross" in p and "ck" in c:

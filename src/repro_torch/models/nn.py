@@ -24,6 +24,27 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 
+def local_tree(tree):
+    """Each DTensor of a parameter dict as its local shard (a differentiable
+    ``to_local``: the gradient is the rank's part by the DTensor's
+    placements); any other leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: local_tree(v) for k, v in tree.items()}
+    return tree.to_local() if isinstance(tree, DTensor) else tree
+
+
+def whole_local(x, what: str):
+    """``x`` as a plain tensor: a DTensor's local copy, which must be whole
+    on every rank (``Replicate()`` on every mesh dimension: a ``Partial``
+    or a cut one would feed rank-local compute part-sums or a slice), else
+    a ValueError; a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    if any(pl != Replicate() for pl in x.placements):
+        raise ValueError(f"{what} is {x.placements}, not whole on every rank (Replicate())")
+    return x.to_local()
+
+
 def _normal(gen, shape, scale: float, dtype, device) -> torch.Tensor:
     # scaled in place: one float32 draw above the result at the peak
     return torch.randn(shape, generator=gen, device=device).mul_(scale).to(dtype)

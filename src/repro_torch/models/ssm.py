@@ -28,9 +28,18 @@ kernel runs on each rank's heads through ``local_map`` (the replicated
 bonus ``u`` sliced to them; a decode step's carried state is the cache's
 shard of those heads), the output is made whole for ``ln_x`` (a
 LayerNorm over all of d, not per head) and ``Wo`` is row-parallel; the
-channel mix is column- then row-parallel.
-The Mamba mixer is not cut: the caller runs it whole on every rank
-(``ctx.run_local``)."""
+channel mix is column- then row-parallel.  The Mamba mixer is cut by
+``d_inner``, as the reference's policy cuts it: ``in_proj`` (recut so a
+rank holds the ``x`` and ``z`` halves of its own channels) and ``dt_proj``
+column-parallel, the depthwise conv, ``exp(Δ·A)``, the chunked scan and
+``D`` on the rank's channels, ``x_proj`` (recut from its output to its
+input dimension) and ``out_proj`` row-parallel, their partial products
+made whole (``trainer.gather_model_shards`` recuts the leaves,
+``policy.MAMBA_CHANNELS`` says where each holds the channels).  The mixer runs
+on the rank's local tensors between Megatron's *f* and *g*
+(``ctx.local_input``, ``ctx.sum_over``), so the scan's per-step ops are
+plain tensor ops; a decode step reads and updates the cache's own
+``[B, d_inner/n, d_state]`` and ``[B, d_conv - 1, d_inner/n]`` shards."""
 from __future__ import annotations
 
 import math
@@ -44,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
 from repro_torch.models import nn
 from repro_torch.sharding import ctx
+from repro_torch.sharding.policy import MAMBA_CHANNELS
 
 
 # ===========================================================================
@@ -68,9 +78,30 @@ def mamba_init(gen, d: int, d_inner: int, d_state: int, d_conv: int,
     }
 
 
-def _mamba_ssm_inputs(p: dict, x: torch.Tensor, d_state: int):
-    """delta, B, C in float32 from the convolved ``x`` ``[..., di]``."""
+def _channel_mesh(p: dict):
+    """None for plain parameters; for DTensor ones their model sub-mesh,
+    every leaf checked to be cut by d_inner (``policy.MAMBA_CHANNELS``),
+    else a ValueError."""
+    if not isinstance(p["in_proj"]["w"], DTensor):
+        return None
+    for path, (dim, _) in MAMBA_CHANNELS.items():
+        leaf = p
+        for k in path.split("/"):
+            leaf = leaf[k]
+        if leaf.placements[0] != Shard(dim):
+            raise ValueError(f"the Mamba leaf {path} is {leaf.placements[0]}, "
+                             f"not cut by d_inner (Shard({dim})) on the model axis")
+    return p["in_proj"]["w"].device_mesh
+
+
+def _mamba_ssm_inputs(p: dict, x: torch.Tensor, d_state: int, group):
+    """delta, B, C in float32 from the convolved ``x`` ``[..., di]``; with
+    ``group``, ``x`` the rank's channels: ``x_proj``'s row-parallel product
+    made whole, and entering the rank's ``dt_proj`` columns and scan."""
     dbc = nn.linear(p["x_proj"], x)
+    if group is not None:
+        dbc = ctx.sum_over(dbc, [group])
+    dbc = ctx.local_input(dbc, group)
     dt_rank = dbc.shape[-1] - 2 * d_state
     dt, Bm, Cm = dbc.split([dt_rank, d_state, d_state], dim=-1)
     delta = F.softplus(nn.linear(p["dt_proj"], dt).float())
@@ -87,11 +118,25 @@ def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
     the port has one: it materializes them a chunk of ``chunk`` steps at a
     time.  Without grad the state of each step is written over that step's
     ``Δ·B·x``; under grad mode each chunk is ``_mamba_chunk``, out of place
-    and checkpointed.  The chunk's outputs are one batched product with C."""
+    and checkpointed.  The chunk's outputs are one batched product with C.
+    On DTensor parameters (cut by d_inner, ``u`` replicated) each rank runs
+    its channels on local tensors and the output is a ``Replicate()``
+    DTensor."""
+    mesh = _channel_mesh(p)
+    if mesh is None:
+        return _mamba_forward(p, u, d_state, d_conv, chunk, None)
+    out = _mamba_forward(nn.local_tree(p), nn.whole_local(u, "the Mamba input"), d_state,
+                         d_conv, chunk, mesh.get_group())
+    return DTensor.from_local(out, mesh, [Replicate()], run_check=False)
+
+
+def _mamba_forward(p: dict, u: torch.Tensor, d_state: int, d_conv: int, chunk: int,
+                   group) -> torch.Tensor:
+    """``mamba_forward`` on plain tensors: every channel, or with ``group``
+    the rank's (its output made whole over ``group``)."""
     B, S, d = u.shape
+    u = ctx.local_input(u, group)
     x, z = nn.linear(p["in_proj"], u).chunk(2, dim=-1)          # [B,S,di]
-    x = ctx.constrain(x, "dp", None, "tp")
-    z = ctx.constrain(z, "dp", None, "tp")
     di = x.shape[-1]
 
     # causal depthwise conv1d
@@ -99,7 +144,7 @@ def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
     x = sum(x_pad[:, i:i + S] * p["conv_w"][i] for i in range(d_conv))
     x = F.silu(x + p["conv_b"])
 
-    delta, Bm, Cm = _mamba_ssm_inputs(p, x, d_state)           # [B,S,di], [B,S,ds]
+    delta, Bm, Cm = _mamba_ssm_inputs(p, x, d_state, group)    # [B,S,di], [B,S,ds]
     A = -torch.exp(p["A_log"])                                  # [di, ds]
     xf = x.float()
     h = torch.zeros(B, di, d_state, dtype=torch.float32, device=u.device)
@@ -122,7 +167,8 @@ def mamba_forward(p: dict, u: torch.Tensor, *, d_state: int, d_conv: int,
         del dA, hs
     y = torch.cat(ys, dim=1) + xf * p["D"]
     y = y.to(u.dtype) * F.silu(z)
-    return nn.linear(p["out_proj"], y)
+    out = nn.linear(p["out_proj"], y)
+    return out if group is None else ctx.sum_over(out, [group])
 
 
 def _mamba_chunk(h, d_c, x_c, B_c, C_c, A):
@@ -147,11 +193,35 @@ def mamba_init_cache(B: int, d_inner: int, d_state: int, d_conv: int,
 
 def mamba_step(p: dict, u_t: torch.Tensor, cache: dict, *, d_state: int,
                d_conv: int) -> tuple[torch.Tensor, dict]:
-    """Single-token decode.  u_t: ``[B, 1, d]``."""
+    """Single-token decode.  u_t: ``[B, 1, d]``.  On DTensor parameters the
+    state is the cache's shard of the rank's channels (``h`` ``Shard(1)``,
+    ``conv`` ``Shard(2)``): the step reads it and returns the new state as
+    DTensors with the same placements, ``u_t`` and the output
+    ``Replicate()``."""
+    mesh = _channel_mesh(p)
+    if mesh is None:
+        return _mamba_step(p, u_t, cache, d_state, d_conv, None)
+    for name, dim in (("h", 1), ("conv", 2)):
+        if cache[name].placements[0] != Shard(dim):
+            raise ValueError(f"the Mamba state {name} is {cache[name].placements[0]}, "
+                             f"not the rank's channels (Shard({dim}))")
+    out, state = _mamba_step(nn.local_tree(p), nn.whole_local(u_t, "the Mamba input"),
+                             {name: cache[name].to_local() for name in ("h", "conv")},
+                             d_state, d_conv, mesh.get_group())
+    return (DTensor.from_local(out, mesh, [Replicate()], run_check=False),
+            {name: DTensor.from_local(v, mesh, cache[name].placements, run_check=False)
+             for name, v in state.items()})
+
+
+def _mamba_step(p: dict, u_t: torch.Tensor, cache: dict, d_state: int, d_conv: int,
+                group) -> tuple[torch.Tensor, dict]:
+    """``mamba_step`` on plain tensors (with ``group``, the rank's channels
+    and state)."""
+    u_t = ctx.local_input(u_t, group)
     x, z = nn.linear(p["in_proj"], u_t[:, 0]).chunk(2, dim=-1)   # [B, di]
     conv_buf = torch.cat([cache["conv"], x[:, None]], dim=1)    # [B,dc,di]
     x = F.silu(torch.einsum("bcd,cd->bd", conv_buf, p["conv_w"]) + p["conv_b"])
-    delta, Bm, Cm = _mamba_ssm_inputs(p, x, d_state)
+    delta, Bm, Cm = _mamba_ssm_inputs(p, x, d_state, group)
     A = -torch.exp(p["A_log"])
     dA = torch.exp(delta[..., None] * A)                        # [B,di,ds]
     dBx = (delta * x.float())[..., None] * Bm[:, None, :]
@@ -159,6 +229,7 @@ def mamba_step(p: dict, u_t: torch.Tensor, cache: dict, *, d_state: int,
     y = torch.einsum("bds,bs->bd", h, Cm) + x.float() * p["D"]
     y = y.to(u_t.dtype) * F.silu(z)
     out = nn.linear(p["out_proj"], y)[:, None]
+    out = out if group is None else ctx.sum_over(out, [group])
     return out, {"h": h, "conv": conv_buf[:, 1:]}
 
 

@@ -22,10 +22,15 @@ matmul rules give column- then row-parallel products (the row-parallel
 output ``Partial``), and ``constrain`` at the reference's points
 redistributes over the model axis alone (a ``"dp"`` entry names no axis of
 the sub-mesh).  :func:`local` turns a DTensor back into a plain tensor,
-whole.  :func:`run_local` runs a block the port does not cut (the MoE FFN,
-and the Mamba mixer in training and in decode, its decode state gathered
-for the step) on plain tensors: its parameters gathered over the model
-axis, its compute repeated there.
+whole.
+
+The MoE FFN and the Mamba mixer run on the rank's local tensors (its
+experts or its slice of each expert's d_ff; its ``d_inner`` channels)
+between Megatron's two conjugate operators: *f*, :func:`local_input`, a
+whole activation entering rank-local compute (the identity; backward, the
+rank's partial gradient made whole by an all-reduce), and *g*,
+:func:`sum_over`, a rank's partial output made whole (an all-reduce; the
+identity backward).
 
 The port adds one reduction the reference leaves to GSPMD: when the train
 step cuts a microbatch's rows over the data axes (:func:`cut_batch`),
@@ -132,27 +137,6 @@ def local(x):
     return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim).to_local()
 
 
-def _tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def run_local(fn, params, x: torch.Tensor, *args, **kwargs):
-    """``fn(params, x, *args, **kwargs)`` for a block the port does not cut
-    on the model axis: with DTensor ``params`` its leaves gathered over the
-    model axis and ``x`` made whole, ``fn`` run on plain tensors (its
-    compute repeated on every rank of the axis), and its output (or the
-    first of a tuple's) made a ``Replicate()`` DTensor again.  Without
-    DTensors, ``fn`` itself."""
-    if not isinstance(x, DTensor):
-        return fn(params, x, *args, **kwargs)
-    out = fn(_tree(local, params), local(x), *args, **kwargs)
-    if isinstance(out, tuple):
-        return (enter(out[0], x), *out[1:])
-    return enter(out, x)
-
-
 class _WholeGrad(torch.autograd.Function):
     """The identity; in the backward a ``Partial`` gradient is made whole
     (an all-reduce over its mesh)."""
@@ -181,8 +165,35 @@ def tp_input(x: torch.Tensor) -> torch.Tensor:
 def sum_over(x: torch.Tensor, groups) -> torch.Tensor:
     """``x`` all-reduced (summed) over each process group in ``groups``;
     the gradient passes through unchanged (each rank's partial feeds one
-    sum that every rank uses alike)."""
+    sum that every rank uses alike).  Megatron's *g* over the model axis."""
     return _SumOver.apply(x, groups)
+
+
+class _LocalInput(torch.autograd.Function):
+    """The identity; in the backward the gradient all-reduced (summed) over
+    ``group`` (none: passed through)."""
+
+    @staticmethod
+    def forward(ctx_, x, group):
+        ctx_.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx_, grad):
+        if ctx_.group is not None:
+            grad = grad.clone()
+            dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=ctx_.group)
+        return grad, None
+
+
+def local_input(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's *f*: a plain activation, the same on every rank of
+    ``group``, entering compute on the rank's part of the weights (its
+    experts, its channels): the identity forward; backward, each rank's
+    partial gradient made whole by an all-reduce over ``group``.  With
+    ``group`` None (one process) the backward passes the gradient through,
+    so a meshed and an unmeshed run share one autograd graph."""
+    return _LocalInput.apply(x, group)
 
 
 # -- the data axes a microbatch's rows are cut over -----------------------------

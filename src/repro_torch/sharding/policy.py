@@ -50,6 +50,16 @@ class PartitionSpec(tuple):
 
 P = PartitionSpec
 
+# where one block's Mamba mixer leaves (the path after ``mixer/``) hold
+# d_inner, as (dimension, runs): the dimension the port's tensor-parallel
+# mixer computes them cut by on the model axis, whatever the rules store
+# them by (``x_proj`` by its output, ``conv_b`` and ``D`` whole); a leaf
+# of 2 runs (``in_proj``'s output, x then z) is cut run by run, so a rank
+# holds the x and the z of its own channels
+MAMBA_CHANNELS = {"in_proj/w": (1, 2), "conv_w": (1, 1), "conv_b": (0, 1),
+                  "x_proj/w": (0, 1), "dt_proj/w": (1, 1), "dt_proj/b": (0, 1),
+                  "A_log": (0, 1), "D": (0, 1), "out_proj/w": (0, 1)}
+
 
 def mesh_axis_sizes(mesh) -> dict[str, int]:
     """``{axis name: size}`` in the mesh's axis order, for a ``DeviceMesh``
@@ -244,6 +254,17 @@ class ShardingPolicy:
             return P(*((None,) * len(shape)))
         # default: replicate
         return P(*((None,) * len(shape)))
+
+    def compute_cut(self, path: str, shape: tuple[int, ...]) -> tuple[int, int] | None:
+        """(dimension, runs) that the stacked Mamba leaf ``layers/.../mixer/
+        <leaf>`` of ``shape`` is computed cut by on the model axis
+        (``MAMBA_CHANNELS``, shifted past the block dimension) when the axis
+        divides its d_inner channels; None for any other leaf."""
+        head, sep, leaf = path.partition("/mixer/")
+        if not (sep and head.startswith("layers/") and leaf in MAMBA_CHANNELS):
+            return None
+        dim, runs = MAMBA_CHANNELS[leaf]
+        return (dim + 1, runs) if self._fits(shape[dim + 1] // runs, self.axes.tp) else None
 
     def params_tree(self, params) -> Any:
         """The tree of ``params`` with each leaf's spec in its place; leaves

@@ -40,9 +40,9 @@ setup, mesh)`` then
 
 The tree is gathered over the data axes at the start of each microbatch
 (a copy of the rank's model-axis shards beside its own shards; per-block
-gathering is a ROADMAP item).  The MoE FFN and the Mamba mixer are not
-cut: their leaves are gathered over the model axis too and their compute
-is repeated there (``ctx.run_local``)."""
+gathering is a ROADMAP item).  The MoE FFN is cut by experts or by each
+expert's d_ff, and the Mamba mixer by ``d_inner``: its leaves are recut to
+the rank's channels on the model axis (:func:`gather_model_shards`)."""
 from __future__ import annotations
 
 import dataclasses
@@ -246,23 +246,35 @@ def gather_model_shards(tree, mesh, cut: tuple[str, ...] = ()):
     ``[nb, d, d_ff]``, which the reference's rule reads as stacked experts)
     is recut there as one block's weight is (``param_spec`` of its
     ``[d, d_ff]``; an all-to-all over the model axis after the gather), so
-    each block's product is tensor-parallel.  Gradients
-    flow back through ``to_local`` as ``Partial`` over the data axes in
-    ``cut`` (the axes the batch is cut over) and in the model-axis
-    placement used; the reduce-scatter back to the parameter's placements is
-    the caller's.  Any other leaf as it is."""
+    each block's product is tensor-parallel.  A leaf that the policy
+    computes cut otherwise than it stores it (``policy.compute_cut``: a
+    Mamba leaf, by its ``d_inner`` channels) is recut so: ``in_proj``
+    ``[nb, d, 2·di]``, cut contiguously, so the rank holds the ``x`` and
+    ``z`` columns of its own channels (an all-to-all of pieces,
+    :class:`_Regroup`; its DTensor's global layout is then the ranks'
+    pieces in rank order, not the parameter's), ``x_proj`` from its output
+    to its input dimension (an all-to-all), and the leaves that arrive
+    whole (``conv_b``; ``D``, whose rule reads the block dimension) sliced
+    on each rank.  Gradients flow back through
+    ``to_local`` as ``Partial`` over the data axes in ``cut`` (the axes the
+    batch is cut over) and in the model-axis placement used (``Partial``
+    for a sliced leaf); the reduce-scatter back to the parameter's
+    placements is the caller's.  Any other leaf as it is."""
     names = list(mesh_axis_sizes(mesh))
     m = names.index("model")
     tp_mesh = mesh["model"]
+    n = tp_mesh.size()
     policy = ShardingPolicy(mesh, None)
 
     def one(path, x):
         if not isinstance(x, DTensor):
             return x
         pl = x.placements[m]
+        cut_to = policy.compute_cut(keystr_path(path), tuple(x.shape))
+        sliced = cut_to is not None and pl == Replicate()
         pls = [pl if i == m else Replicate() for i in range(len(names))]
-        grad = [pl if i == m else Partial() if n in cut else Replicate()
-                for i, n in enumerate(names)]
+        grad = [(Partial() if sliced else pl) if i == m else Partial() if a in cut
+                else Replicate() for i, a in enumerate(names)]
         shard = x.redistribute(mesh, pls).to_local(grad_placements=grad)
         if pl == Shard(0) and x.dim() >= 2 and path[0] in ("layers", "enc_layers"):
             # recut after the gather over the data axes, on the model axis
@@ -270,13 +282,32 @@ def gather_model_shards(tree, mesh, cut: tuple[str, ...] = ()):
             spec = policy.param_spec(keystr_path(path), tuple(x.shape[1:]))
             pl = placements(mesh, P(None, *spec))[m]
             if isinstance(pl, Shard):
-                if tp_mesh.size() > 1:      # one rank's shard is the leaf
+                if n > 1:                   # one rank's shard is the leaf
                     shard = _Recut.apply(shard, 0, pl.dim, tp_mesh.get_group())
             else:
                 shard = DTensor.from_local(shard, tp_mesh, [Shard(0)], run_check=False
                                            ).redistribute(tp_mesh, [pl]).to_local()
+        if cut_to is not None:
+            shard, pl = _recut_runs(shard, pl, *cut_to, tp_mesh), Shard(cut_to[0])
         return DTensor.from_local(shard, tp_mesh, [pl], run_check=False)
     return tree_map_with_path(one, tree)
+
+
+def _recut_runs(shard: torch.Tensor, pl, dim: int, runs: int, tp_mesh) -> torch.Tensor:
+    """A leaf's model-axis shard with placement ``pl`` → rank r's chunk r
+    of each of the ``runs`` equal runs of dimension ``dim``, joined: a whole
+    leaf sliced, one cut on another dimension recut (an all-to-all), a
+    contiguous cut of several runs regrouped (:class:`_Regroup`)."""
+    n, group = tp_mesh.size(), tp_mesh.get_group()
+    if pl == Replicate():
+        k = shard.shape[dim] // (runs * n)
+        return shard.unflatten(dim, (runs, -1)).narrow(
+            dim + 1, tp_mesh.get_local_rank() * k, k).flatten(dim, dim + 1)
+    if n > 1 and pl != Shard(dim):
+        shard = _Recut.apply(shard, pl.dim, dim, group)
+    if n > 1 and runs > 1:
+        shard = _Regroup.apply(shard, dim, runs, group)
+    return shard
 
 
 def _all_to_all(x: torch.Tensor, a: int, b: int, group) -> torch.Tensor:
@@ -304,6 +335,41 @@ class _Recut(torch.autograd.Function):
     def backward(ctx_, grad):
         a, b, group = ctx_.cut
         return _all_to_all(grad.contiguous(), b, a, group), None, None, None
+
+
+def _regroup(x: torch.Tensor, dim: int, k: int, group, back: bool) -> torch.Tensor:
+    """Rank s's part of dimension ``dim``, pieces ``s·k … s·k+k−1`` of a
+    contiguous cut into n·k, → pieces ``t, t+n, …, t+(k−1)·n`` on rank t
+    (``back``: the reverse).  With k ≤ n each piece goes to a rank of its
+    own and each rank sends and receives k pieces: one all-to-all."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    to = [(r * k + i) % n for i in range(k)]            # where my pieces go
+    src = [(r + j * n) // k for j in range(k)]          # where my new ones are
+    if back:
+        to, src = src, to
+    pieces = x.unflatten(dim, (k, -1)).movedim(dim, 0)
+    send = pieces[sorted(range(k), key=to.__getitem__)]
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, [src.count(a) for a in range(n)],
+                           [to.count(a) for a in range(n)], group=group)
+    out = torch.empty_like(recv)
+    out[sorted(range(k), key=src.__getitem__)] = recv   # arrived in source order
+    return out.movedim(0, dim).flatten(dim, dim + 1)
+
+
+class _Regroup(torch.autograd.Function):
+    """``_regroup``: ``in_proj``'s ``[x | z]`` output columns cut by the
+    policy → the x and z columns of the rank's channels (k = 2).  The
+    backward moves the gradient back."""
+
+    @staticmethod
+    def forward(ctx_, x, dim: int, k: int, group):
+        ctx_.args = (dim, k, group)
+        return _regroup(x, dim, k, group, False)
+
+    @staticmethod
+    def backward(ctx_, grad):
+        return _regroup(grad.contiguous(), *ctx_.args, True), None, None, None
 
 
 def cache_model_shards(cache: dict, mesh) -> dict:
