@@ -155,8 +155,9 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   axis at ``decode_32k``'s local shapes (8 rows, 32768 positions, full
   depth) in a fake process group of 16, traced by the dry-run first:
   argument bytes equal, WKV6 launches by call (4 of 64 heads, carried
-  state) equal to the predicted calls, FLOPs within 1%, peak within 10%;
-  its ms a step and busy share, and WKV6 timed at that shape;
+  state) equal to the predicted calls, the collectives by kind and count
+  equal, FLOPs within 0.01%, peak within 2%; its ms a step and busy
+  share, and WKV6 timed at that shape;
 * expert parallelism and the tensor-parallel Mamba (the MoE FFN cut by
   experts or by each expert's d_ff, the Mamba mixer by d_inner): on the
   (1, 1) NCCL mesh granite-moe-3b at full size decodes 16 steps and jamba
@@ -167,9 +168,22 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   ``decode_32k``'s local shapes (granite-moe and qwen2-moe at full depth,
   jamba at one of 9 blocks with all 16 experts, each rank's shards drawn
   alone) and one rank of a qwen2-moe train step (4 of 24 layers, 2 x
-  2048), each held to its dry-run (argument bytes equal, FLOPs within 1%,
-  peak within 10%, flash launches by call equal), its ms a step and busy
-  share, and the flash kernel timed at the rank's local heads.
+  2048), each held to its dry-run (argument bytes equal, collectives by
+  kind and count equal; a decode's FLOPs within 0.01% and peak within 2%,
+  a train step's within 1% and 10% and its flash launches by call equal),
+  its ms a step and busy share, and the flash kernel timed at the rank's
+  local heads;
+* per-block parameter gathering (the placed tree handed to the model, each
+  block's data-sharded leaves gathered just before the block runs and, in
+  training, again in its recompute): phases 30-34 run it, then rank 0 of
+  a fake process group of 256 on the single (16, 16) mesh, the first with
+  a data axis larger than 1: jamba-1.5-large-398b's ``decode_32k`` at full
+  depth (9 blocks, all 16 experts, 8 rows a rank) held to its dry-run
+  (argument bytes exact, FLOPs within 0.01%, peak within 2%, collectives
+  by kind and count, one block gather a block) and timed, and a
+  llama3-8b train step at 4 of 32 layers (64 x 2048 in 4 microbatches, one
+  row a rank a microbatch) held as phase 32 is, its block gathers two a
+  block and microbatch, the flash kernel timed at its local shape.
 
 Any failure raises; the last line of a passing run is
 ``{"ok": true, "device": {...}}``, after the ``kernels`` line and the
@@ -349,6 +363,18 @@ TP_DECODE_CELL = dict(flops=2.01e10, peak_gib=8)
 # 34c one rank of 16 of a qwen2-moe train step, 4 of 24 layers, 2 x 2048
 # (both train steps cut to train_layers)
 EP = dict(jamba_experts=4, train_layers=4, train_rows=2, train_seq=2048)
+# per-block parameter gathering (phase 35): rank 0 of a fake process group
+# of 256 on the single (16, 16) mesh, the first card phase whose data axis
+# is larger than 1.  35a jamba-1.5-large-398b decode_32k at full depth (9
+# blocks, all 16 experts, 8 rows of a 32768-position cache a rank), held
+# to its dry-run as 33b and 34b are (argument bytes exact, FLOPs within
+# 0.01%, peak within 2%, collectives by kind and count), then
+# TP_DECODE["timed"] steps timed and as many profiled; 35b llama3-8b at 4
+# of 32 layers, one train
+# step of 64 x 2048 in 4 microbatches (one row a rank a microbatch), held
+# as phase 32 is, its block gathers two a block and microbatch
+BLOCKS = dict(mesh=(16, 16), decode_arch="jamba-1.5-large-398b", train_layers=4,
+              train_rows=64, train_micro=4)
 DRILL = dict(fleet=8, epochs=40, every=10, kill_at=20, offline=200,
              offline_updates=20)
 
@@ -2506,8 +2532,10 @@ def check_lm_smoke(dev, archs=LM_ARCHS, phase: int = 11) -> None:
 
 def busy_share(run, steps: int, what: str) -> dict:
     """``run()`` ``steps`` times unprofiled (host clock, synchronized), then
-    ``steps`` times under ``torch.profiler``: the kernels' device time over
-    the unprofiled wall."""
+    ``steps`` times under ``torch.profiler`` recording the device's
+    activity alone: the kernels' device time over the unprofiled wall (the
+    host activity of a step of tens of thousands of ops took tens of
+    seconds to process, and the share reads only the kernels)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2516,7 +2544,7 @@ def busy_share(run, steps: int, what: str) -> dict:
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             run()
         torch.cuda.synchronize()
@@ -4417,52 +4445,64 @@ def run_tp_rank(dev, card: str) -> dict:
     return train_rank_case(dev, card, "32", cfg, setup, T["batch"], T["seq"])
 
 
-def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int) -> dict:
-    """One case of phases 32 and 34c: one rank of a 16-way model axis on the
-    card, training ``cfg`` (bf16) on ``rows`` x ``seq`` token batches.  The
-    step is first traced by the dry-run on ``meta`` tensors in a fake
-    process group of 16 ranks, mesh (1, 16); then the same rank runs for
-    real on the card in a fake process group of 16 (the dry-run's
-    ``"fake"`` backend) over a ``cuda`` mesh (1, 16): its tensors and kernel
-    launches are real, at the rank's local shapes, and its collectives
-    return at once without data.  So this measures a rank's compute time
-    and memory under tensor parallelism, not its values, and checks no
-    loss.  A first step from a fresh state, after
-    ``reset_peak_memory_stats``, under the dry-run's counter: argument
-    bytes equal, flash launches by call equal to the predicted calls (all
-    at the rank's q heads against one kv head), FLOPs within 1%, the
-    predicted peak within 10% of ``max_memory_allocated`` less what was
-    allocated before the state; then ``TP_RANK["steps"]`` steps timed and
-    as many profiled (the device's busy share), and the flash kernel timed
-    at the rank's local shape."""
+def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int,
+                    mesh_shape: tuple | None = None, steps: int | None = None) -> dict:
+    """One case of phases 32, 34c and 35b: one rank of a (data, model) mesh
+    of ``mesh_shape`` (default (1, 16): one rank of a 16-way model axis) on
+    the card, training ``cfg`` (bf16) on ``rows`` x ``seq`` token batches.
+    The step is first traced by the dry-run on ``meta`` tensors in a fake
+    process group of the mesh's ranks; then the same rank runs for real on
+    the card in a fake process group of as many (the dry-run's ``"fake"``
+    backend) over a ``cuda`` mesh: its tensors and kernel launches are real,
+    at the rank's local shapes (its rows of each microbatch, its shards),
+    and its collectives return at once without data.  So this measures a
+    rank's compute time and memory, not its values, and checks no loss.  A
+    first step from a fresh state, after ``reset_peak_memory_stats``, under
+    the dry-run's counter: argument bytes equal, flash launches by call
+    equal to the predicted calls (all at the rank's q heads against one kv
+    head), two block gathers a block and microbatch (the forward's and the
+    recompute's), the collectives by kind as many as predicted, FLOPs
+    within 1%, the predicted peak within 10% of ``max_memory_allocated``
+    less what was allocated before the state; then ``steps`` (default
+    ``TP_RANK["steps"]``; 0: none) steps timed and as many profiled (the
+    device's busy share), and the flash kernel timed at the rank's local
+    shape."""
+    import math
+
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.configs import ShapeSpec
     from repro_torch.data.pipeline import DataConfig, batch_at
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import dryrun
+    from repro_torch.sharding import gather
     from repro_torch.sharding.policy import ShardingPolicy
     from repro_torch.train import trainer
 
-    n = TP_RANK["world"]
+    mesh_shape = tuple(mesh_shape or (1, TP_RANK["world"]))
+    world, n = math.prod(mesh_shape), mesh_shape[-1]
+    steps = TP_RANK["steps"] if steps is None else steps
     shape = ShapeSpec("train_4k", seq, rows, "train")
     names = ("data", "model")
-    with dryrun.fake_world(n):
-        pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", (1, n), mesh_dim_names=names),
-                            setup)
+    with dryrun.fake_world(world):
+        pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", mesh_shape,
+                                                         mesh_dim_names=names), setup)
 
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    with dryrun.fake_world(n):
-        mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=names)
+    with dryrun.fake_world(world):
+        mesh = init_device_mesh("cuda", mesh_shape, mesh_dim_names=names)
         state = trainer.init_train_state(cfg, setup, torch.Generator(device=dev).manual_seed(
             TRAIN["seed"]), dev)
         state = trainer.shard_train_state(state, ShardingPolicy(mesh, cfg))
         data = DataConfig(cfg.vocab_size, seq, rows, seed=TRAIN["seed"])
         batch = {k: v.to(dev) for k, v in batch_at(data, 0).items()}
-        args_bytes = dryrun.local_bytes(state) + dryrun.local_bytes(batch)
+        args_bytes = dryrun.local_bytes(state) + dryrun.local_bytes(
+            {k: v[trainer._local_rows(ShardingPolicy(mesh, cfg), rows)[0]]
+             for k, v in batch.items()})
         step = trainer.make_train_step(cfg, setup, mesh)
         fa_ops.LAUNCHES_BY_CALL.clear()
+        gather.COUNTS["blocks"] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         counter = dryrun.StepCounter()
@@ -4473,17 +4513,18 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int)
         counted_ms = 1e3 * (time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() - base
         launches = dict(fa_ops.LAUNCHES_BY_CALL)
+        blocks = gather.COUNTS["blocks"]
         del m
 
         def run():
             nonlocal state
             state, _ = step(state, batch)
         fa_ops.LAUNCHES_BY_CALL.clear()
-        prof = busy_share(run, TP_RANK["steps"], f"phase {phase} rank step")
+        prof = busy_share(run, steps, f"phase {phase} rank step") if steps else None
         timed = dict(fa_ops.LAUNCHES_BY_CALL)
         del state, step, batch
     torch.cuda.empty_cache()
-    B = rows // setup.micro_batches
+    B = rows // setup.micro_batches // mesh_shape[0]
     heads = cfg.num_heads // n
     key = fa_ops.call_key(B, seq, seq, heads, 1, cfg.head_dim, True, torch.bfloat16)
     flash = fa_ops.flops(B, seq, seq, heads, cfg.head_dim, True)
@@ -4492,30 +4533,41 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int)
     mem = pred["memory"]
     flop_off = abs(pred["flops_per_device"] - card_flops) / card_flops
     peak_off = abs(mem["peak_bytes_est"] - peak) / peak
-    log(f"phase {phase} one rank of a 16-way model axis ({card}): {cfg.name}, "
-        f"{cfg.num_layers} of {get_config_layers(cfg.name)} layers at every width, bf16, "
-        f"batch {rows} x {seq} in {setup.micro_batches} microbatches, rank 0 of a fake "
-        f"process group of {n} on the mesh (1, {n}): its tensors and kernel launches are "
-        "real at the rank's local shapes, its collectives return at once without data, so "
-        "this is a rank's compute time and memory under tensor parallelism, not its values "
-        f"(no loss is checked); {prof['wall_ms']:.3f} ms a step ({TP_RANK['steps']} steps; "
-        f"device busy {prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = "
-        f"{prof['busy']:.1%} of the wall), the counted first step {counted_ms:.3f} ms; peak "
-        f"{peak / 2**30:.3f} GiB max_memory_allocated less the {base / 2**30:.3f} GiB "
-        f"allocated before the state; flash launches by call {launches} in the counted "
-        f"step, {timed} in the {2 * TP_RANK['steps']} timed and profiled.  The dry-run of "
-        f"the same rank, traced in {pred['trace_s']:.1f} s: argument bytes "
-        f"{mem['argument_bytes']} predicted, {args_bytes} held; flash calls {calls} "
-        f"predicted; FLOPs {pred['flops_per_device']:.6e} predicted, {card_flops:.6e} "
-        f"counted on the card ({counter.flops:.6e} aten + {card_flops - counter.flops:.6e} "
-        f"kernel), off by {flop_off:.3%}; peak {mem['peak_bytes_est'] / 2**30:.3f} GiB "
-        f"predicted, off by {peak_off:.2%}")
+    coll = {k: v["count"] for k, v in counter.collectives.items()}
+    pred_coll = {k: v["count"] for k, v in pred["collectives"].items()}
+    want_blocks = 2 * cfg.num_blocks * setup.micro_batches
+    timing = (f"{prof['wall_ms']:.3f} ms a step ({steps} steps; device busy "
+              f"{prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = "
+              f"{prof['busy']:.1%} of the wall), " if prof else "")
+    log(f"phase {phase} one rank of the mesh {mesh_shape} (data, model) training ({card}): "
+        f"{cfg.name}, {cfg.num_layers} of {get_config_layers(cfg.name)} layers at every "
+        f"width, bf16, batch {rows} x {seq} in {setup.micro_batches} microbatches "
+        f"({B} row(s) a rank a microbatch), rank 0 of a fake process group of {world}: its "
+        "tensors and kernel launches are real at the rank's local shapes, its collectives "
+        "return at once without data, so this is a rank's compute time and memory, not its "
+        f"values (no loss is checked); {timing}the counted first step {counted_ms:.3f} ms; "
+        f"peak {peak / 2**30:.3f} GiB max_memory_allocated less the {base / 2**30:.3f} GiB "
+        f"allocated before the state; {blocks} block gathers (2 a block and microbatch: "
+        f"{want_blocks}); flash launches by call {launches} in the counted step, {timed} in "
+        f"the {2 * steps} timed and profiled.  The dry-run of the same rank, traced in "
+        f"{pred['trace_s']:.1f} s: argument bytes {mem['argument_bytes']} predicted, "
+        f"{args_bytes} held; flash calls {calls} predicted; FLOPs "
+        f"{pred['flops_per_device']:.6e} predicted, {card_flops:.6e} counted on the card "
+        f"({counter.flops:.6e} aten + {card_flops - counter.flops:.6e} kernel), off by "
+        f"{flop_off:.3%}; peak {mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, off by "
+        f"{peak_off:.2%}; collectives {coll} on the card, {pred_coll} predicted")
     if mem["argument_bytes"] != args_bytes:
         raise AssertionError(f"phase {phase}: argument bytes {mem['argument_bytes']} "
                              f"predicted, {args_bytes} on the card")
     if calls != launches or set(launches) != {key}:
         raise AssertionError(f"phase {phase}: flash calls {calls} predicted, launches "
                              f"{launches}, expected all at {key}")
+    if blocks != want_blocks:
+        raise AssertionError(f"phase {phase}: {blocks} block gathers, not {want_blocks} "
+                             "(the forward's and the recompute's of each block and microbatch)")
+    if coll != pred_coll:
+        raise AssertionError(f"phase {phase}: collectives {coll} on the card, {pred_coll} "
+                             "predicted")
     if flop_off > 0.01:
         raise AssertionError(f"phase {phase}: FLOPs off by {flop_off:.3%} (bound 1%)")
     if peak_off > 0.10:
@@ -4525,7 +4577,8 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int)
     timing = time_flash_shape(dev, gen, f"phase {phase} flash at the rank's local shape",
                               heads, 1, cfg.head_dim, S=seq, B=B)
     return dict(launches=sum(launches.values()) + sum(timed.values()), timing=timing,
-                ms=prof["wall_ms"], peak=peak, busy=prof["busy"], pred=pred)
+                ms=prof["wall_ms"] if prof else counted_ms, peak=peak,
+                busy=prof["busy"] if prof else None, pred=pred, counted_ms=counted_ms)
 
 
 def run_ep_train_rank(dev, card: str) -> dict:
@@ -4573,9 +4626,9 @@ def decode_on_mesh_of_one(dev, card: str, mesh, phase: str, arch: str, layers: i
     (an attention-only stack), else by a ``TP_DECODE["rwkv_prompt"]``-token
     prompt stepped through the unmeshed step (its RWKV or Mamba states).
     Then ``TP_DECODE["steps"]`` greedy steps from copies of that cache,
-    unmeshed and on the (1, 1) ``mesh`` (the parameters placed by the policy
-    and ``gather_model_shards``, the unmeshed copy freed first; the cache
-    placed and ``cache_model_shards``), under ``fixed_order_sums()``: the
+    unmeshed and on the (1, 1) ``mesh`` (the parameters placed by the
+    policy, the unmeshed copy freed first, each block gathered as it runs;
+    the cache placed and ``cache_model_shards``), under ``fixed_order_sums()``: the
     logits of every step and every cache leaf after the last bit for bit
     equal; the meshed run's WKV6 launches by call, one a layer and step for
     an RWKV stack, none otherwise."""
@@ -4620,10 +4673,8 @@ def decode_on_mesh_of_one(dev, card: str, mesh, phase: str, arch: str, layers: i
             tok = logits.argmax(-1, keepdim=True).to(torch.int32)
         runs[False] = got
         placed = policy.distribute(params, policy.params_sharding(params))
-        del params                      # the card holds two copies, not three
+        del params                      # the card holds the placed copy alone
         torch.cuda.empty_cache()
-        tp_params = trainer.gather_model_shards(placed, mesh)
-        del placed
         tp_cache = trainer.cache_model_shards(
             policy.distribute(copy, policy.cache_sharding(copy)), mesh)
         del copy
@@ -4631,7 +4682,7 @@ def decode_on_mesh_of_one(dev, card: str, mesh, phase: str, arch: str, layers: i
         tok, got = first, []
         with ctx.use_mesh(mesh):
             for _ in range(N):
-                logits, tp_cache = step(tp_params, tp_cache, tok)
+                logits, tp_cache = step(placed, tp_cache, tok)
                 got.append(logits)
                 tok = logits.argmax(-1, keepdim=True).to(torch.int32)
         runs[True] = got
@@ -4660,7 +4711,7 @@ def decode_on_mesh_of_one(dev, card: str, mesh, phase: str, arch: str, layers: i
     if launches != want:
         raise AssertionError(f"phase {phase} {arch}: WKV6 launches {launches}, expected "
                              f"{want}")
-    del cache, tp_params, tp_cache, runs
+    del cache, placed, tp_cache, runs
     torch.cuda.empty_cache()
     return dict(launches=sum(launches.values()))
 
@@ -4707,25 +4758,31 @@ def rank_shards(dev, cfg, policy, seed: int) -> dict:
     return _tree_map(draw, policy.distribute(meta, policy.params_sharding(meta)))
 
 
-def decode_rank_case(dev, card: str, phase: str, arch: str, over: dict | None = None) -> dict:
-    """One case of phases 33b and 34b: one rank of a 16-way model axis
-    decoding at ``decode_32k``'s local shapes (``TP_DECODE["rows"]`` rows, a
+def decode_rank_case(dev, card: str, phase: str, arch: str, over: dict | None = None,
+                     mesh_shape: tuple | None = None) -> dict:
+    """One case of phases 33b, 34b and 35a: one rank decoding at
+    ``decode_32k``'s local shapes (``TP_DECODE["rows"]`` rows a data rank, a
     cache of ``TP_DECODE["seq"]`` positions), bf16, ``arch``'s config with
-    the overrides ``over``.  First traced by the dry-run on ``meta`` tensors
-    in a fake process group of 16 (mesh (1, 16)); then the same rank runs on
-    the card as rank 0 of a fake process group of 16 over a ``cuda`` mesh
-    (1, 16): real tensors and launches at the rank's shapes, collectives
-    that return at once without data (so no value is checked).  Only the
-    rank's shards of the parameters are drawn (``rank_shards``) and of the
-    cache made, at their local shapes.  A first step (the parameters' and the
-    cache's rewrap included, as the dry-run traces it) from len 0, after
-    ``reset_peak_memory_stats``, under the dry-run's counter: argument bytes
-    equal, WKV6 launches by call equal to the predicted calls (none but an
-    RWKV stack's), FLOPs within 1%, the predicted peak within 10% of
-    ``max_memory_allocated`` less what was allocated before; then
-    ``TP_DECODE["timed"]`` steps on the rewrapped tree timed and as many
-    profiled (the device's busy share)."""
+    the overrides ``over``, on a (data, model) mesh of ``mesh_shape``
+    (default (1, 16): one rank of a 16-way model axis).  First traced by
+    the dry-run on ``meta`` tensors in a fake process group of the mesh's
+    ranks; then the same rank runs on the card as rank 0 of a fake process
+    group of as many over a ``cuda`` mesh: real tensors and launches at the
+    rank's shapes, collectives that return at once without data (so no
+    value is checked).  Only the rank's shards of the parameters are drawn
+    (``rank_shards``) and of the cache made, at their local shapes, and the
+    step takes its rows of the tokens (``ctx.cut_batch``, as the dry-run
+    cuts them).  A first step (the cache's rewrap and every block's gather
+    included, as the dry-run traces it) from len 0, after
+    ``reset_peak_memory_stats``, under the dry-run's counter: argument
+    bytes equal, WKV6 launches by call equal to the predicted calls (none
+    but an RWKV stack's), one block gather a block, the collectives by
+    kind as many as predicted, FLOPs within 0.01%, the predicted peak
+    within 2% of ``max_memory_allocated`` less what was allocated before;
+    then ``TP_DECODE["timed"]`` steps on the rewrapped cache timed and as
+    many profiled (the device's busy share)."""
     import dataclasses
+    import math
 
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
@@ -4734,52 +4791,56 @@ def decode_rank_case(dev, card: str, phase: str, arch: str, over: dict | None = 
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
     from repro_torch.launch import dryrun
     from repro_torch.models import lm
-    from repro_torch.sharding import ctx
+    from repro_torch.sharding import ctx, gather
     from repro_torch.sharding.policy import ShardingPolicy
     from repro_torch.train import trainer
 
-    T, n = TP_DECODE, TP_DECODE["world"]
+    T = TP_DECODE
+    mesh_shape = tuple(mesh_shape or (1, T["world"]))
+    world, n = math.prod(mesh_shape), mesh_shape[-1]
     names = ("data", "model")
-    shape = ShapeSpec("decode_32k", T["seq"], T["rows"], "decode")
+    shape = ShapeSpec("decode_32k", T["seq"], T["rows"] * mesh_shape[0], "decode")
     cfg = dataclasses.replace(get_config(arch), **(over or {}))
-    with dryrun.fake_world(n):
-        pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", (1, n), mesh_dim_names=names))
+    with dryrun.fake_world(world):
+        pred = dryrun.trace(cfg, shape, init_device_mesh("cpu", mesh_shape,
+                                                         mesh_dim_names=names))
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
-    with dryrun.fake_world(n):
-        mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=names)
+    with dryrun.fake_world(world):
+        mesh = init_device_mesh("cuda", mesh_shape, mesh_dim_names=names)
         policy = ShardingPolicy(mesh, cfg)
         params = rank_shards(dev, cfg, policy, int(phase[:2]))
-        meta = lm.init_cache(cfg, T["rows"], T["seq"], "meta")
+        meta = lm.init_cache(cfg, shape.global_batch, T["seq"], "meta")
         # the rank's shards made at their local shapes: the whole cache
         # (2 x 32 GB for llama3-8b) is not drawn
         cache = _tree_map(lambda x: DTensor.from_local(
             torch.zeros_like(x.to_local(), device=dev), mesh, x.placements,
             run_check=False) if isinstance(x, DTensor) else x,
             policy.distribute(meta, policy.cache_sharding(meta)))
-        tokens = torch.randint(1, cfg.vocab_size, (T["rows"], 1), device=dev,
+        rows, cut = trainer._local_rows(policy, shape.global_batch)
+        tokens = torch.randint(1, cfg.vocab_size, (shape.global_batch, 1), device=dev,
                                generator=torch.Generator(device=dev).manual_seed(331),
-                               dtype=torch.int32)
+                               dtype=torch.int32)[rows]
         args_bytes = dryrun.local_bytes((params, cache)) + dryrun.local_bytes(tokens)
         step = lm.serve_step(cfg)
         wkv_ops.LAUNCHES_BY_CALL.clear()
+        gather.COUNTS["blocks"] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         counter = dryrun.StepCounter()
         t0 = time.perf_counter()
-        with counter, ctx.use_mesh(mesh):
-            tp_params = trainer.gather_model_shards(params, mesh)
-            logits, tp_cache = step(tp_params, trainer.cache_model_shards(cache, mesh),
-                                    tokens)
+        with counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
+            logits, tp_cache = step(params, trainer.cache_model_shards(cache, mesh), tokens)
         torch.cuda.synchronize()
         counted_ms = 1e3 * (time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() - base
         launches = dict(wkv_ops.LAUNCHES_BY_CALL)
+        blocks = gather.COUNTS["blocks"]
 
         def run():
             nonlocal logits
-            with ctx.use_mesh(mesh):
-                logits, _ = step(tp_params, tp_cache, tokens)
+            with ctx.use_mesh(mesh), ctx.cut_batch(cut):
+                logits, _ = step(params, tp_cache, tokens)
         wkv_ops.LAUNCHES_BY_CALL.clear()
         prof = busy_share(run, T["timed"], f"phase {phase} {arch} rank step")
         timed = dict(wkv_ops.LAUNCHES_BY_CALL)
@@ -4787,7 +4848,7 @@ def decode_rank_case(dev, card: str, phase: str, arch: str, over: dict | None = 
             raise AssertionError(f"phase {phase} {arch}: logits {tuple(logits.shape)}, not "
                                  "[rows, V] (their values are not the rank's: the fake "
                                  "group's collectives carry no data)")
-        del params, cache, tp_params, tp_cache, logits
+        del params, cache, tp_cache, logits
     torch.cuda.empty_cache()
     flops = counter.flops + (sum(launches.values()) * wkv_ops.flops(
         T["rows"], 1, cfg.rwkv_heads // n, cfg.rwkv_head_size) if launches else 0)
@@ -4795,52 +4856,60 @@ def decode_rank_case(dev, card: str, phase: str, arch: str, over: dict | None = 
     mem = pred["memory"]
     flop_off = abs(pred["flops_per_device"] - flops) / flops
     peak_off = abs(mem["peak_bytes_est"] - peak) / peak
+    coll = {k: v["count"] for k, v in counter.collectives.items()}
+    pred_coll = {k: v["count"] for k, v in pred["collectives"].items()}
     if cfg.family == "ssm":
-        cut = f"the cache cut by heads ({cfg.rwkv_heads // n} of {cfg.rwkv_heads} a rank)"
+        cut_by = f"the cache cut by heads ({cfg.rwkv_heads // n} of {cfg.rwkv_heads} a rank)"
     elif cfg.num_kv_heads % n:
-        cut = f"the cache cut by positions ({T['seq'] // n} a rank)"
+        cut_by = f"the cache cut by positions ({T['seq'] // n} a rank)"
     else:
-        cut = f"the cache cut by kv heads ({cfg.num_kv_heads // n} a rank)"
+        cut_by = f"the cache cut by kv heads ({cfg.num_kv_heads // n} a rank)"
     if cfg.num_experts:
-        cut += (f", the experts cut by experts ({cfg.num_experts // n} of {cfg.num_experts} a "
-                "rank)" if cfg.num_experts % n == 0 else
-                f", each of the {cfg.num_experts} experts cut by d_ff ({cfg.d_ff // n} of "
-                f"{cfg.d_ff} a rank)")
+        cut_by += (f", the experts cut by experts ({cfg.num_experts // n} of "
+                   f"{cfg.num_experts} a rank)" if cfg.num_experts % n == 0 else
+                   f", each of the {cfg.num_experts} experts cut by d_ff ({cfg.d_ff // n} of "
+                   f"{cfg.d_ff} a rank)")
     if cfg.family == "hybrid":
-        cut += (f", Mamba by d_inner ({cfg.mamba_d_inner // n} of {cfg.mamba_d_inner} "
-                "channels a rank)")
-    log(f"phase {phase} one rank of a 16-way model axis decoding ({card}): {arch}, "
-        f"{cfg.num_layers} of {get_config_layers(arch)} layers at every width, bf16, "
-        f"{T['rows']} rows against a cache of {T['seq']} positions, {cut}, rank 0 of a fake "
-        f"process group of {n} on the mesh (1, {n}) (real tensors and launches at the "
-        f"rank's shapes, collectives that return at once: no values); "
+        cut_by += (f", Mamba by d_inner ({cfg.mamba_d_inner // n} of {cfg.mamba_d_inner} "
+                   "channels a rank)")
+    log(f"phase {phase} one rank of the mesh {mesh_shape} (data, model) decoding ({card}): "
+        f"{arch}, {cfg.num_layers} of {get_config_layers(arch)} layers at every width, bf16, "
+        f"{T['rows']} rows of {shape.global_batch} against a cache of {T['seq']} positions, "
+        f"{cut_by}, rank 0 of a fake process group of {world} (real tensors and launches at "
+        f"the rank's shapes, collectives that return at once: no values); "
         f"{prof['wall_ms']:.3f} ms a step ({T['timed']} steps; device busy "
         f"{prof['busy_ms']:.3f} ms in {prof['kernels']:.0f} kernels = {prof['busy']:.1%} of "
-        f"the wall), the counted first step (the rewrap included) {counted_ms:.3f} ms; peak "
-        f"{peak / 2**30:.3f} GiB max_memory_allocated less the {base / 2**30:.3f} GiB "
-        f"allocated before; WKV6 launches by call {launches} in the counted step, {timed} in "
-        f"the {2 * T['timed']} timed and profiled.  The dry-run of the same rank, traced in "
-        f"{pred['trace_s']:.1f} s: argument bytes {mem['argument_bytes']} predicted, "
-        f"{args_bytes} held; WKV6 calls {calls}; FLOPs {pred['flops_per_device']:.6e} "
-        f"predicted, {flops:.6e} counted on the card ({counter.flops:.6e} aten), off by "
-        f"{flop_off:.3%}; peak {mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, off by "
-        f"{peak_off:.2%}; collectives "
-        f"{({k: v['count'] for k, v in counter.collectives.items()})} on the card, "
-        f"{({k: v['count'] for k, v in pred['collectives'].items()})} predicted")
+        f"the wall), the counted first step (the cache's rewrap and {blocks} block gathers "
+        f"included) {counted_ms:.3f} ms; peak {peak / 2**30:.3f} GiB max_memory_allocated "
+        f"less the {base / 2**30:.3f} GiB allocated before; WKV6 launches by call {launches} "
+        f"in the counted step, {timed} in the {2 * T['timed']} timed and profiled.  The "
+        f"dry-run of the same rank, traced in {pred['trace_s']:.1f} s: argument bytes "
+        f"{mem['argument_bytes']} predicted, {args_bytes} held; WKV6 calls {calls}; FLOPs "
+        f"{pred['flops_per_device']:.6e} predicted, {flops:.6e} counted on the card "
+        f"({counter.flops:.6e} aten), off by {flop_off:.4%}; peak "
+        f"{mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, off by {peak_off:.2%}; "
+        f"collectives {coll} on the card, {pred_coll} predicted")
     if mem["argument_bytes"] != args_bytes:
         raise AssertionError(f"phase {phase} {arch}: argument bytes {mem['argument_bytes']} "
                              f"predicted, {args_bytes} on the card")
     if calls != launches:
         raise AssertionError(f"phase {phase} {arch}: WKV6 calls {calls} predicted, "
                              f"launches {launches}")
-    if flop_off > 0.01:
-        raise AssertionError(f"phase {phase} {arch}: FLOPs off by {flop_off:.3%} "
-                             "(bound 1%)")
-    if peak_off > 0.10:
+    if blocks != cfg.num_blocks:
+        raise AssertionError(f"phase {phase} {arch}: {blocks} block gathers, not one a "
+                             f"block ({cfg.num_blocks})")
+    if coll != pred_coll:
+        raise AssertionError(f"phase {phase} {arch}: collectives {coll} on the card, "
+                             f"{pred_coll} predicted")
+    if flop_off > 1e-4:
+        raise AssertionError(f"phase {phase} {arch}: FLOPs off by {flop_off:.4%} "
+                             "(bound 0.01%)")
+    if peak_off > 0.02:
         raise AssertionError(f"phase {phase} {arch}: the predicted peak is off by "
-                             f"{peak_off:.2%} (bound 10%)")
+                             f"{peak_off:.2%} (bound 2%)")
     return dict(launches=sum(launches.values()) + sum(timed.values()), ms=prof["wall_ms"],
-                busy=prof["busy"], peak=peak, pred=pred)
+                busy=prof["busy"], peak=peak, pred=pred, collectives=coll,
+                counted_ms=counted_ms)
 
 
 def run_tp_decode_rank(dev, card: str) -> dict:
@@ -4916,6 +4985,30 @@ def run_ep_decode_rank(dev, card: str) -> dict:
     return {arch: decode_rank_case(dev, card, "34b", arch, over)
             for arch, over in (("granite-moe-3b-a800m", None), ("qwen2-moe-a2.7b", None),
                                ("jamba-1.5-large-398b", dict(num_layers=8)))}
+
+
+def run_block_gather(dev, card: str) -> dict:
+    """Phase 35: per-block parameter gathering on the card, rank 0 of a
+    fake process group of 256 on the single (16, 16) mesh (``BLOCKS``):
+    35a one rank of jamba-1.5-large-398b's ``decode_32k`` at full depth
+    (``decode_rank_case``), 35b one rank of a llama3-8b train step at
+    ``BLOCKS["train_layers"]`` layers (``train_rank_case``, its flash
+    launches at the rank's local shape timed there)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.train import trainer
+
+    B = BLOCKS
+    out = {"decode": decode_rank_case(dev, card, "35a", B["decode_arch"],
+                                      mesh_shape=B["mesh"])}
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), num_layers=B["train_layers"])
+    setup = trainer.TrainSetup(micro_batches=B["train_micro"], learning_rate=TRAIN["lr"],
+                               warmup_steps=TRAIN["warmup"],
+                               total_steps=TRAIN["warmup"] + TRAIN["timed"])
+    out["train"] = train_rank_case(dev, card, "35b", cfg, setup, B["train_rows"], TRAIN["seq"],
+                                   mesh_shape=B["mesh"], steps=0)
+    return out
 
 
 def run_dryrun_cells() -> dict:
@@ -5162,6 +5255,9 @@ def main() -> int:
     run_ep_decode_rank(dev, card)
     ep_train = run_ep_train_rank(dev, card)
     log(f"phase 34 {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    blocks = run_block_gather(dev, card)
+    log(f"phase 35 {time.perf_counter() - t0:.1f} s")
 
     def row(name, source, replaces, launches, check, t):
         return {"name": name, "route": "cuda", "source": source,
@@ -5283,6 +5379,12 @@ def main() -> int:
         row("flash_attention_tp_moe", flash_sm90, flash_tpu,
             ep_train["launches"] + ep_one["train"]["launches"], ep_train["timing"],
             ep_train["timing"]),
+        # phase 35b: a rank of the (16, 16) mesh training llama3-8b with
+        # each block gathered just before it runs (q [1, 2048, 2, 128]
+        # against one kv head: one row a rank a microbatch), timed there
+        row("flash_attention_block_gather", flash_sm90, flash_tpu,
+            blocks["train"]["launches"], blocks["train"]["timing"],
+            blocks["train"]["timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

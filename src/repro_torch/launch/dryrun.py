@@ -21,9 +21,10 @@ sends:
   ``prefill`` and ``decode`` cells place the parameters and the cache by
   ``policy.params_sharding`` and ``policy.cache_sharding`` (the
   reference's ``in_shardings``) and cut the batch to this rank's rows.  A
-  ``prefill`` cell runs ``lm.prefill_forward`` through the same
-  tensor-parallel blocks as the train step: the parameters gathered over
-  the data axes only (``trainer.gather_model_shards``), the activations
+  ``prefill`` cell runs ``lm.prefill_forward`` on the placed parameters
+  through the same tensor-parallel blocks as the train step: each block's
+  leaves gathered over the data axes only just before it runs, the leaves
+  outside the blocks once (``sharding/gather.py``), the activations
   DTensors on the model sub-mesh.  A ``decode`` cell runs the
   tensor-parallel ``lm.serve_step`` on the same parameters and on the
   rank's shard of the cache, rewrapped on the model sub-mesh
@@ -42,8 +43,8 @@ sends:
   (``flops_aten``, ``kernels``);
 * ``collectives``: a ``TorchDispatchMode`` (:class:`StepCounter`) over the
   ``_c10d_functional``, ``c10d_functional`` and ``c10d`` ops: by the
-  reference's kinds, the count, the result bytes and the wire bytes at the
-  reference's ring factors (``_WIRE_FACTOR``);
+  reference's kinds, the count, the result bytes, the largest result and
+  the wire bytes at the reference's ring factors (``_WIRE_FACTOR``);
 * ``memory``: ``argument_bytes`` exactly (this rank's shards of the state,
   parameters and cache, and its rows of the batch, as the reference's
   ``in_shardings`` cut them), ``output_bytes`` (this rank's part of what
@@ -56,8 +57,10 @@ The numbers are the port's own, not XLA's: they include the
 rematerialization's recompute, the compute the model axis still repeats
 (the attention core of head counts it does not divide, the MoE's
 routing), the kernels' plain float32 backward with its
-``[B, H, S, S]`` scores at the rank's heads, and the parameters gathered
-over the data axes (ROADMAP A4).  There is no HLO, so no ``corrected`` trip-count analysis
+``[B, H, S, S]`` scores at the rank's heads, and one block's parameters
+gathered over the data axes at a time (the forward's and, in training,
+the recompute's gather, as the reference's rematerialized scan makes
+them).  There is no HLO, so no ``corrected`` trip-count analysis
 and no ``bytes_accessed``; ``trace_s`` (the step's wall seconds under the
 counters) stands where ``lower_s`` and ``compile_s`` stood.
 
@@ -202,9 +205,10 @@ class StepCounter(TorchDispatchMode):
             # only a work handle
             b = sum(t.nbytes for t in _tensors(out)) or _tensors(args[:1])[0].nbytes
             d = self.collectives.setdefault(kind, {"count": 0, "result_bytes": 0,
-                                                   "wire_bytes": 0.0})
+                                                   "wire_bytes": 0.0, "largest_bytes": 0})
             d["count"] += 1
             d["result_bytes"] += b
+            d["largest_bytes"] = max(d["largest_bytes"], b)
             d["wire_bytes"] += b * _WIRE_FACTOR[kind]
         for t in _tensors(out):
             self._see(t)
@@ -340,15 +344,14 @@ def trace(cfg, shape, mesh, setup=None, fsdp: bool = True, inputs: dict | None =
             fn = lm.prefill_forward(cfg)
             t0 = time.perf_counter()
             with counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
-                out = fn(trainer.gather_model_shards(params, mesh), batch)
+                out = fn(params, batch)
         else:
             cache, tokens = placed.pop("cache"), placed.pop("tokens")[rows]
             counter.track((params, cache, tokens))
             fn = lm.serve_step(cfg)
             t0 = time.perf_counter()
             with counter, ctx.use_mesh(mesh), ctx.cut_batch(cut):
-                out = fn(trainer.gather_model_shards(params, mesh),
-                         trainer.cache_model_shards(cache, mesh), tokens)
+                out = fn(params, trainer.cache_model_shards(cache, mesh), tokens)
             del cache
         del params
     trace_s = time.perf_counter() - t0

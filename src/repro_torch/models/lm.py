@@ -32,10 +32,16 @@ is plain PyTorch, as the reference left it to XLA.  The reference's
 activation-sharding hints (``sharding.ctx.constrain``) sit at its points:
 no-ops without a mesh, so every single-device number is unchanged.
 
-With DTensor parameters on the ``model`` sub-mesh (the meshed train step,
-the dry-run's prefill and the tensor-parallel decode,
-``trainer.gather_model_shards``) the blocks are tensor-parallel
-(``docs/torch_lm_sharding.md``): each branch's input is ``ctx.tp_input``,
+Over a mesh (the meshed train step, the dry-run's prefill and the
+tensor-parallel decode) ``train_loss``, ``prefill_forward`` and
+``serve_step`` take the placed tree, each rank holding its shards
+(``policy.params_sharding``), and gather as the reference's rematerialized
+scan does: the leaves outside the blocks once, each block's just before it
+runs and, in training, again in its recompute
+(``sharding/gather.py``: ``gather_outside_blocks``, ``BlockShards``).  A
+block's parameters are then DTensors on the ``model`` sub-mesh, and the
+blocks are tensor-parallel (``docs/torch_lm_sharding.md``; a tree already
+on that sub-mesh runs so too): each branch's input is ``ctx.tp_input``,
 its row-parallel output is made whole where it joins the residual, the
 cross-entropy is vocab-parallel where the vocab is cut
 (``vocab_parallel_ce``), the MoE FFN is cut by experts or by each expert's
@@ -56,7 +62,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import nn, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.sharding import ctx
+from repro_torch.sharding import ctx, gather
 
 Params = dict
 Batch = dict
@@ -89,6 +95,29 @@ def _blocks(layers: Params, n: int) -> list[Params]:
     (``_block``'s select would scatter into a zero leaf a block)."""
     split = _tree_map(lambda a: a.unbind(0), layers)
     return [_tree_map(lambda parts, b=b: parts[b], split) for b in range(n)]
+
+
+def _block_params(layers: Params, n: int, root: str = "layers") -> tuple[list, Callable]:
+    """(what each of the ``n`` blocks is handed, the function that makes it
+    the block's parameters).  Plain or model-axis leaves: the blocks' views
+    (``_blocks``) and the identity.  A placed tree (``gather.is_placed``):
+    each block's stored shards and ``gather.BlockShards.gather``, which the
+    caller runs just before the block (inside its checkpoint in training),
+    so one block's gathered leaves are live at a time."""
+    if not gather.is_placed(layers):
+        return _blocks(layers, n), _as_is
+    shards = gather.BlockShards(layers, root)
+    return [shards.shards(b) for b in range(n)], shards.gather
+
+
+def _as_is(p: Params) -> Params:
+    return p
+
+
+def _outside_blocks(params: Params) -> Params:
+    """A placed tree's leaves outside the blocks gathered once
+    (``gather.gather_outside_blocks``); any other tree as it is."""
+    return gather.gather_outside_blocks(params) if gather.is_placed(params) else params
 
 
 def _recompute(fn: Callable, *args, remat: bool = True):
@@ -298,9 +327,11 @@ def _position_forward(cfg: ModelConfig, p: Params, mixer: str, fkind: str, x,
 
 
 def _block_forward(cfg: ModelConfig, block_params: Params, x, positions,
-                   memory=None):
-    """One block (``cfg.block_period`` sub-layers) in training.  Returns (x,
-    the block's aux loss, a float32 scalar)."""
+                   memory=None, make=_as_is):
+    """One block (``cfg.block_period`` sub-layers) in training, its
+    parameters ``make(block_params)`` (``_block_params``).  Returns (x, the
+    block's aux loss, a float32 scalar)."""
+    block_params = make(block_params)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for pos, (mixer, fkind) in enumerate(cfg.block_program()):
         x, aux = _position_forward(cfg, block_params[f"pos{pos}"], mixer, fkind, x,
@@ -315,9 +346,10 @@ def _scan_blocks(cfg: ModelConfig, layers: Params, x, positions, memory=None):
     Returns (x, the summed aux loss)."""
     res_spec = ("dp", "tp", None) if cfg.seq_sharded_residual else ("dp", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block_params in _blocks(layers, cfg.num_blocks):
+    blocks, make = _block_params(layers, cfg.num_blocks)
+    for block_params in blocks:
         x = ctx.constrain(x, *res_spec)
-        x, aux_b = _recompute(_block_forward, cfg, block_params, x, positions, memory,
+        x, aux_b = _recompute(_block_forward, cfg, block_params, x, positions, memory, make,
                               remat=cfg.remat)
         x = ctx.constrain(x, *res_spec)
         aux = aux + aux_b
@@ -327,7 +359,8 @@ def _scan_blocks(cfg: ModelConfig, layers: Params, x, positions, memory=None):
 # ===========================================================================
 # Encoder (enc-dec family)
 # ===========================================================================
-def _encoder_layer(cfg: ModelConfig, p: Params, x, positions):
+def _encoder_layer(cfg: ModelConfig, p: Params, x, positions, make=_as_is):
+    p = make(p)
     h = ctx.tp_input(nn.rmsnorm(p["norm1"], x, cfg.norm_eps))
     x = x + _whole(_run_attn(p["mixer"], h, cfg, positions, causal=False))
     h = ctx.tp_input(nn.rmsnorm(p["norm2"], x, cfg.norm_eps))
@@ -342,9 +375,11 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
     ``cfg.remat`` (serving calls it under ``no_grad``)."""
     S = frames.shape[1]
     positions = torch.arange(S, device=frames.device)[None, :]
+    params = _outside_blocks(params)
     x = ctx.enter(frames.to(_dt(cfg)), params["enc_final_norm"]["scale"])
-    for p in _blocks(params["enc_layers"], cfg.encoder_layers):
-        x = _recompute(_encoder_layer, cfg, p, x, positions, remat=cfg.remat)
+    layers, make = _block_params(params["enc_layers"], cfg.encoder_layers, "enc_layers")
+    for p in layers:
+        x = _recompute(_encoder_layer, cfg, p, x, positions, make, remat=cfg.remat)
     return ctx.tp_input(nn.rmsnorm(params["enc_final_norm"], x, cfg.norm_eps))
 
 
@@ -469,6 +504,7 @@ def train_loss(cfg: ModelConfig):
     first S, ROADMAP C10)."""
 
     def loss_fn(params: Params, batch: Batch):
+        params = _outside_blocks(params)
         memory = encode(cfg, params, batch["frames"]) if cfg.encoder_layers else None
         x, targets, mask, positions = _embed_inputs(cfg, params, batch)
         x, aux = _scan_blocks(cfg, params["layers"], x, positions, memory)
@@ -482,6 +518,25 @@ def train_loss(cfg: ModelConfig):
     return loss_fn
 
 
+def _prefill_block(cfg: ModelConfig, block_params: Params, x, positions, memory,
+                   taps: dict):
+    """One block of the prefill: ``x`` after it; each attention position's
+    post-RoPE K/V appended to ``taps``, re-projected as the reference does."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    for pos, (mixer, fkind) in enumerate(cfg.block_program()):
+        p = block_params[f"pos{pos}"]
+        if mixer == "attn":
+            hh = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
+            k = ctx.local(nn.split_heads(nn.linear(p["mixer"]["wk"], hh), hkv, hd))
+            v = ctx.local(nn.split_heads(nn.linear(p["mixer"]["wv"], hh), hkv, hd))
+            k = nn.apply_rope(k, positions, cfg.rope_theta)
+            tap = taps.setdefault(f"pos{pos}", {"k": [], "v": []})
+            tap["k"].append(k)
+            tap["v"].append(v)
+        x, _ = _position_forward(cfg, p, mixer, fkind, x, positions, memory)
+    return x
+
+
 def prefill_forward(cfg: ModelConfig):
     """Returns fn(params, batch) -> (last_logits [B,V] float32, kv_outputs).
 
@@ -493,26 +548,14 @@ def prefill_forward(cfg: ModelConfig):
 
     @torch.no_grad()
     def fn(params: Params, batch: Batch):
+        params = _outside_blocks(params)
         memory = encode(cfg, params, batch["frames"]) if cfg.encoder_layers else None
         x, _, _, positions = _embed_inputs(cfg, params, batch)
-        B, S, _ = x.shape
-        hkv, hd = cfg.num_kv_heads, cfg.head_dim
         taps: dict = {}
+        blocks, make = _block_params(params["layers"], cfg.num_blocks)
         for b in range(cfg.num_blocks):
-            block_params = _block(params["layers"], b)
-            for pos, (mixer, fkind) in enumerate(cfg.block_program()):
-                p = block_params[f"pos{pos}"]
-                if mixer == "attn":
-                    # tap the post-RoPE K/V of this layer for the cache
-                    # output, re-projected as the reference does
-                    hh = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-                    k = ctx.local(nn.split_heads(nn.linear(p["mixer"]["wk"], hh), hkv, hd))
-                    v = ctx.local(nn.split_heads(nn.linear(p["mixer"]["wv"], hh), hkv, hd))
-                    k = nn.apply_rope(k, positions, cfg.rope_theta)
-                    tap = taps.setdefault(f"pos{pos}", {"k": [], "v": []})
-                    tap["k"].append(k)
-                    tap["v"].append(v)
-                x, _ = _position_forward(cfg, p, mixer, fkind, x, positions, memory)
+            # the block's gathered leaves live for this call alone
+            x = _prefill_block(cfg, make(blocks[b]), x, positions, memory, taps)
         kv = {name: {kk: torch.stack(vs) for kk, vs in tap.items()}
               for name, tap in taps.items()}
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -605,6 +648,53 @@ def _store(leaf, b: int, value) -> None:
     block.to_local().copy_(value.to_local())
 
 
+def _serve_block(cfg: ModelConfig, block_params: Params, cache: dict, b: int, x, t: int):
+    """Block ``b`` of a decode step at position ``t``: ``x`` after it, the
+    block's rows of ``cache`` updated in place."""
+    for pos, (mixer, fkind) in enumerate(cfg.block_program()):
+        p = block_params[f"pos{pos}"]
+        c = cache[f"pos{pos}"]
+        if mixer == "rwkv":
+            h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
+            y, tm_cache = ssm.rwkv6_time_mix_step(
+                p["mixer"], h, {name: _cache_block(c[name], b)
+                                for name in ("S", "x_tm", "x_cm")},
+                head_size=cfg.rwkv_head_size)
+            x = x + _whole(y)
+            h2 = nn.rmsnorm(p["norm2"], x, cfg.norm_eps)
+            y2, cm_cache = ssm.rwkv6_channel_mix_step(p["mixer"], h2, tm_cache)
+            x = x + _whole(y2)
+            for name in ("S", "x_tm", "x_cm"):
+                _store(c[name], b, cm_cache[name])
+            continue
+        h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
+        if mixer == "attn":
+            if t >= c["k"].shape[2]:
+                raise ValueError(f"the cache holds {c['k'].shape[2]} positions; "
+                                 f"position {t} does not fit")
+            a = _decode_attn(p["mixer"], h, cfg, _cache_block(c["k"], b),
+                             _cache_block(c["v"], b), t)
+            if cfg.parallel_block:
+                x = x + _whole(a) + _whole(_run_ffn(p["ffn"], h, cfg, fkind))
+                continue
+            x = x + _whole(a)
+        else:  # mamba
+            state = {name: _cache_block(c[name], b) for name in ("h", "conv")}
+            y, mc = ssm.mamba_step(p["mixer"], h, state, d_state=cfg.mamba_d_state,
+                                   d_conv=cfg.mamba_d_conv)
+            x = x + _whole(y)
+            _store(c["h"], b, mc["h"])
+            _store(c["conv"], b, mc["conv"])
+        if "cross" in p and "ck" in c:
+            hc = nn.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+            x = x + _whole(_decode_cross_attn(
+                p["cross"], hc, cfg, _cache_block(c["ck"], b),
+                _cache_block(c["cv"], b), c["ck"].shape[2]))
+        x = x + _whole(_run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps),
+                                cfg, fkind))
+    return x
+
+
 def serve_step(cfg: ModelConfig):
     """Returns step_fn(params, cache, tokens [B,1]) -> (logits [B,V] float32,
     cache).
@@ -616,62 +706,25 @@ def serve_step(cfg: ModelConfig):
     ``enc_len`` rows; none with ``enc_len`` 0, which adds nothing).
 
     Tensor-parallel on the model axis (``docs/torch_lm_sharding.md``):
-    under ``ctx.use_mesh(mesh)``, with the parameters from
-    ``trainer.gather_model_shards`` and the cache from
-    ``trainer.cache_model_shards`` (DTensors on ``mesh["model"]``) and
-    ``tokens`` this rank's rows, the step computes on DTensor activations
-    as the train step's blocks do, each rank updating its shard of the
-    cache in place; the logits come back whole, ``[B_rank, V]``.  The MoE
-    FFN is cut by experts or by d_ff, and the Mamba step runs on the rank's
-    channels of its state, which the cache holds cut alike."""
+    under ``ctx.use_mesh(mesh)``, with the parameters placed by the policy
+    (each block's gathered just before it runs, ``gather.BlockShards``),
+    the cache from ``trainer.cache_model_shards`` (DTensors on
+    ``mesh["model"]``) and ``tokens`` this rank's rows, the step computes
+    on DTensor activations as the train step's blocks do, each rank
+    updating its shard of the cache in place; the logits come back whole,
+    ``[B_rank, V]``.  The MoE FFN is cut by experts or by d_ff, and the
+    Mamba step runs on the rank's channels of its state, which the cache
+    holds cut alike."""
 
     @torch.no_grad()
     def step_fn(params: Params, cache: dict, tokens: torch.Tensor):
         t = cache["len"]
+        params = _outside_blocks(params)
         x = nn.embed(params["embed"], tokens)          # [B,1,d]
+        blocks, make = _block_params(params["layers"], cfg.num_blocks)
         for b in range(cfg.num_blocks):
-            block_params = _block(params["layers"], b)
-            for pos, (mixer, fkind) in enumerate(cfg.block_program()):
-                p = block_params[f"pos{pos}"]
-                c = cache[f"pos{pos}"]
-                if mixer == "rwkv":
-                    h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-                    y, tm_cache = ssm.rwkv6_time_mix_step(
-                        p["mixer"], h, {name: _cache_block(c[name], b)
-                                        for name in ("S", "x_tm", "x_cm")},
-                        head_size=cfg.rwkv_head_size)
-                    x = x + _whole(y)
-                    h2 = nn.rmsnorm(p["norm2"], x, cfg.norm_eps)
-                    y2, cm_cache = ssm.rwkv6_channel_mix_step(p["mixer"], h2, tm_cache)
-                    x = x + _whole(y2)
-                    for name in ("S", "x_tm", "x_cm"):
-                        _store(c[name], b, cm_cache[name])
-                    continue
-                h = nn.rmsnorm(p["norm1"], x, cfg.norm_eps)
-                if mixer == "attn":
-                    if t >= c["k"].shape[2]:
-                        raise ValueError(f"the cache holds {c['k'].shape[2]} positions; "
-                                         f"position {t} does not fit")
-                    a = _decode_attn(p["mixer"], h, cfg, _cache_block(c["k"], b),
-                                     _cache_block(c["v"], b), t)
-                    if cfg.parallel_block:
-                        x = x + _whole(a) + _whole(_run_ffn(p["ffn"], h, cfg, fkind))
-                        continue
-                    x = x + _whole(a)
-                else:  # mamba
-                    state = {name: _cache_block(c[name], b) for name in ("h", "conv")}
-                    y, mc = ssm.mamba_step(p["mixer"], h, state, d_state=cfg.mamba_d_state,
-                                           d_conv=cfg.mamba_d_conv)
-                    x = x + _whole(y)
-                    _store(c["h"], b, mc["h"])
-                    _store(c["conv"], b, mc["conv"])
-                if "cross" in p and "ck" in c:
-                    hc = nn.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
-                    x = x + _whole(_decode_cross_attn(
-                        p["cross"], hc, cfg, _cache_block(c["ck"], b),
-                        _cache_block(c["cv"], b), c["ck"].shape[2]))
-                x = x + _whole(_run_ffn(p["ffn"], nn.rmsnorm(p["norm2"], x, cfg.norm_eps),
-                                        cfg, fkind))
+            # the block's gathered leaves live for this call alone
+            x = _serve_block(cfg, make(blocks[b]), cache, b, x, t)
         cache["len"] = t + 1
         x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
         logits = ctx.local((x[:, 0] @ _head_table_T(cfg, params)).float())

@@ -34,8 +34,8 @@ rank holds the ``x`` and ``z`` halves of its own channels) and ``dt_proj``
 column-parallel, the depthwise conv, ``exp(Δ·A)``, the chunked scan and
 ``D`` on the rank's channels, ``x_proj`` (recut from its output to its
 input dimension) and ``out_proj`` row-parallel, their partial products
-made whole (``trainer.gather_model_shards`` recuts the leaves,
-``policy.MAMBA_CHANNELS`` says where each holds the channels).  The mixer runs
+made whole (``sharding.gather`` recuts each block's leaves as it gathers
+them, ``policy.MAMBA_CHANNELS`` says where each holds the channels).  The mixer runs
 on the rank's local tensors between Megatron's *f* and *g*
 (``ctx.local_input``, ``ctx.sum_over``), so the scan's per-step ops are
 plain tensor ops; a decode step reads and updates the cache's own

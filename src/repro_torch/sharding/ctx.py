@@ -10,9 +10,10 @@ redistributed to the divisibility-checked spec, as the reference's
 
 The meshed train step, the dry-run's prefill and the tensor-parallel decode
 (``lm.serve_step``) compute tensor-parallel on the ``model`` axis.  The
-parameters are gathered over the data axes only and each leaf's
-``model``-axis shard is handed to the model as a DTensor on the 1-D
-``model`` sub-mesh (``trainer.gather_model_shards``); a decode cache's
+parameters are gathered over the data axes only, one block's at a time
+just before the block runs (``sharding/gather.py``), and each leaf's
+``model``-axis shard is handed to the block as a DTensor on the 1-D
+``model`` sub-mesh; a decode cache's
 leaves are the rank's shards rewrapped there alike
 (``trainer.cache_model_shards``: K/V cut by kv heads or by positions, the
 RWKV state by heads, the Mamba state by ``d_inner``).  Activations are
@@ -208,6 +209,12 @@ def cut_batch(axes: tuple[str, ...]):
         yield
     finally:
         _STATE["batch"] = prev
+
+
+def batch_axes() -> tuple[str, ...]:
+    """The mesh axes the batch's rows are cut over (empty outside
+    :func:`cut_batch`)."""
+    return _STATE["batch"] if _STATE["mesh"] is not None else ()
 
 
 def batch_split() -> int:

@@ -26,23 +26,28 @@ setup, mesh)`` then
 
   takes this rank's rows of each microbatch (``policy.batch_spec``: cut
     over the data axes, replicated when they do not divide it);
-  gathers every parameter over the data axes only and hands the model
-    its ``model``-axis shard as a DTensor on the model sub-mesh
-    (:func:`gather_model_shards`), so the blocks compute tensor-parallel
-    on DTensor activations (``sharding/ctx.py``): column- and
-    row-parallel products, the kernels on each rank's heads, a
-    vocab-parallel embedding and cross-entropy;
-  takes the gradients back reduce-scattered to the parameter's placements
-    (``Partial`` over the data axes when the batch is cut: each rank's
-    share of the global batch's mean loss, ``sharding.ctx.batch_sum``);
+  runs the loss on the placed tree under ``ctx.use_mesh``: the model
+    gathers the leaves outside the blocks once (the embedding,
+    ``lm_head``, the final norms) and each block's leaves just before the
+    block, inside its rematerialized checkpoint, so the recompute gathers
+    them again (``sharding/gather.py``); each leaf over the data axes only,
+    its ``model``-axis shard handed to the block as a DTensor on the model
+    sub-mesh, so the blocks compute tensor-parallel on DTensor activations
+    (``sharding/ctx.py``): column- and row-parallel products, the kernels
+    on each rank's heads, a vocab-parallel embedding and cross-entropy;
+  takes each gradient back on its parameter's placements: a block's
+    leaves reduce-scattered in that block's backward (``Partial`` over the
+    data axes when the batch is cut: each rank's share of the global
+    batch's mean loss, ``sharding.ctx.batch_sum``);
   compresses (EF-int8, the scale over the whole leaf), clips (the global
     norm, a replicated leaf counted once) and updates each rank's shards.
 
-The tree is gathered over the data axes at the start of each microbatch
-(a copy of the rank's model-axis shards beside its own shards; per-block
-gathering is a ROADMAP item).  The MoE FFN is cut by experts or by each
-expert's d_ff, and the Mamba mixer by ``d_inner``: its leaves are recut to
-the rank's channels on the model axis (:func:`gather_model_shards`)."""
+One block's gathered leaves are live at a time beside the rank's shards,
+as in the reference's rematerialized scan.  The MoE FFN is cut by experts
+or by each expert's d_ff, and the Mamba mixer by ``d_inner``: its leaves
+are recut to the rank's channels on the model axis, one block at a time.
+:func:`gather_model_shards` (``sharding/gather.py``) gathers a whole tree
+so, for a caller that wants one."""
 from __future__ import annotations
 
 import dataclasses
@@ -51,14 +56,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard, distribute_tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.sharding import ctx
-from repro_torch.sharding.policy import (P, ShardingPolicy, keystr_path, mesh_axis_sizes,
-                                         placements, tree_map_with_path)
+from repro_torch.sharding.gather import gather_model_shards  # noqa: F401  (the trainer's name)
+from repro_torch.sharding.policy import ShardingPolicy, mesh_axis_sizes
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.compression import ef_compress_grads
 
@@ -237,141 +242,6 @@ def _local_rows(policy: ShardingPolicy, rows: int) -> tuple[slice, tuple[str, ..
     return slice(idx * n, (idx + 1) * n), policy.axes.dp
 
 
-def gather_model_shards(tree, mesh, cut: tuple[str, ...] = ()):
-    """Every DTensor of ``tree`` gathered over the data axes only, its
-    ``model``-axis shard rewrapped as a DTensor on the 1-D model sub-mesh
-    (``mesh["model"]``) with its placement there: what the tensor-parallel
-    blocks take (a collective: every rank calls it).  A stacked leaf the
-    policy cuts over the model axis by its block dimension (a dense FFN
-    ``[nb, d, d_ff]``, which the reference's rule reads as stacked experts)
-    is recut there as one block's weight is (``param_spec`` of its
-    ``[d, d_ff]``; an all-to-all over the model axis after the gather), so
-    each block's product is tensor-parallel.  A leaf that the policy
-    computes cut otherwise than it stores it (``policy.compute_cut``: a
-    Mamba leaf, by its ``d_inner`` channels) is recut so: ``in_proj``
-    ``[nb, d, 2·di]``, cut contiguously, so the rank holds the ``x`` and
-    ``z`` columns of its own channels (an all-to-all of pieces,
-    :class:`_Regroup`; its DTensor's global layout is then the ranks'
-    pieces in rank order, not the parameter's), ``x_proj`` from its output
-    to its input dimension (an all-to-all), and the leaves that arrive
-    whole (``conv_b``; ``D``, whose rule reads the block dimension) sliced
-    on each rank.  Gradients flow back through
-    ``to_local`` as ``Partial`` over the data axes in ``cut`` (the axes the
-    batch is cut over) and in the model-axis placement used (``Partial``
-    for a sliced leaf); the reduce-scatter back to the parameter's
-    placements is the caller's.  Any other leaf as it is."""
-    names = list(mesh_axis_sizes(mesh))
-    m = names.index("model")
-    tp_mesh = mesh["model"]
-    n = tp_mesh.size()
-    policy = ShardingPolicy(mesh, None)
-
-    def one(path, x):
-        if not isinstance(x, DTensor):
-            return x
-        pl = x.placements[m]
-        cut_to = policy.compute_cut(keystr_path(path), tuple(x.shape))
-        sliced = cut_to is not None and pl == Replicate()
-        pls = [pl if i == m else Replicate() for i in range(len(names))]
-        grad = [(Partial() if sliced else pl) if i == m else Partial() if a in cut
-                else Replicate() for i, a in enumerate(names)]
-        shard = x.redistribute(mesh, pls).to_local(grad_placements=grad)
-        if pl == Shard(0) and x.dim() >= 2 and path[0] in ("layers", "enc_layers"):
-            # recut after the gather over the data axes, on the model axis
-            # alone: DTensor would gather the whole leaf on the way
-            spec = policy.param_spec(keystr_path(path), tuple(x.shape[1:]))
-            pl = placements(mesh, P(None, *spec))[m]
-            if isinstance(pl, Shard):
-                if n > 1:                   # one rank's shard is the leaf
-                    shard = _Recut.apply(shard, 0, pl.dim, tp_mesh.get_group())
-            else:
-                shard = DTensor.from_local(shard, tp_mesh, [Shard(0)], run_check=False
-                                           ).redistribute(tp_mesh, [pl]).to_local()
-        if cut_to is not None:
-            shard, pl = _recut_runs(shard, pl, *cut_to, tp_mesh), Shard(cut_to[0])
-        return DTensor.from_local(shard, tp_mesh, [pl], run_check=False)
-    return tree_map_with_path(one, tree)
-
-
-def _recut_runs(shard: torch.Tensor, pl, dim: int, runs: int, tp_mesh) -> torch.Tensor:
-    """A leaf's model-axis shard with placement ``pl`` → rank r's chunk r
-    of each of the ``runs`` equal runs of dimension ``dim``, joined: a whole
-    leaf sliced, one cut on another dimension recut (an all-to-all), a
-    contiguous cut of several runs regrouped (:class:`_Regroup`)."""
-    n, group = tp_mesh.size(), tp_mesh.get_group()
-    if pl == Replicate():
-        k = shard.shape[dim] // (runs * n)
-        return shard.unflatten(dim, (runs, -1)).narrow(
-            dim + 1, tp_mesh.get_local_rank() * k, k).flatten(dim, dim + 1)
-    if n > 1 and pl != Shard(dim):
-        shard = _Recut.apply(shard, pl.dim, dim, group)
-    if n > 1 and runs > 1:
-        shard = _Regroup.apply(shard, dim, runs, group)
-    return shard
-
-
-def _all_to_all(x: torch.Tensor, a: int, b: int, group) -> torch.Tensor:
-    """A rank's part of a tensor cut over ``group``'s n ranks by dimension
-    ``a`` → its part cut by dimension ``b`` instead: chunk ``j`` of ``x``
-    along ``b`` goes to rank ``j``, and what the ranks send back is joined
-    along ``a`` in rank order."""
-    n = dist.get_world_size(group)
-    send = torch.stack(x.chunk(n, dim=b))
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return torch.cat(recv.unbind(0), dim=a)
-
-
-class _Recut(torch.autograd.Function):
-    """A shard moved from one cut dimension to another over a process group
-    (an all-to-all); the backward moves the gradient back."""
-
-    @staticmethod
-    def forward(ctx_, x, a: int, b: int, group):
-        ctx_.cut = (a, b, group)
-        return _all_to_all(x, a, b, group)
-
-    @staticmethod
-    def backward(ctx_, grad):
-        a, b, group = ctx_.cut
-        return _all_to_all(grad.contiguous(), b, a, group), None, None, None
-
-
-def _regroup(x: torch.Tensor, dim: int, k: int, group, back: bool) -> torch.Tensor:
-    """Rank s's part of dimension ``dim``, pieces ``s·k … s·k+k−1`` of a
-    contiguous cut into n·k, → pieces ``t, t+n, …, t+(k−1)·n`` on rank t
-    (``back``: the reverse).  With k ≤ n each piece goes to a rank of its
-    own and each rank sends and receives k pieces: one all-to-all."""
-    n, r = dist.get_world_size(group), dist.get_rank(group)
-    to = [(r * k + i) % n for i in range(k)]            # where my pieces go
-    src = [(r + j * n) // k for j in range(k)]          # where my new ones are
-    if back:
-        to, src = src, to
-    pieces = x.unflatten(dim, (k, -1)).movedim(dim, 0)
-    send = pieces[sorted(range(k), key=to.__getitem__)]
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, [src.count(a) for a in range(n)],
-                           [to.count(a) for a in range(n)], group=group)
-    out = torch.empty_like(recv)
-    out[sorted(range(k), key=src.__getitem__)] = recv   # arrived in source order
-    return out.movedim(0, dim).flatten(dim, dim + 1)
-
-
-class _Regroup(torch.autograd.Function):
-    """``_regroup``: ``in_proj``'s ``[x | z]`` output columns cut by the
-    policy → the x and z columns of the rank's channels (k = 2).  The
-    backward moves the gradient back."""
-
-    @staticmethod
-    def forward(ctx_, x, dim: int, k: int, group):
-        ctx_.args = (dim, k, group)
-        return _regroup(x, dim, k, group, False)
-
-    @staticmethod
-    def backward(ctx_, grad):
-        return _regroup(grad.contiguous(), *ctx_.args, True), None, None, None
-
-
 def cache_model_shards(cache: dict, mesh) -> dict:
     """A decode cache placed on ``mesh`` by ``policy.cache_sharding`` (its
     rows cut over the data axes where they divide the batch), each leaf's
@@ -443,15 +313,14 @@ def _make_meshed_train_step(cfg: ModelConfig, setup: TrainSetup, mesh) -> Callab
         loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         with ctx.use_mesh(mesh), ctx.cut_batch(cut):
             for i in range(n_micro):
-                full = gather_model_shards(params, mesh, cut)
-                loss, _ = loss_fn(full, {name: xs[i][rows] for name, xs in micro.items()})
+                loss, _ = loss_fn(params, {name: xs[i][rows] for name, xs in micro.items()})
                 micro_grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-                del full
                 for a, g, p in zip(opt_lib.tree_leaves(grads), micro_grads, leaves):
                     if g is None:
                         continue
-                    if tuple(g.placements) != tuple(p.placements):
-                        g = g.redistribute(mesh, p.placements)
+                    if g.placements != p.placements:    # each gather's backward places it
+                        raise AssertionError(f"a gradient on {g.placements}, its parameter "
+                                             f"on {p.placements}")
                     a.add_(g.to_local().to(adt))
                 loss_sum = loss_sum + loss.detach()
         grads = opt_lib.tree_map(lambda a: a.div_(n_micro), grads)

@@ -73,14 +73,13 @@ def test_serve_step_on_a_mesh_of_one_is_bit_for_bit(arch):
     mesh = make_production_mesh(device="cpu")
     try:
         policy = ShardingPolicy(mesh, cfg)
-        tp_params = trainer.gather_model_shards(
-            policy.distribute(params, policy.params_sharding(params)), mesh)
+        placed = policy.distribute(params, policy.params_sharding(params))
         tp_cache = trainer.cache_model_shards(
             policy.distribute(cases.clone(cache), policy.cache_sharding(cache)), mesh)
         for _ in range(cases.STEPS):
             want, cache = step(params, cache, tok)
             with ctx.use_mesh(mesh):
-                got, tp_cache = step(tp_params, tp_cache, tok)
+                got, tp_cache = step(placed, tp_cache, tok)
             assert type(got) is torch.Tensor and torch.equal(got, want), arch
             tok = want.argmax(-1, keepdim=True).to(torch.int32)
         for a, b in zip(tree_leaves(cache), tree_leaves(tp_cache)):

@@ -16,10 +16,12 @@ process and handed over in an ``.npz``.
   ``REL`` of the reference's largest magnitude; each MoE's route is the
   one its placements name;
 * the recut: after ``gather_model_shards`` of jamba's float32 smoke tree,
-  each rank's ``in_proj`` shard holds exactly the x and z columns of its
-  ``d_inner/n`` channels, ``x_proj`` its rows of them, and every other
-  Mamba leaf its slice of them, the channels that ``cache_model_shards``
-  gives it of the decode state ``h`` and ``conv``;
+  and in each block that ``gather.BlockShards`` gathers of its placed
+  ``layers`` (the model's per-block route), each rank's ``in_proj`` shard
+  holds exactly the x and z columns of its ``d_inner/n`` channels,
+  ``x_proj`` its rows of them, and every other Mamba leaf its slice of
+  them, the channels that ``cache_model_shards`` gives it of the decode
+  state ``h`` and ``conv``;
 * ``check_train``: ``TRAIN_ARCHS`` on the all-model mesh train 3 steps
   equal to one process (``torch_sharded_cases.check_steps_chained`` at
   ``torch_tp_cases.TRAIN_LR``): the loss and gradient norm within its
@@ -215,14 +217,17 @@ def check_recut(mesh) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.models import lm
+    from repro_torch.sharding import gather
     from repro_torch.sharding.policy import ShardingPolicy
     from repro_torch.train import trainer
 
     cfg = dataclasses.replace(get_config(MAMBA, smoke=True), dtype="float32")
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     policy = ShardingPolicy(mesh, cfg)
-    tp = trainer.gather_model_shards(policy.distribute(params, policy.params_sharding(params)),
-                                     mesh)
+    placed = policy.distribute(params, policy.params_sharding(params))
+    tp = trainer.gather_model_shards(placed, mesh)
+    shards = gather.BlockShards(placed["layers"])
+    blocks = [shards.gather(shards.shards(b)) for b in range(cfg.num_blocks)]
     n, r = mesh["model"].size(), mesh["model"].get_local_rank()
     di = cfg.mamba_d_inner
     mine = slice(r * di // n, (r + 1) * di // n)
@@ -244,10 +249,12 @@ def check_recut(mesh) -> None:
                 "dt_proj/b": full["dt_proj"]["b"][:, mine], "A_log": full["A_log"][:, mine],
                 "D": full["D"][:, mine], "out_proj/w": full["out_proj"]["w"][:, mine]}
         for path, leaf in want.items():
-            held = got
+            held = [got, *(block[name]["mixer"] for block in blocks)]
             for k in path.split("/"):
-                held = held[k]
-            assert torch.equal(held.to_local(), leaf), (name, path)
+                held = [h[k] for h in held]
+            assert torch.equal(held[0].to_local(), leaf), (name, path)
+            for b, h in enumerate(held[1:]):
+                assert torch.equal(h.to_local(), leaf[b]), (name, path, b)
         c = tp_cache[name]
         assert torch.equal(c["h"].to_local()[..., :, 0], channels.expand(1, 2, -1)), name
         assert torch.equal(c["conv"].to_local()[..., 0, :], channels.expand(1, 2, -1)), name

@@ -7,8 +7,8 @@ over in an ``.npz``.
   world ((1, 2) or (1, 4)), each of ``DECODE_ARCHS``' float32 smoke configs
   is prefilled through the unmeshed step (``PROMPT`` tokens, and seamless's
   memory through ``lm.prefill_encoder``), then takes ``STEPS`` decode steps
-  on the mesh: the parameters placed by the policy and gathered over the
-  data axes (``trainer.gather_model_shards``), the cache placed by
+  on the mesh: the parameters placed by the policy (the step gathers each
+  block over the data axes as it runs, ``sharding.gather``), the cache placed by
   ``policy.cache_sharding`` and rewrapped on the model sub-mesh
   (``trainer.cache_model_shards``).  Each step is held to the unmeshed step
   on the same tokens (the unmeshed run's greedy ones): the greedy tokens
@@ -111,8 +111,7 @@ def check_decode() -> None:
     for arch in DECODE_ARCHS:
         cfg, params, cache, tok = prefilled(arch)
         policy = ShardingPolicy(mesh, cfg)
-        tp_params = trainer.gather_model_shards(
-            policy.distribute(params, policy.params_sharding(params)), mesh)
+        placed = policy.distribute(params, policy.params_sharding(params))
         tp_cache = trainer.cache_model_shards(
             policy.distribute(clone(cache), policy.cache_sharding(cache)), mesh)
         rows, cut = trainer._local_rows(policy, B)
@@ -121,7 +120,7 @@ def check_decode() -> None:
         for i in range(STEPS):
             want, cache = step(params, cache, tok)
             with ctx.use_mesh(mesh), ctx.cut_batch(cut):
-                got, tp_cache = step(tp_params, tp_cache, tok[rows])
+                got, tp_cache = step(placed, tp_cache, tok[rows])
             assert not isinstance(got, DTensor) and got.shape == want[rows].shape
             worst = max(worst, _rel(f"{arch} step {i} logits", got, want[rows], LOGITS))
             greedy = want.argmax(-1, keepdim=True).to(torch.int32)
