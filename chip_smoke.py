@@ -112,12 +112,15 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
   single run's shapes;
 * LM training (``repro_torch.train``, ``launch/train.py``): one float32
   train step card against CPU for a smoke config of each family, the
-  kernels' ``autograd.Function``s' gradients against plain autograd,
-  llama3-8b at every width cut to 4 of its 32 layers in bf16 (8 x 2048 in
-  4 microbatches, steps timed and one profiled, every attention forward
-  and rematerialized recompute through the bf16 flash kernel, counted by
-  shape), and the ``train_lm`` twin at its reference shapes for 100 of its
-  300 steps, killed and resumed at step 50;
+  kernels' ``autograd.Function``s' gradients against their plain versions
+  and plain autograd (the flash backward through its own kernels, one
+  launch a backward, both routes), llama3-8b at every width cut to 4 of
+  its 32 layers in bf16 (8 x 2048 in 4 microbatches, steps timed and one
+  profiled, every attention forward and rematerialized recompute through
+  the bf16 flash kernel, counted by shape, and every attention backward
+  through the backward kernels, counted by call; the backward timed alone
+  beside SDPA's), and the ``train_lm`` twin at its reference shapes for
+  100 of its 300 steps, killed and resumed at step 50;
 * LM training over a mesh (``sharding/policy.py``, ``sharding/ctx.py``,
   ``trainer.shard_train_state``, ``make_train_step(..., mesh=)``):
   ``launch.mesh.make_production_mesh`` over a world of one on NCCL, a
@@ -130,9 +133,10 @@ and the WKV6 recurrence.  Then it drives the port's main paths:
 * the dry-run (``repro_torch.launch.dryrun``): phase 28's step traced on
   ``meta`` tensors in a fake process group of one rank, then run on the
   card (NCCL, a world of one): argument bytes equal, flash calls by shape
-  equal to the launches, FLOPs within 1% and the predicted peak within
-  10% of ``max_memory_allocated``; then the dry-run's command on four
-  cells of the reference's grid at full depth on a fake world of 256
+  and backward calls by call equal to the launches, FLOPs (the kernels'
+  at ``ops.flops`` and ``ops.flops_bwd``) within 1% and the predicted
+  peak within 10% of ``max_memory_allocated``; then the dry-run's command
+  on four cells of the reference's grid at full depth on a fake world of 256
   ranks (llama3-8b ``train_4k``, ``prefill_32k``, ``decode_32k`` and
   rwkv6-7b ``long_500k``), each cell's FLOPs a rank beside 6·N·D / 256,
   its predicted peak beside the card's 80 GiB and its wire bytes;
@@ -303,7 +307,8 @@ SINGLE_SHAPES = ((20, 10), (640, 10), (16, 16), (512, 16), (160, 10), (5120, 10)
 SINGLE_CHECK = dict(T=5, seed=27)
 # LM training (phase 28): one float32 step card against CPU for a smoke
 # config of each family; the kernels' Functions' backward at llama3-8b's
-# prefill shape and seamless's cross-attention shape; llama3-8b at every
+# prefill shape, seamless's cross-attention shape, a ragged S and in
+# float32 on the CUDA cores; llama3-8b at every
 # width cut to 4 of its 32 layers (1.92 B parameters: weights, float32
 # moments and accumulator ~31 GB), bf16, batch 8 x 2048 in 4 microbatches
 # (2 warm-up steps, 5 timed); the train_lm twin at its reference budget cut
@@ -335,7 +340,8 @@ DRYRUN_TIMEOUT_S = 300
 TP_RANK = dict(world=16, steps=2)
 # phase 31b: llama3-8b train_4k's FLOPs a rank at 256 ranks, at most this
 # multiple of 6·N·D / 256 (21.5x while the model axis repeated the work;
-# the recompute and the float32 attention backward leave ~1.35x)
+# the recompute and the float32 attention backward left ~1.35x, the
+# recompute and the backward kernels' flops_bwd 1.27x)
 TP_TRAIN_RATIO = 1.6
 CARD_GIB = 80
 # the tensor-parallel decode (phase 33): 33a llama3-8b and rwkv6-7b, 4 of 32
@@ -3626,7 +3632,7 @@ def run_twins(dev, card: str) -> dict:
 # --------------------------------------------------------------------------
 # phase 28: LM training (repro_torch.train, launch/train.py, the train_lm twin)
 # --------------------------------------------------------------------------
-def check_train_vs_cpu(dev) -> None:
+def check_train_vs_cpu(dev) -> int:
     """Phase 28a: one float32 ``make_train_step`` step (2 microbatches, TF32
     off) of each family's smoke config on the card against the CPU, from
     the same state, after two steps on the CPU (``warm_train_state``:
@@ -3640,9 +3646,12 @@ def check_train_vs_cpu(dev) -> None:
     from repro_torch.train import trainer
     from repro_torch.train.optimizer import tree_leaves
 
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
     setup = trainer.TrainSetup(micro_batches=2, learning_rate=1e-4, warmup_steps=1,
                                total_steps=10)
     worst = [0.0, 0.0, 0.0]
+    cuda_core_bwd = fa_ops.LAUNCHES_BWD - fa_ops.LAUNCHES_BWD_TC
     for arch in TRAIN_FAMILIES:
         cfg, state, batch = warm_train_state(arch, setup, 2, TRAIN["seed"])
         step = trainer.make_train_step(cfg, setup)
@@ -3658,20 +3667,32 @@ def check_train_vs_cpu(dev) -> None:
             raise AssertionError(f"{arch}: a train step card vs CPU off by {errs} "
                                  "(loss, grad norm relative; parameters of leaf scale)")
         worst = [max(a, b) for a, b in zip(worst, errs)]
+    cuda_core_bwd = fa_ops.LAUNCHES_BWD - fa_ops.LAUNCHES_BWD_TC - cuda_core_bwd
+    if not cuda_core_bwd:
+        raise AssertionError("phase 28a: no float32 flash backward launched on the card")
     log(f"phase 28a train step card == CPU, float32, 2 microbatches, from a state two "
         f"steps in, for {', '.join(TRAIN_FAMILIES)}: loss within {worst[0]:.3g}, grad "
         f"norm {worst[1]:.3g} relative, parameters {worst[2]:.3g} of their leaf's scale "
-        "(bound 1e-4 each)")
+        f"(bound 1e-4 each); {cuda_core_bwd} flash backward launches on the CUDA cores")
+    return cuda_core_bwd
 
 
 def check_train_functions(dev) -> dict:
-    """Phase 28b: the kernels' ``autograd.Function``s on the card against
-    plain autograd of the plain versions: flash in bf16 at llama3-8b's
-    prefill shape (q [1,2048,32,128], 8 kv heads, causal) and seamless's
-    cross-attention (q [1,2048,16,64] against k/v [1,4096,16,64]),
-    gradients within 1e-2·|x| + 2e-3; WKV in float32 at [2,128,4,64] with
-    a carried state, within 1e-5·(1 + max|x|).  One launch a forward, none
-    in the backward, every gradient nonzero."""
+    """Phase 28b: the kernels' ``autograd.Function``s on the card.  Flash:
+    each forward launches the forward kernel once and each backward the
+    backward kernels once (``LAUNCHES_BWD``; the bf16 ones on the tensor
+    cores, ``LAUNCHES_BWD_TC``), and neither calls the plain version
+    (``flash_attention_ref``); the gradients are held to the backward's
+    plain version (``flash_attention_bwd_ref`` from the saved log-sum-exp,
+    float32 math) and to plain autograd of the plain forward in float32:
+    in bf16 on the tensor cores within 1e-2·|x| + 2e-3 at llama3-8b's
+    prefill shape (q [1,2048,32,128], 8 kv heads, causal), seamless's
+    cross-attention (q [1,2048,16,64] against k/v [1,4096,16,64]) and a
+    ragged S (q [2,1000,32,128], 8 kv heads, causal), and in float32 on
+    the CUDA cores within 1e-5·(1 + max|x|) (q [2,1000,8,128], 2 kv heads,
+    causal); WKV in float32 at [2,128,4,64] with a carried state, within
+    1e-5·(1 + max|x|).  Every gradient nonzero."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rwkv6_scan import ops as wkv_ops
@@ -3679,34 +3700,58 @@ def check_train_functions(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(TRAIN["seed"])
     out = {}
-    for what, (S, Skv, H, Hkv, hd, causal) in {
-            "llama3-8b": (2048, 2048, 32, 8, 128, True),
-            "seamless_cross": (2048, 4096, 16, 16, 64, False)}.items():
-        q = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
-        k, v = (torch.randn(1, Skv, Hkv, hd, generator=gen, device=dev).bfloat16()
+    plain_calls = []
+    real_ref = fa_ops.flash_attention_ref
+
+    def counted(*args, **kwargs):
+        plain_calls.append(args[0].shape)
+        return real_ref(*args, **kwargs)
+    for what, (B, S, Skv, H, Hkv, hd, causal, dtype) in {
+            "llama3-8b": (1, 2048, 2048, 32, 8, 128, True, torch.bfloat16),
+            "seamless_cross": (1, 2048, 4096, 16, 16, 64, False, torch.bfloat16),
+            "ragged": (2, 1000, 1000, 32, 8, 128, True, torch.bfloat16),
+            "float32": (2, 1000, 1000, 8, 2, 128, True, torch.float32)}.items():
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, Skv, Hkv, hd, generator=gen, device=dev).to(dtype)
                 for _ in range(2))
-        go = torch.randn(1, S, H, hd, generator=gen, device=dev).bfloat16()
+        go = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        before = fa_ops.LAUNCHES
-        o = fa_ops.flash_attention(*leaves, causal=causal)
-        got = torch.autograd.grad(o, leaves, go)
-        torch.cuda.synchronize()
-        if fa_ops.LAUNCHES != before + 1 or o.grad_fn is None:
-            raise AssertionError(f"{what}: the Function launched "
-                                 f"{fa_ops.LAUNCHES - before} kernels (expected 1)")
-        plain = [t.float().requires_grad_() for t in (q, k, v)]
-        want = torch.autograd.grad(flash_attention_ref(*plain, causal=causal), plain,
-                                   go.float())
-        err = 0.0
-        for name, a, b in zip("qkv", got, want):
-            diff = (a.float() - b).abs()
-            if a.dtype != torch.bfloat16 or not float(a.abs().max()) > 0 or bool(
-                    (diff > 1e-2 * b.abs() + 2e-3).any()):
-                raise AssertionError(f"{what}: d{name} off plain autograd by "
-                                     f"{float(diff.max())} or zero")
-            err = max(err, float(diff.max()))
-        out[what] = err
-        del q, k, v, go, leaves, o, got, plain, want
+        counts = lambda: (fa_ops.LAUNCHES, fa_ops.LAUNCHES_BWD,  # noqa: E731
+                          fa_ops.LAUNCHES_BWD_TC)
+        before = counts()
+        fa_ops.flash_attention_ref = counted
+        try:
+            o = fa_ops.flash_attention(*leaves, causal=causal)
+            lse = o.grad_fn.saved_tensors[3]
+            got = torch.autograd.grad(o, leaves, go)
+            torch.cuda.synchronize()
+        finally:
+            fa_ops.flash_attention_ref = real_ref
+        tc = dtype == torch.bfloat16
+        want_counts = (before[0] + 1, before[1] + 1, before[2] + tc)
+        if counts() != want_counts or plain_calls or o.grad_fn is None:
+            raise AssertionError(f"{what}: the Function's launches {before} -> {counts()} "
+                                 f"(forward, backward, backward on the tensor cores; "
+                                 f"expected {want_counts}), plain calls {plain_calls}")
+        plain = flash_attention_bwd_ref(q.float(), k.float(), v.float(), lse, go.float(),
+                                        causal)
+        exact_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+        exact = torch.autograd.grad(flash_attention_ref(*exact_leaves, causal=causal),
+                                    exact_leaves, go.float())
+        errs = {"plain": 0.0, "autograd": 0.0}
+        for name, a, *wants in zip("qkv", got, plain, exact):
+            if a.dtype != dtype or not float(a.abs().max()) > 0:
+                raise AssertionError(f"{what}: d{name} {a.dtype}, zero or not finite")
+            for against, w in zip(errs, wants):
+                diff = (a.float() - w).abs()
+                bad = (bool((diff > 1e-2 * w.abs() + 2e-3).any()) if tc else
+                       float(diff.max()) > 1e-5 * (1 + float(w.abs().max())))
+                if bad or not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{what}: d{name} off the {against} by "
+                                         f"{float(diff.max())}")
+                errs[against] = max(errs[against], float(diff.max()))
+        out[what] = errs
+        del q, k, v, go, leaves, o, lse, got, plain, exact_leaves, exact
     B, T, H, hd = 2, 128, 4, 64
     w = torch.rand(B, T, H, hd, generator=gen, device=dev) * 0.5 + 0.45
     r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=dev) for _ in range(3))
@@ -3730,11 +3775,15 @@ def check_train_functions(dev) -> dict:
             raise AssertionError(f"wkv6: d{name} off plain autograd by {e} or zero")
         err = max(err, e)
     out["wkv6"] = err
-    log(f"phase 28b the Functions' gradients on the card against plain autograd: flash "
-        f"bf16 llama3-8b [1,2048,32,128] kv 8 causal max |err| {out['llama3-8b']:.3g}, "
-        f"seamless cross q 2048 x k/v 4096 {out['seamless_cross']:.3g} (bound "
-        f"1e-2|x| + 2e-3); wkv6 float32 [2,128,4,64] with S0 {out['wkv6']:.3g} (bound "
-        "1e-5(1 + max|x|)); one launch a forward, none a backward, all nonzero")
+    flash = "; ".join(f"{what} {e['plain']:.3g} / {e['autograd']:.3g}" for what, e in out.items()
+                      if what != "wkv6")
+    log(f"phase 28b the Functions' gradients on the card: flash max |err| against the "
+        f"backward's plain version / plain autograd: {flash} (llama3-8b [1,2048,32,128] kv 8 "
+        "causal, seamless cross q 2048 x k/v 4096, ragged [2,1000,32,128] kv 8 causal, bf16 "
+        "on the tensor cores, bound 1e-2|x| + 2e-3; float32 [2,1000,8,128] kv 2 causal on "
+        f"the CUDA cores, bound 1e-5(1 + max|x|)); wkv6 float32 [2,128,4,64] with S0 "
+        f"{out['wkv6']:.3g} (bound 1e-5(1 + max|x|)); one forward launch and one backward "
+        "launch a call, no plain call, all nonzero")
     return out
 
 
@@ -3752,48 +3801,106 @@ def train_step_flops(cfg, tokens: int, seq: int) -> float:
 
 def profile_train_step(step, state, batch) -> dict:
     """Phase 28c: one more step under ``torch.profiler``: the device's busy
-    time, the kernels that take most of it, and, each
-    ``FlashAttentionFn.backward`` in a ``record_function`` range, the plain
-    attention backward's share."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    time, the kernels that take most of it, and the flash backward
+    kernels' share by their own names (``flash_bwd_*``: the dQ and dK/dV
+    kernels of each route)."""
+    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-
-    backward = fa_ops.FlashAttentionFn.backward
-
-    def ranged(ctx, grad_out):
-        with record_function("flash_backward"):
-            return backward(ctx, grad_out)
-    fa_ops.FlashAttentionFn.backward = staticmethod(ranged)
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            new, m = step(state, batch)
-            float(m["loss"])
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        fa_ops.FlashAttentionFn.backward = staticmethod(backward)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        new, m = step(state, batch)
+        float(m["loss"])
+    wall_ms = (time.perf_counter() - t0) * 1e3
     del new
     events = prof.events()
     by_name: dict = {}
     for e in events:
-        if str(e.device_type).endswith("CUDA") and e.name != "flash_backward":
+        if str(e.device_type).endswith("CUDA"):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values()) or float("nan")
-    bwd = [e for e in events
-           if e.name == "flash_backward" and not str(e.device_type).endswith("CUDA")]
-    bwd_us = sum(getattr(e, "device_time_total", 0) for e in bwd)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     n_kernels = sum(1 for e in events if str(e.device_type).endswith("CUDA"))
+    kern = {name: us for name, us in by_name.items() if "flash_bwd_" in name}
+    kern_us = sum(kern.values())
+    by_kind = {kind: sum(us for name, us in kern.items() if f"flash_bwd_{kind}" in name)
+               for kind in ("dq_tc", "dkdv_tc", "dq_cc", "dkdv_cc")}
     log(f"  train step profile: wall {wall_ms:.3f} ms profiled, device busy "
         f"{busy_us / 1e3:.3f} ms = {busy_us / 1e3 / wall_ms:.1%}, {n_kernels} device "
-        f"events; the {len(bwd)} plain attention backwards "
-        f"{bwd_us / 1e3:.3f} ms = {bwd_us / busy_us:.1%}; most: "
+        f"events; the flash backward kernels {kern_us / 1e3:.3f} ms = "
+        f"{kern_us / busy_us:.1%} ("
+        + ", ".join(f"{kind} {us / 1e3:.3f} ms" for kind, us in by_kind.items() if us)
+        + "); most: "
         + "; ".join(f"{name[:56]} {us / 1e3:.3f} ms ({us / busy_us:.1%})"
                     for name, us in top))
-    return dict(busy_ms=busy_us / 1e3, wall_ms=wall_ms, flash_backward_ms=bwd_us / 1e3,
-                flash_backward_share=bwd_us / busy_us, kernels=n_kernels)
+    return dict(busy_ms=busy_us / 1e3, wall_ms=wall_ms, bwd_kernels_ms=kern_us / 1e3,
+                bwd_kernels_share=kern_us / busy_us,
+                bwd_by_kind_ms={kind: us / 1e3 for kind, us in by_kind.items()},
+                kernels=n_kernels)
+
+
+def time_flash_backward(dev, gen, what: str, B: int, S: int, H: int, Hkv: int, hd: int,
+                        dtype=torch.bfloat16) -> dict:
+    """The flash backward (``ops._backward``) alone at q [B, S, H, hd] and
+    k/v [B, S, Hkv, hd], causal, from the forward kernel's log-sum-exp:
+    one launch (on the tensor cores in bf16), held to its plain version
+    (``flash_attention_bwd_ref``, float32 math; 1e-2·|x| + 2e-3 in bf16,
+    1e-5·(1 + max|x|) in float32), and timed beside the plain version,
+    SDPA's backward (the library call for the same gradient) and the
+    bound: ``flops_bwd`` at the tensor cores' bf16 rate (the CUDA cores'
+    float32 rate for float32) against ``bytes_moved_bwd`` at 3.35 TB/s."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops
+
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(B, S, Hkv, hd, generator=gen, device=dev).to(dtype) for _ in range(2))
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dtype)
+    _, lse = ops._forward(q, k, v, True, True)
+    tc = dtype == torch.bfloat16
+    before = (ops.LAUNCHES_BWD, ops.LAUNCHES_BWD_TC, ops.STAGED_COPIES)
+    got = ops._backward(q, k, v, lse, do, True)
+    torch.cuda.synchronize()
+    if (ops.LAUNCHES_BWD, ops.LAUNCHES_BWD_TC, ops.STAGED_COPIES) != (
+            before[0] + 1, before[1] + tc, before[2]):
+        raise AssertionError(f"{what}: backward counts {before} -> {ops.LAUNCHES_BWD}, "
+                             f"{ops.LAUNCHES_BWD_TC}, {ops.STAGED_COPIES}")
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), lse, do.float(), True)
+    err = 0.0
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (a.float() - w).abs()
+        bad = (bool((diff > 1e-2 * w.abs() + 2e-3).any()) if tc else
+               float(diff.max()) > 1e-5 * (1 + float(w.abs().max())))
+        if bad:
+            raise AssertionError(f"{what}: {name} off its plain version by {float(diff.max())}")
+        err = max(err, float(diff.max()))
+    del got, want
+    leaves = [t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                               enable_gqa=True)
+    do_t = do.transpose(1, 2)
+    t = dict(ms=eager_ms(lambda: ops._backward(q, k, v, lse, do, True), iters=20 if tc else 3,
+                         warmup=3 if tc else 1),
+             plain_ms=eager_ms(lambda: flash_attention_bwd_ref(q, k, v, lse, do, True),
+                               iters=3, warmup=1),
+             library_ms=eager_ms(lambda: torch.autograd.grad(lib_out, leaves, do_t,
+                                                             retain_graph=True),
+                                 iters=20 if tc else 3, warmup=3 if tc else 1),
+             max_abs_err=err)
+    flops = ops.flops_bwd(B, S, S, H, hd, True)
+    bytes_moved = ops.bytes_moved_bwd(B, S, S, H, Hkv, hd, dtype)
+    t_ops = flops / (BF16_TC_OPS_PER_S if tc else F32_OPS_PER_S)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    t["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"  {what}: flash backward q [{B},{S},{H},{hd}] x k/v [{B},{S},{Hkv},{hd}] "
+        f"{str(dtype).removeprefix('torch.')} causal, {'tensor' if tc else 'CUDA'}-core "
+        f"route, ms per call: kernels {t['ms']:.6f}  plain {t['plain_ms']:.6f}  library "
+        f"(SDPA backward) {t['library_ms']:.6f}  bound {t['bound_ms']:.6f} ({t['bound_by']}: "
+        f"{flops / 1e9:.1f} GFLOP, {bytes_moved / 1e6:.1f} MB); {flops / t['ms'] / 1e9:.1f} "
+        f"TFLOP/s useful; |kernels - plain| max {err:.3g}")
+    del q, k, v, do, lse, leaves, lib_out
+    torch.cuda.empty_cache()
+    return t
 
 
 def run_train_full(dev, card: str) -> dict:
@@ -3801,9 +3908,11 @@ def run_train_full(dev, card: str) -> dict:
     the pipeline's batches of 8 x 2048 in 4 microbatches, warmup-cosine:
     2 warm-up steps then 5 timed (ms a step, tokens/s, peak GiB, the flash
     launches of each step by shape: 4 layers x 4 microbatches x (forward +
-    the rematerialized recompute) = 32), the loss finite and falling; one
-    more step profiled; the flash kernel at the microbatch's shape beside
-    its Function's forward + plain backward and SDPA's."""
+    the rematerialized recompute) = 32, and the backward's by call, 16),
+    the loss finite and falling; one more step profiled; the flash kernel
+    at the microbatch's shape, its backward alone
+    (``time_flash_backward``), and its Function's forward + backward beside
+    SDPA's."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3825,19 +3934,26 @@ def run_train_full(dev, card: str) -> dict:
     tokens = T["batch"] * T["seq"]
     shape = f"{T['seq']}x{T['seq']} causal bfloat16"
     want = {shape: cfg.num_layers * T["micro"] * 2}
-    losses, times, launches = [], [], 0
+    B = T["batch"] // T["micro"]
+    bwd_key = fa_ops.call_key(B, T["seq"], T["seq"], cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim, True, torch.bfloat16)
+    want_bwd = {bwd_key: cfg.num_layers * T["micro"]}
+    losses, times, launches, bwd_launches = [], [], 0, 0
     for i in range(steps):
         batch = {k: v.to(dev) for k, v in batch_at(data, i).items()}
         fa_ops.LAUNCHES_BY_SHAPE.clear()
+        fa_ops.LAUNCHES_BWD_BY_CALL.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)
         losses.append(float(m["loss"]))
         times.append(time.perf_counter() - t0)
-        got = dict(fa_ops.LAUNCHES_BY_SHAPE)
-        if got != want:
-            raise AssertionError(f"train step {i}: flash launches {got}, expected {want}")
+        got, got_bwd = dict(fa_ops.LAUNCHES_BY_SHAPE), dict(fa_ops.LAUNCHES_BWD_BY_CALL)
+        if got != want or got_bwd != want_bwd:
+            raise AssertionError(f"train step {i}: flash launches {got}, expected {want}; "
+                                 f"backward launches {got_bwd}, expected {want_bwd}")
         launches += got[shape]
+        bwd_launches += got_bwd[bwd_key]
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
         raise AssertionError(f"llama3-8b training: losses {losses} not finite and falling "
@@ -3855,18 +3971,24 @@ def run_train_full(dev, card: str) -> dict:
         f"{bound_ms:.3f} ms ({flops / 1e12:.1f} TFLOP at {BF16_TC_OPS_PER_S / 1e12:.0f} "
         f"TFLOP/s, {bound_ms / ms:.1%} of the step); losses "
         + ", ".join(f"{x:.4f}" for x in losses)
-        + f"; flash launches a step by shape {want} ({launches} in the run)")
+        + f"; flash launches a step by shape {want} ({launches} in the run), backward "
+        f"launches a step {want_bwd} ({bwd_launches} in the run)")
     prof = profile_train_step(step, state,
                               {k: v.to(dev) for k, v in batch_at(data, steps).items()})
     del state, step
     torch.cuda.empty_cache()
 
-    # the flash kernel at the microbatch's shape, and its Function's
-    # forward + backward (the plain recompute) beside SDPA's
-    B = T["batch"] // T["micro"]
+    # the flash kernel at the microbatch's shape, its backward alone, and
+    # its Function's forward + backward beside SDPA's
     gen = torch.Generator(device=dev).manual_seed(T["seed"])
     t = time_flash_shape(dev, gen, f"train microbatch (phase 28c, B {B})", cfg.num_heads,
                          cfg.num_kv_heads, cfg.head_dim, S=T["seq"], B=B)
+    bwd = time_flash_backward(dev, gen, f"train microbatch (phase 28c, B {B})", B, T["seq"],
+                              cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+    # the CUDA-core route (float32), at llama3-8b's head layout cut to 8
+    # query heads
+    bwd32 = time_flash_backward(dev, gen, "float32 (phase 28c)", 1, T["seq"], 8, 2,
+                                cfg.head_dim, torch.float32)
     q = torch.randn(B, T["seq"], cfg.num_heads, cfg.head_dim, generator=gen,
                     device=dev).bfloat16().requires_grad_()
     k, v = (torch.randn(B, T["seq"], cfg.num_kv_heads, cfg.head_dim, generator=gen,
@@ -3878,15 +4000,16 @@ def run_train_full(dev, card: str) -> dict:
 
     def sdpa_fwd_bwd():
         torch.autograd.grad(sdpa(q, k, v, True).transpose(1, 2), (q, k, v), go)
-    fwd_bwd_ms = eager_ms(fn_fwd_bwd, iters=3, warmup=1)
+    fwd_bwd_ms = eager_ms(fn_fwd_bwd, iters=10, warmup=2)
     sdpa_ms = eager_ms(sdpa_fwd_bwd, iters=10, warmup=2)
-    log(f"  flash at the microbatch's shape: kernel forward {t['ms']:.6f} ms; the "
-        f"Function's forward + plain backward {fwd_bwd_ms:.6f} ms; SDPA forward + "
-        f"backward {sdpa_ms:.6f} ms")
+    log(f"  flash at the microbatch's shape: kernel forward {t['ms']:.6f} ms, backward "
+        f"kernels {bwd['ms']:.6f} ms; the Function's forward + backward {fwd_bwd_ms:.6f} ms; "
+        f"SDPA forward + backward {sdpa_ms:.6f} ms")
     return dict(ms=ms, tokens_per_s=tokens / (ms / 1e3), peak_gib=peak, losses=losses,
-                launches=launches, bound_ms=bound_ms, flops=flops, timing=t,
-                fwd_bwd_ms=fwd_bwd_ms, sdpa_fwd_bwd_ms=sdpa_ms, profile=prof,
-                n_params=n_params)
+                launches=launches, bwd_launches=bwd_launches, bound_ms=bound_ms, flops=flops,
+                timing=t, bwd_timing=bwd, bwd32_timing=bwd32, fwd_bwd_ms=fwd_bwd_ms,
+                sdpa_fwd_bwd_ms=sdpa_ms,
+                profile=prof, n_params=n_params)
 
 
 def run_train_lm_twin(dev, card: str) -> dict:
@@ -4268,7 +4391,8 @@ def train_on_mesh_of_one(dev, card: str, mesh, phase: str, cfg, setup, rows: int
     of the parameters and both moments after each step equal bit for bit
     (leaves by ``leaf_digest``); each step's ms, each run's peak GiB, the
     flash launches of each step by shape (a forward and a recompute a layer
-    and microbatch)."""
+    and microbatch) and its backward launches (one a layer and
+    microbatch)."""
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import DataConfig, batch_at
@@ -4280,6 +4404,7 @@ def train_on_mesh_of_one(dev, card: str, mesh, phase: str, cfg, setup, rows: int
     shape = f"{seq}x{seq} causal bfloat16"
     attn = sum(mixer == "attn" for mixer, _ in cfg.block_program()) * cfg.num_blocks
     want = {shape: attn * setup.micro_batches * 2}
+    want_bwd = attn * setup.micro_batches
     runs = {}
     for meshed in (False, True):
         torch.cuda.empty_cache()
@@ -4294,20 +4419,23 @@ def train_on_mesh_of_one(dev, card: str, mesh, phase: str, cfg, setup, rows: int
             for i in range(steps):
                 batch = {k: v.to(dev) for k, v in batch_at(data, i).items()}
                 fa_ops.LAUNCHES_BY_SHAPE.clear()
+                bwd_before = fa_ops.LAUNCHES_BWD
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 state, m = step(state, batch)
                 loss, gnorm = float(m["loss"]), float(m["grad_norm"])
                 dt = time.perf_counter() - t0
                 got = dict(fa_ops.LAUNCHES_BY_SHAPE)
-                if got != want:
+                got_bwd = fa_ops.LAUNCHES_BWD - bwd_before
+                if got != want or got_bwd != want_bwd:
                     raise AssertionError(f"phase {phase} step {i} (meshed {meshed}): flash "
-                                         f"launches {got}, expected {want}")
+                                         f"launches {got}, expected {want}; backward "
+                                         f"launches {got_bwd}, expected {want_bwd}")
                 local = (lambda x: x.to_local()) if meshed else (lambda x: x)  # noqa: E731
                 digests = [leaf_digest(local(x)) for tree in (
                     state.params, state.opt.mu, state.opt.nu) for x in _leaves(tree)]
                 out.append(dict(loss=loss, gnorm=gnorm, ms=1e3 * dt, digests=digests,
-                                launches=got[shape]))
+                                launches=got[shape], bwd_launches=got_bwd))
         runs[meshed] = dict(steps=out, peak=torch.cuda.max_memory_allocated() / 2**30)
         del state, step
     plain, sharded = runs[False], runs[True]
@@ -4323,6 +4451,7 @@ def train_on_mesh_of_one(dev, card: str, mesh, phase: str, cfg, setup, rows: int
             raise AssertionError(f"phase {phase} step {i}: {off} of {len(a['digests'])} "
                                  "leaves differ from the unmeshed step's bits")
     launches = sum(x["launches"] for x in sharded["steps"])
+    bwd_launches = sum(x["bwd_launches"] for x in sharded["steps"])
     log(f"phase {phase} {cfg.name} training on the mesh "
         f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} ({dist.get_backend()}, world "
         f"{dist.get_world_size()}; {card}), {cfg.num_layers} of "
@@ -4334,8 +4463,9 @@ def train_on_mesh_of_one(dev, card: str, mesh, phase: str, cfg, setup, rows: int
         + ", meshed " + ", ".join(f"{x['ms']:.3f}" for x in sharded["steps"])
         + f"; peak {plain['peak']:.2f} GiB unmeshed, {sharded['peak']:.2f} GiB meshed; losses "
         + ", ".join(f"{x['loss']:.4f}" for x in sharded["steps"])
-        + f"; flash launches a step by shape {want} ({launches} in the meshed run)")
-    return dict(launches=launches, runs=runs)
+        + f"; flash launches a step by shape {want} ({launches} in the meshed run), "
+        f"backward launches a step {want_bwd} ({bwd_launches} in the meshed run)")
+    return dict(launches=launches, bwd_launches=bwd_launches, runs=runs)
 
 
 def check_dryrun_vs_card(dev, card: str) -> dict:
@@ -4383,6 +4513,7 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
         args_bytes = dryrun.local_bytes(state) + dryrun.local_bytes(batch)
         step = trainer.make_train_step(cfg, setup, mesh)
         fa_ops.LAUNCHES_BY_SHAPE.clear()
+        fa_ops.LAUNCHES_BWD_BY_CALL.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4393,13 +4524,17 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
         ms = 1e3 * (time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() - base
         launches = dict(fa_ops.LAUNCHES_BY_SHAPE)
+        bwd_launches = dict(fa_ops.LAUNCHES_BWD_BY_CALL)
         del new, m, state, step, batch
     finally:
         dist.destroy_process_group()
     B = T["batch"] // T["micro"]
     flash = fa_ops.flops(B, T["seq"], T["seq"], cfg.num_heads, cfg.head_dim, True)
-    card_flops = fc.flops + sum(launches.values()) * flash
+    flash_bwd = fa_ops.flops_bwd(B, T["seq"], T["seq"], cfg.num_heads, cfg.head_dim, True)
+    card_flops = (fc.flops + sum(launches.values()) * flash
+                  + sum(bwd_launches.values()) * flash_bwd)
     calls = pred["kernels"].get("flash_attention", {}).get("by_shape", {})
+    bwd_calls = pred["kernels"].get("flash_attention_bwd", {}).get("by_call", {})
     mem = pred["memory"]
     flop_off = abs(pred["flops_per_device"] - card_flops) / card_flops
     peak_off = abs(mem["peak_bytes_est"] - peak) / peak
@@ -4409,7 +4544,7 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
         f"{pred['trace_s']:.1f} s, against the step on the card ({card}; NCCL world of "
         f"one, {ms:.3f} ms, loss {loss:.4f}): argument bytes {mem['argument_bytes']} "
         f"predicted, {args_bytes} held; flash calls {calls} predicted, launches "
-        f"{launches}; FLOPs {pred['flops_per_device']:.6e} predicted "
+        f"{launches}; backward calls {bwd_calls} predicted, launches {bwd_launches}; FLOPs {pred['flops_per_device']:.6e} predicted "
         f"({pred['flops_aten']:.6e} aten + {pred['flops_per_device'] - pred['flops_aten']:.6e} "
         f"kernel), {card_flops:.6e} measured ({fc.flops:.6e} aten + "
         f"{card_flops - fc.flops:.6e} kernel), off by {flop_off:.3%}; peak "
@@ -4419,14 +4554,16 @@ def check_dryrun_vs_card(dev, card: str) -> dict:
     if mem["argument_bytes"] != args_bytes:
         raise AssertionError(f"phase 31a: argument bytes {mem['argument_bytes']} "
                              f"predicted, {args_bytes} on the card")
-    if calls != launches:
-        raise AssertionError(f"phase 31a: flash calls {calls} predicted, launches {launches}")
+    if calls != launches or bwd_calls != bwd_launches or not bwd_launches:
+        raise AssertionError(f"phase 31a: flash calls {calls} predicted, launches {launches}; "
+                             f"backward calls {bwd_calls} predicted, launches {bwd_launches}")
     if flop_off > 0.01:
         raise AssertionError(f"phase 31a: FLOPs off by {flop_off:.3%} (bound 1%)")
     if peak_off > 0.10:
         raise AssertionError(f"phase 31a: the predicted peak is off by {peak_off:.2%} "
                              "(bound 10%)")
-    return dict(launches=sum(launches.values()), pred=pred, peak=peak, flops=card_flops)
+    return dict(launches=sum(launches.values()), bwd_launches=sum(bwd_launches.values()),
+                pred=pred, peak=peak, flops=card_flops)
 
 
 def run_tp_rank(dev, card: str) -> dict:
@@ -4502,6 +4639,7 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int,
              for k, v in batch.items()})
         step = trainer.make_train_step(cfg, setup, mesh)
         fa_ops.LAUNCHES_BY_CALL.clear()
+        fa_ops.LAUNCHES_BWD_BY_CALL.clear()
         gather.COUNTS["blocks"] = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4513,6 +4651,7 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int,
         counted_ms = 1e3 * (time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() - base
         launches = dict(fa_ops.LAUNCHES_BY_CALL)
+        bwd_launches = dict(fa_ops.LAUNCHES_BWD_BY_CALL)
         blocks = gather.COUNTS["blocks"]
         del m
 
@@ -4520,16 +4659,21 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int,
             nonlocal state
             state, _ = step(state, batch)
         fa_ops.LAUNCHES_BY_CALL.clear()
+        fa_ops.LAUNCHES_BWD_BY_CALL.clear()
         prof = busy_share(run, steps, f"phase {phase} rank step") if steps else None
         timed = dict(fa_ops.LAUNCHES_BY_CALL)
+        timed_bwd = dict(fa_ops.LAUNCHES_BWD_BY_CALL)
         del state, step, batch
     torch.cuda.empty_cache()
     B = rows // setup.micro_batches // mesh_shape[0]
     heads = cfg.num_heads // n
     key = fa_ops.call_key(B, seq, seq, heads, 1, cfg.head_dim, True, torch.bfloat16)
     flash = fa_ops.flops(B, seq, seq, heads, cfg.head_dim, True)
-    card_flops = counter.flops + sum(launches.values()) * flash
+    flash_bwd = fa_ops.flops_bwd(B, seq, seq, heads, cfg.head_dim, True)
+    card_flops = (counter.flops + sum(launches.values()) * flash
+                  + sum(bwd_launches.values()) * flash_bwd)
     calls = pred["kernels"].get("flash_attention", {}).get("by_call", {})
+    bwd_calls = pred["kernels"].get("flash_attention_bwd", {}).get("by_call", {})
     mem = pred["memory"]
     flop_off = abs(pred["flops_per_device"] - card_flops) / card_flops
     peak_off = abs(mem["peak_bytes_est"] - peak) / peak
@@ -4549,9 +4693,10 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int,
         f"peak {peak / 2**30:.3f} GiB max_memory_allocated less the {base / 2**30:.3f} GiB "
         f"allocated before the state; {blocks} block gathers (2 a block and microbatch: "
         f"{want_blocks}); flash launches by call {launches} in the counted step, {timed} in "
-        f"the {2 * steps} timed and profiled.  The dry-run of the same rank, traced in "
+        f"the {2 * steps} timed and profiled, backward launches {bwd_launches} and "
+        f"{timed_bwd}.  The dry-run of the same rank, traced in "
         f"{pred['trace_s']:.1f} s: argument bytes {mem['argument_bytes']} predicted, "
-        f"{args_bytes} held; flash calls {calls} predicted; FLOPs "
+        f"{args_bytes} held; flash calls {calls} predicted, backward calls {bwd_calls}; FLOPs "
         f"{pred['flops_per_device']:.6e} predicted, {card_flops:.6e} counted on the card "
         f"({counter.flops:.6e} aten + {card_flops - counter.flops:.6e} kernel), off by "
         f"{flop_off:.3%}; peak {mem['peak_bytes_est'] / 2**30:.3f} GiB predicted, off by "
@@ -4562,6 +4707,9 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int,
     if calls != launches or set(launches) != {key}:
         raise AssertionError(f"phase {phase}: flash calls {calls} predicted, launches "
                              f"{launches}, expected all at {key}")
+    if bwd_calls != bwd_launches or set(bwd_launches) != {key}:
+        raise AssertionError(f"phase {phase}: backward calls {bwd_calls} predicted, "
+                             f"launches {bwd_launches}, expected all at {key}")
     if blocks != want_blocks:
         raise AssertionError(f"phase {phase}: {blocks} block gathers, not {want_blocks} "
                              "(the forward's and the recompute's of each block and microbatch)")
@@ -4576,7 +4724,11 @@ def train_rank_case(dev, card: str, phase: str, cfg, setup, rows: int, seq: int,
     gen = torch.Generator(device=dev).manual_seed(int(phase[:2]))
     timing = time_flash_shape(dev, gen, f"phase {phase} flash at the rank's local shape",
                               heads, 1, cfg.head_dim, S=seq, B=B)
-    return dict(launches=sum(launches.values()) + sum(timed.values()), timing=timing,
+    bwd_timing = time_flash_backward(dev, gen, f"phase {phase} at the rank's local shape", B,
+                                     seq, heads, 1, cfg.head_dim)
+    return dict(launches=sum(launches.values()) + sum(timed.values()),
+                bwd_launches=sum(bwd_launches.values()) + sum(timed_bwd.values()), timing=timing,
+                bwd_timing=bwd_timing,
                 ms=prof["wall_ms"] if prof else counted_ms, peak=peak,
                 busy=prof["busy"] if prof else None, pred=pred, counted_ms=counted_ms)
 
@@ -5216,7 +5368,7 @@ def main() -> int:
     twins = run_twins(dev, card)
     log(f"phase 27 {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    check_train_vs_cpu(dev)
+    f32_bwd_launches = check_train_vs_cpu(dev)
     check_train_functions(dev)
     train = run_train_full(dev, card)
     train_lm_twin = run_train_lm_twin(dev, card)
@@ -5274,6 +5426,7 @@ def main() -> int:
     # prefill and generate, and in the continuous batcher's run (phase 24,
     # checked and timed at its [8, 1, 64, 64] step)
     flash_sm90 = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_sm90.cu"
+    flash_bwd = "src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu"
     flash_tpu = "src/repro/kernels/flash_attention/kernel.py:74"
     print(json.dumps({"kernels": [
         row("row_top2_regret", "src/repro_torch/kernels/knn_topk/csrc/knn_topk.cu",
@@ -5338,8 +5491,8 @@ def main() -> int:
             new["jamba-1.5-large-398b"]["launches"], new_flash["jamba"],
             new_flash["jamba"]),
         # phase 28: the training path's forward launches (forward and the
-        # rematerialized recompute; the backward is the Function's plain
-        # recompute, no launch), llama3-8b's 4-layer run at its microbatch's
+        # rematerialized recompute; the backward's rows are below),
+        # llama3-8b's 4-layer run at its microbatch's
         # shape [2, 2048, 32, 128] and the train_lm twin's at [4, 256, 12, 64]
         row("flash_attention_train_llama3-8b", flash_sm90, flash_tpu, train["launches"],
             train["timing"], train["timing"]),
@@ -5385,6 +5538,31 @@ def main() -> int:
         row("flash_attention_block_gather", flash_sm90, flash_tpu,
             blocks["train"]["launches"], blocks["train"]["timing"],
             blocks["train"]["timing"]),
+        # the flash backward (flash_attention_bwd.cu: a dQ kernel that also
+        # sums D, then a dK/dV kernel; one launch a Function backward):
+        # phase 28c's llama3-8b steps on the tensor cores, timed at the
+        # microbatch's shape; the CUDA-core route's float32 launches in
+        # phase 28a's smoke steps, timed at [1, 2048, 8, 128] against 2 kv
+        # heads; the meshed steps of 30b and 31a at 28c's shape; the ranks
+        # of phases 32, 34c and 35b at their local shapes, timed there.
+        # The TPU kernel has no backward; this is the gradient of its
+        # function
+        row("flash_attention_bwd", flash_bwd, flash_tpu, train["bwd_launches"],
+            train["bwd_timing"], train["bwd_timing"]),
+        row("flash_attention_bwd_f32", flash_bwd, flash_tpu, f32_bwd_launches,
+            train["bwd32_timing"], train["bwd32_timing"]),
+        row("flash_attention_bwd_mesh", flash_bwd, flash_tpu,
+            meshed_train["bwd_launches"] + ep_one["train"]["bwd_launches"],
+            train["bwd_timing"], train["bwd_timing"]),
+        row("flash_attention_bwd_dryrun_check", flash_bwd, flash_tpu, dry["bwd_launches"],
+            train["bwd_timing"], train["bwd_timing"]),
+        row("flash_attention_bwd_tp_rank", flash_bwd, flash_tpu, tp_rank["bwd_launches"],
+            tp_rank["bwd_timing"], tp_rank["bwd_timing"]),
+        row("flash_attention_bwd_tp_moe", flash_bwd, flash_tpu, ep_train["bwd_launches"],
+            ep_train["bwd_timing"], ep_train["bwd_timing"]),
+        row("flash_attention_bwd_block_gather", flash_bwd, flash_tpu,
+            blocks["train"]["bwd_launches"], blocks["train"]["bwd_timing"],
+            blocks["train"]["bwd_timing"]),
     ]}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,4 +1,5 @@
-// GQA flash attention in float32, causal or bidirectional, forward only.
+// GQA flash attention in float32, causal or bidirectional, forward only
+// (the gradient: flash_attention_bwd.cu).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:74 flash_attention_kernel
@@ -19,7 +20,9 @@
 // reference's online softmax: per tile of keys
 //   m_cur = max(m, max_j s_j); alpha = exp(m - m_cur); p_j = exp(s_j - m_cur)
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j p_j v_j;  m = m_cur
-// and o = acc / max(l, 1e-30).  Masked scores are -1e30, as in the Pallas
+// and o = acc / max(l, 1e-30); when the caller asks (a training forward),
+// each row's log-sum-exp m + log l (natural units) goes to a float32
+// [B, H, S] for the backward.  Masked scores are -1e30, as in the Pallas
 // kernel.  Every row is computed: a ragged S is masked here, not dropped,
 // and so is the tail of the last key tile past Skv.
 //
@@ -100,7 +103,7 @@ constexpr int smem_floats() {
 template <typename T, int HD, bool CAUSAL>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                        Strides sq, Strides sk, Strides sv, Strides so,
                        int S, int Skv, int H, int group, int BH, float scale) {
   constexpr int KS = HD + 4;                // padded row of the K tile
@@ -204,6 +207,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = row0 + r;
     if (row >= S) break;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[static_cast<int64_t>(bh) * S + row] = m[r] + logf(l[r]);
     T* orow = o + b * so.b + row * so.s + h * so.h;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
@@ -223,7 +228,8 @@ template <typename T, bool CAUSAL>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o,
-                            Strides sq, Strides sk, Strides sv, Strides so,
+                            float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+                            Strides so,
                             int S, int Skv, int H, int group, int BH, int HD,
                             float scale) {
   constexpr int KS = kWideChunk + 4;        // padded row of the K chunk
@@ -336,6 +342,8 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = row0 + r;
       if (row >= S) break;
       const float denom = fmaxf(l[r], 1e-30f);
+      if (lse != nullptr && c0 == 0 && lane == 0)
+        lse[static_cast<int64_t>(bh) * S + row] = m[r] + logf(l[r]);
       T* orow = o + b * so.b + row * so.s + h * so.h;
 #pragma unroll
       for (int c = 0; c < kWideDPL; ++c) {
@@ -347,7 +355,7 @@ flash_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, bool CAUSAL>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, float* lse,
                         const Strides* st, int B, int S, int Skv, int H, int Hkv,
                         int hd, int scale_hd, cudaStream_t stream) {
   constexpr size_t smem = kWideSmemFloats * sizeof(float);
@@ -364,13 +372,13 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, Skv, H, H / Hkv, BH, hd,
+      static_cast<T*>(o), lse, st[0], st[1], st[2], st[3], S, Skv, H, H / Hkv, BH, hd,
       scale);
   return cudaGetLastError();
 }
 
 template <typename T, int HD, bool CAUSAL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    const Strides* st, int B, int S, int Skv, int H, int Hkv,
                    int scale_hd, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<HD>() * sizeof(float);
@@ -387,31 +395,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale = 1.0f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st[0], st[1], st[2], st[3], S, Skv, H, H / Hkv, BH, scale);
+      static_cast<T*>(o), lse, st[0], st[1], st[2], st[3], S, Skv, H, H / Hkv, BH, scale);
   return cudaGetLastError();
 }
 
 // float32 takes every instantiated head dim; bfloat16 only those above the
 // tensor-core kernel's 128.  Any hd above 256 takes the wide form.
 template <typename T, bool CAUSAL>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                         const Strides* st, int B, int S, int Skv, int H, int Hkv,
                         int hd, int scale_hd, cudaStream_t stream) {
   if (hd > 256)
-    return launch_wide<T, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd,
+    return launch_wide<T, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, hd, scale_hd,
                                   stream);
   switch (hd) {
-    case 192: return launch<T, 192, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
-    case 256: return launch<T, 256, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+    case 192: return launch<T, 192, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
+    case 256: return launch<T, 256, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
     default: break;
   }
   if constexpr (std::is_same_v<T, float>) {
     switch (hd) {
-      case 16: return launch<T, 16, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
-      case 32: return launch<T, 32, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
-      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
-      case 96: return launch<T, 96, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
-      case 128: return launch<T, 128, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 16: return launch<T, 16, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 32: return launch<T, 32, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 64: return launch<T, 64, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 96: return launch<T, 96, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      case 128: return launch<T, 128, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
       default: break;
     }
   }
@@ -419,7 +427,7 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <typename T>
-int entry(const void* q, const void* k, const void* v, void* o, int causal, int B,
+int entry(const void* q, const void* k, const void* v, void* o, float* lse, int causal, int B,
           int S, int Skv, int H, int Hkv, int hd, int scale_hd, const int64_t* strides,
           cudaStream_t stream) {
   if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
@@ -430,8 +438,9 @@ int entry(const void* q, const void* k, const void* v, void* o, int causal, int 
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaError_t err =
-      causal ? dispatch_hd<T, true>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd, stream)
-             : dispatch_hd<T, false>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd,
+      causal ? dispatch_hd<T, true>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, hd, scale_hd,
+                                    stream)
+             : dispatch_hd<T, false>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, hd, scale_hd,
                                      stream);
   return static_cast<int>(err);
 }
@@ -443,12 +452,14 @@ int entry(const void* q, const void* k, const void* v, void* o, int causal, int 
 // is an instantiated head dim or above 256, scale_hd in [1, hd] the
 // one whose 1/sqrt scales the scores (the head dim before the wrapper
 // zero-padded it).  strides: 12 element strides, (b, s, h) of q, k, v and
-// o in that order.  S == 0 launches nothing.
+// o in that order.  lse: nullptr, or a float32 [B, H, S] that receives each
+// row's log-sum-exp of the scaled scores (natural units).  S == 0 launches
+// nothing.
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void* v,
-                                       void* o, int causal, int B, int S, int Skv,
-                                       int H, int Hkv, int hd, int scale_hd,
+                                       void* o, float* lse, int causal, int B, int S,
+                                       int Skv, int H, int Hkv, int hd, int scale_hd,
                                        const int64_t* strides, cudaStream_t stream) {
-  return entry<float>(q, k, v, o, causal, B, S, Skv, H, Hkv, hd, scale_hd, strides,
+  return entry<float>(q, k, v, o, lse, causal, B, S, Skv, H, Hkv, hd, scale_hd, strides,
                       stream);
 }
 
@@ -457,9 +468,9 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k, const void*
 // the math in float32.  flash_attention_fwd_bf16 calls it; it reads plain
 // strided memory, so no TMA alignment applies.
 extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const void* v,
-                                           void* o, int causal, int B, int S, int Skv,
-                                           int H, int Hkv, int hd, int scale_hd,
+                                           void* o, float* lse, int causal, int B, int S,
+                                           int Skv, int H, int Hkv, int hd, int scale_hd,
                                            const int64_t* strides, cudaStream_t stream) {
-  return entry<__nv_bfloat16>(q, k, v, o, causal, B, S, Skv, H, Hkv, hd, scale_hd,
+  return entry<__nv_bfloat16>(q, k, v, o, lse, causal, B, S, Skv, H, Hkv, hd, scale_hd,
                               strides, stream);
 }

@@ -1,5 +1,5 @@
 // GQA flash attention in bfloat16 on Hopper's tensor cores, causal or
-// bidirectional, forward only.
+// bidirectional, forward only (the gradient: flash_attention_bwd.cu).
 //
 // Replaces the TPU kernel
 // src/repro/kernels/flash_attention/kernel.py:74 flash_attention_kernel
@@ -16,7 +16,10 @@
 //   m' = max(m, c * max_j s_j); alpha = 2^(m - m'); p_j = 2^(c s_j - m')
 //   l = l * alpha + sum_j p_j;  acc = acc * alpha + sum_j (big_j + small_j) v_j
 // with big_j = bf16(p_j) and small_j = bf16(p_j - big_j), and
-// o = acc / max(l, 1e-30).  Masked scores are -1e30 (the Pallas kernel's
+// o = acc / max(l, 1e-30).  When the caller asks (a training forward), the
+// row's log-sum-exp of the scaled scores, lse = (m + log2 l) ln 2 in
+// natural units, goes to a float32 [B, H, S] for the backward: one store
+// per row, the arithmetic above unchanged.  Masked scores are -1e30 (the Pallas kernel's
 // value).  Every row is computed: a ragged S is masked, not dropped, and
 // the keys of the last tile past Skv are masked.
 // scale_hd is the head dim before the wrapper zero-padded it to one of the
@@ -152,8 +155,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            __nv_bfloat16* __restrict__ o, Strides so, int S, int Skv,
-                            int H, int group, int BH, float scale_log2) {
+                            __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                            Strides so, int S, int Skv, int H, int group, int BH,
+                            float scale_log2) {
   using G = Geometry<HD>;
   constexpr int kSRegs = kKTile / 2;                // S accumulator: 64 floats per thread
   constexpr int kORegs = HD / 2;                    // O accumulator
@@ -320,6 +324,8 @@ flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     const int row = row0 + 8 * hh;
     if (row >= S) continue;
     const float denom = fmaxf(l[hh], 1e-30f);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[static_cast<int64_t>(bh) * S + row] = (m[hh] + log2f(l[hh])) * 0.6931471805599453f;
     __nv_bfloat16* orow = o + obase + row * so.s;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j) {
@@ -379,8 +385,8 @@ bool encode(CUtensorMap* map, const void* ptr, const Strides& st, int B, int S, 
 }
 
 template <int HD, bool CAUSAL>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Strides* st,
-                   int B, int S, int Skv, int H, int Hkv, int scale_hd,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
+                   const Strides* st, int B, int S, int Skv, int H, int Hkv, int scale_hd,
                    cudaStream_t stream) {
   using G = Geometry<HD>;
   CUtensorMap tq, tk, tv;
@@ -399,26 +405,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const S
   const int n_qtiles = (S + kQTile - 1) / kQTile;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(scale_hd));
   kernel<<<static_cast<unsigned>(BH) * n_qtiles, kThreads, G::kSmemBytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), st[3], S, Skv, H, H / Hkv, BH,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, st[3], S, Skv, H, H / Hkv, BH,
       scale_log2);
   return cudaGetLastError();
 }
 
 template <bool CAUSAL>
-cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                         const Strides* st, int B, int S, int Skv, int H, int Hkv,
                         int hd, int scale_hd, cudaStream_t stream) {
   switch (hd) {
     case 16:
-      return launch<16, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      return launch<16, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
     case 32:
-      return launch<32, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      return launch<32, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
     case 64:
-      return launch<64, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      return launch<64, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
     case 96:
-      return launch<96, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      return launch<96, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
     case 128:
-      return launch<128, CAUSAL>(q, k, v, o, st, B, S, Skv, H, Hkv, scale_hd, stream);
+      return launch<128, CAUSAL>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, scale_hd, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -428,24 +434,25 @@ cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o,
 // flash_attention.cu's CUDA-core kernel on bfloat16, for hd 192, 256 and
 // above 256.
 extern "C" int flash_attention_fwd_cc_bf16(const void* q, const void* k, const void* v,
-                                           void* o, int causal, int B, int S, int Skv,
-                                           int H, int Hkv, int hd, int scale_hd,
+                                           void* o, float* lse, int causal, int B, int S,
+                                           int Skv, int H, int Hkv, int hd, int scale_hd,
                                            const int64_t* strides, cudaStream_t stream);
 
 // Launches the bfloat16 kernel on `stream` and returns cudaGetLastError()
 // (0 on success; cudaErrorInvalidValue when a tensor map cannot be
-// encoded).  Skv >= 1 is k's and v's length, S's own when causal.  hd is
+// encoded).  lse: nullptr, or a float32 [B, H, S] that receives each row's
+// log-sum-exp of the scaled scores in natural units (for the backward).  Skv >= 1 is k's and v's length, S's own when causal.  hd is
 // an instantiated head dim, scale_hd in [1, hd] the one whose 1/sqrt
 // scales the scores.  strides: 12 element strides, (b, s, h)
 // of q, k, v and o in that order.  S == 0 launches nothing.  hd 192, 256 and
 // any hd above 256 go to flash_attention_fwd_cc_bf16 (CUDA cores, plain
 // strided loads): the wgmma kernel's tiles stop at 128.
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o,
-                                        int causal, int B, int S, int Skv, int H, int Hkv,
-                                        int hd, int scale_hd, const int64_t* strides,
+                                        float* lse, int causal, int B, int S, int Skv, int H,
+                                        int Hkv, int hd, int scale_hd, const int64_t* strides,
                                         cudaStream_t stream) {
   if (hd > 128)
-    return flash_attention_fwd_cc_bf16(q, k, v, o, causal, B, S, Skv, H, Hkv, hd,
+    return flash_attention_fwd_cc_bf16(q, k, v, o, lse, causal, B, S, Skv, H, Hkv, hd,
                                        scale_hd, strides, stream);
   if (S == 0 || B == 0) return static_cast<int>(cudaSuccess);
   if (Skv < 1 || (causal && Skv != S) || Hkv <= 0 || H % Hkv != 0 || scale_hd < 1 ||
@@ -455,7 +462,8 @@ extern "C" int flash_attention_fwd_bf16(const void* q, const void* k, const void
   for (int i = 0; i < 4; ++i)
     st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const cudaError_t err =
-      causal ? dispatch_hd<true>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd, stream)
-             : dispatch_hd<false>(q, k, v, o, st, B, S, Skv, H, Hkv, hd, scale_hd, stream);
+      causal ? dispatch_hd<true>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, hd, scale_hd, stream)
+             : dispatch_hd<false>(q, k, v, o, lse, st, B, S, Skv, H, Hkv, hd, scale_hd,
+                                  stream);
   return static_cast<int>(err);
 }

@@ -35,12 +35,12 @@ sends:
   their checks, an empty output, and the call recorded by its local
   shape;
 * ``flops_per_device``: the FLOPs of the aten ops this rank runs (the
-  matmuls, the kernels' plain float32 backward, the rematerialized
-  recompute), counted by ``torch.utils.flop_counter``'s formulas on the
-  local tensors under DTensor (:class:`StepCounter`; ``FlopCounterMode``
+  matmuls, WKV6's plain backward, the rematerialized recompute), counted
+  by ``torch.utils.flop_counter``'s formulas on the local tensors under DTensor (:class:`StepCounter`; ``FlopCounterMode``
   would count a DTensor op at its global shape), plus each recorded kernel
-  call at its formula (``ops.flops``); both parts are kept
-  (``flops_aten``, ``kernels``);
+  call at its formula (``ops.flops``; the flash backward's calls, recorded
+  apart as ``flash_attention_bwd``, at ``ops.flops_bwd``); both parts are
+  kept (``flops_aten``, ``kernels``);
 * ``collectives``: a ``TorchDispatchMode`` (:class:`StepCounter`) over the
   ``_c10d_functional``, ``c10d_functional`` and ``c10d`` ops: by the
   reference's kinds, the count, the result bytes, the largest result and
@@ -56,8 +56,7 @@ sends:
 The numbers are the port's own, not XLA's: they include the
 rematerialization's recompute, the compute the model axis still repeats
 (the attention core of head counts it does not divide, the MoE's
-routing), the kernels' plain float32 backward with its
-``[B, H, S, S]`` scores at the rank's heads, and one block's parameters
+routing), WKV6's plain float32 backward, and one block's parameters
 gathered over the data axes at a time (the forward's and, in training,
 the recompute's gather, as the reference's rematerialized scan makes
 them).  There is no HLO, so no ``corrected`` trip-count analysis
@@ -226,10 +225,16 @@ def _meta_kernels() -> dict:
         return (fa.shape_key(S, Skv, causal, dt), fa.call_key(B, S, Skv, H, Hkv, hd, causal, dt),
                 fa.flops(B, S, Skv, H, hd, causal))
 
+    def flash_bwd(B, S, Skv, H, Hkv, hd, causal, dt):
+        return (fa.shape_key(S, Skv, causal, dt), fa.call_key(B, S, Skv, H, Hkv, hd, causal, dt),
+                fa.flops_bwd(B, S, Skv, H, hd, causal))
+
     def wkv6(B, T, H, hd, dt, carried):
         key = wkv.call_key(B, T, H, hd, dt)
         return key, key, wkv.flops(B, T, H, hd)
-    return {"flash_attention": (fa.META_CALLS, flash), "wkv6": (wkv.META_CALLS, wkv6)}
+    return {"flash_attention": (fa.META_CALLS, flash),
+            "flash_attention_bwd": (fa.META_CALLS_BWD, flash_bwd),
+            "wkv6": (wkv.META_CALLS, wkv6)}
 
 
 def _kernel_counts() -> dict:

@@ -5,7 +5,8 @@ through the flash-attention kernel, and the cached decode step.
 Pallas kernel (same online softmax); here it goes through
 ``kernels/flash_attention``: the hand-written CUDA kernel on the card,
 its plain version on the CPU; its gradient is ``FlashAttentionFn``'s
-plain float32 recompute.  The kernel tiles itself, so the
+backward, the hand-written backward kernels on the card and their plain
+version on the CPU.  The kernel tiles itself, so the
 reference's ``q_chunk``/``kv_chunk`` have no counterpart, and it masks a
 ragged S instead of asserting it away.  Non-causal attention takes keys
 of their own length: the reference's twin cuts k/v into chunks by q's

@@ -27,7 +27,8 @@ layer, runs under ``torch.utils.checkpoint``, as the reference
 rematerializes them.  Attention goes through the flash-attention kernel
 (cross-attention at the memory's own length, over every row of it) and
 the RWKV6 recurrence through the WKV6 kernel, their gradients through
-the kernels' ``autograd.Function``s (a plain recompute); everything else
+the kernels' ``autograd.Function``s (flash's backward a kernel too,
+WKV6's a plain recompute); everything else
 is plain PyTorch, as the reference left it to XLA.  The reference's
 activation-sharding hints (``sharding.ctx.constrain``) sit at its points:
 no-ops without a mesh, so every single-device number is unchanged.

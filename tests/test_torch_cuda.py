@@ -1148,10 +1148,10 @@ def test_mitigate_with_drl_on_the_card_takes_the_host_route(cuda_device):
     (torch.bfloat16, 128, 128, True), (torch.bfloat16, 64, 96, False),
     (torch.float32, 128, 128, True), (torch.float32, 64, 96, False)])
 def test_flash_function_gradients_on_the_card(cuda_device, dtype, S, Skv, causal):
-    """``FlashAttentionFn`` on the card: one kernel launch a forward, none
-    in the backward (the plain recompute), and gradients of q, k, v within
-    the flash bound (bf16: 1e-2·|x| + 2e-3; float32: 1e-5) of plain
-    autograd's of the plain version, nonzero."""
+    """``FlashAttentionFn`` on the card: one forward launch a forward, one
+    backward launch (counted apart) in the backward, and gradients of q,
+    k, v within the flash bound (bf16: 1e-2·|x| + 2e-3; float32: 1e-5) of
+    plain autograd's of the plain version, nonzero."""
     g = torch.Generator(device=cuda_device).manual_seed(S + Skv)
     q = torch.randn(2, S, 4, 64, generator=g, device=cuda_device).to(dtype)
     k, v = (torch.randn(2, Skv, 2, 64, generator=g, device=cuda_device).to(dtype)
@@ -1159,17 +1159,118 @@ def test_flash_function_gradients_on_the_card(cuda_device, dtype, S, Skv, causal
     go = torch.randn(2, S, 4, 64, generator=g, device=cuda_device).to(dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     before = fa_ops.LAUNCHES
+    bwd_before = fa_ops.LAUNCHES_BWD
     out = fa_ops.flash_attention(*leaves, causal=causal)
     assert out.grad_fn is not None and fa_ops.LAUNCHES == before + 1
     got = torch.autograd.grad(out, leaves, go)
     torch.cuda.synchronize()
-    assert fa_ops.LAUNCHES == before + 1
+    assert fa_ops.LAUNCHES == before + 1 and fa_ops.LAUNCHES_BWD == bwd_before + 1
     plain = [t.float().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(flash_attention_ref(*plain, causal=causal), plain, go.float())
     for a, b in zip(got, want):
         assert a.dtype == dtype and float(a.abs().max()) > 0
         bound = (1e-2 * b.abs() + 2e-3) if dtype == torch.bfloat16 else 1e-5 * (1 + b.abs())
         assert bool(((a.float() - b).abs() <= bound).all())
+
+
+# the flash backward (csrc/flash_attention_bwd.cu): the tensor-core route at
+# every native head dim, a padded one, ragged S, k/v of their own length
+# and GQA groups 1-4; the CUDA-core route in float32 and in bf16 above 128,
+# the wide head dims among them
+FLASH_BWD_CASES = [
+    (2, 128, 128, 4, 2, 64, True, torch.bfloat16),
+    (1, 512, 512, 32, 8, 128, True, torch.bfloat16),     # llama3-8b heads
+    (2, 200, 200, 4, 2, 128, True, torch.bfloat16),      # ragged S
+    (2, 200, 37, 4, 2, 128, False, torch.bfloat16),
+    (1, 64, 256, 16, 16, 64, False, torch.bfloat16),     # seamless's cross layout
+    (3, 37, 37, 4, 1, 16, True, torch.bfloat16),
+    (2, 130, 129, 4, 1, 32, False, torch.bfloat16),
+    (1, 256, 256, 8, 2, 96, True, torch.bfloat16),
+    (2, 200, 200, 4, 2, 40, True, torch.bfloat16),       # zero-padded to 64
+    (1, 1, 1, 4, 2, 128, True, torch.bfloat16),          # one row
+    (2, 200, 200, 4, 2, 64, True, torch.float32),
+    (2, 100, 70, 4, 2, 96, False, torch.float32),
+    (3, 37, 37, 4, 4, 16, True, torch.float32),
+    (1, 37, 130, 2, 1, 320, False, torch.float32),       # wide
+    (2, 130, 130, 4, 2, 256, True, torch.bfloat16),      # bf16 on the CUDA cores
+    (1, 70, 70, 2, 1, 512, True, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,S,Skv,H,Hkv,hd,causal,dtype", FLASH_BWD_CASES)
+def test_flash_backward_matches_plain_version(cuda_device, B, S, Skv, H, Hkv, hd, causal,
+                                              dtype):
+    """One backward launch a Function backward (on the tensor cores for bf16
+    up to hd 128), gradients within the flash bound of the backward's plain
+    version (``flash_attention_bwd_ref`` from the forward kernel's
+    log-sum-exp; bf16 1e-2·|x| + 2e-3, float32 1e-5·(1 + max|x|)); the
+    forward's log-sum-exp within 1e-5 of the plain forward's."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    g = torch.Generator(device=cuda_device).manual_seed(S + Skv + hd)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(B, Skv, Hkv, hd, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    go = torch.randn(B, S, H, hd, generator=g, device=cuda_device).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa_ops.flash_attention(*leaves, causal=causal)
+    lse = out.grad_fn.saved_tensors[3]
+    _, want_lse = flash_attention_ref(q, k, v, causal=causal, with_lse=True)
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * (1 + float(want_lse.abs().max()))
+    before = (fa_ops.LAUNCHES_BWD, fa_ops.LAUNCHES_BWD_TC)
+    got = torch.autograd.grad(out, leaves, go)
+    torch.cuda.synchronize()
+    tc = dtype == torch.bfloat16 and hd <= 128
+    assert (fa_ops.LAUNCHES_BWD, fa_ops.LAUNCHES_BWD_TC) == (before[0] + 1, before[1] + tc)
+    want = flash_attention_bwd_ref(q.float(), k.float(), v.float(), lse, go.float(), causal)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape and bool(torch.isfinite(a).all())
+        err = (a.float() - b).abs()
+        if dtype == torch.bfloat16:
+            assert bool((err <= 1e-2 * b.abs() + 2e-3).all())
+        else:
+            assert float(err.max()) <= 1e-5 * (1 + float(b.abs().max()))
+
+
+def test_flash_backward_reads_strided_views_and_stages_the_rest(cuda_device):
+    """q, k, v as slices of one fused projection are read where they lie;
+    a view cp.async cannot load (a base off the 16-byte grid) is copied
+    first (``STAGED_COPIES``); both give the contiguous inputs' bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn(2, 130, 8, 64, generator=g, device=cuda_device).bfloat16()
+    go = torch.randn(2, 130, 4, 64, generator=g, device=cuda_device).bfloat16()
+
+    def grads(q, k, v, do):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fa_ops.flash_attention(*leaves), leaves, do)
+    want = grads(*(t.contiguous() for t in (qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:])),
+                 go)
+    staged = fa_ops.STAGED_COPIES
+    got = grads(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:], go)
+    assert fa_ops.STAGED_COPIES == staged
+    shifted = torch.empty(1 + go.numel(), dtype=go.dtype, device=cuda_device)[1:].view(
+        go.shape)
+    shifted.copy_(go)
+    got_shifted = grads(qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:], shifted)
+    torch.cuda.synchronize()
+    assert fa_ops.STAGED_COPIES == staged + 1
+    for a, b, c in zip(got, got_shifted, want):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_is_the_same_bits_run_after_run(cuda_device, dtype):
+    """No atomics: two backwards of the same inputs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn(2, 300, 8, 128, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(2, 300, 2, 128, generator=g, device=cuda_device).to(dtype)
+            for _ in range(2))
+    go = torch.randn_like(q)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        runs.append(torch.autograd.grad(fa_ops.flash_attention(*leaves), leaves, go))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 def test_wkv_function_gradients_on_the_card(cuda_device):

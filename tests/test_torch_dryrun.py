@@ -7,7 +7,8 @@
   on the production (1, 4) mesh and on (2, 2);
 * at a world of one, the dry-run's FLOPs outside the kernels equal
   ``FlopCounterMode``'s over the same step on real CPU tensors, outside
-  the plain versions (their forward run with the counters off);
+  the plain versions (their forward, and flash's backward, run with the
+  counters off);
 * the peak tracker gives the exact peak of a function with known
   allocations;
 * the flash and WKV6 wrappers' meta routes give the plain versions' output
@@ -122,15 +123,16 @@ def test_world_of_one_flops_equal_the_cpu_step(arch, monkeypatch):
     with dryrun.fake_world(1):
         meta = dryrun.trace(cfg, SMOKE_SHAPE, make_production_mesh(device="cpu"),
                             SMOKE_SETUP)
-    for mod in (fa_ops, wkv_ops):
-        plain = mod._forward
+    for mod, name in ((fa_ops, "_forward"), (wkv_ops, "_forward"), (fa_ops, "_backward")):
+        plain = getattr(mod, name)
 
         def hidden(*args, _plain=plain):
             # the plain version stands where the card runs the kernel:
-            # its forward is not counted, as the kernel's is not
+            # its forward (and flash's backward) is not counted, as the
+            # kernel's is not
             with _disable_current_modes():
                 return _plain(*args)
-        monkeypatch.setattr(mod, "_forward", hidden)
+        monkeypatch.setattr(mod, name, hidden)
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
     try:
         cpu = dryrun.trace(cfg, SMOKE_SHAPE, make_production_mesh(device="cpu"),

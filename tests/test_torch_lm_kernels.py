@@ -178,7 +178,10 @@ def test_flash_wide_head_dims_plain_route_matches_pallas_kernel(hd, causal,
 def test_flash_routes_are_chosen_by_dtype_alone():
     assert fa_ops.ENTRY == {torch.float32: "flash_attention_fwd_f32",
                             torch.bfloat16: "flash_attention_fwd_bf16"}
-    assert set(fa_ops.SIGNATURES) == set(fa_ops.ENTRY.values())
+    assert fa_ops.ENTRY_BWD == {torch.float32: "flash_attention_bwd_f32",
+                                torch.bfloat16: "flash_attention_bwd_bf16"}
+    assert set(fa_ops.SIGNATURES) == set(fa_ops.ENTRY.values()) | set(
+        fa_ops.ENTRY_BWD.values())
 
 
 def test_tma_layout_check_names_the_tensor_it_refuses():
@@ -285,7 +288,8 @@ def test_wkv6_cpu_path_runs_the_plain_version_and_counts_no_launch():
 # -- the shared build helper -----------------------------------------------------
 @pytest.mark.parametrize("name,source,headers", [
     pytest.param("knn_topk", ["knn_topk.cu"], [], id="knn_topk-knn_topk.cu"),
-    pytest.param("flash_attention", ["flash_attention.cu", "flash_attention_sm90.cu"],
+    pytest.param("flash_attention", ["flash_attention.cu", "flash_attention_bwd.cu",
+                                     "flash_attention_sm90.cu"],
                  ["sm90.cuh"], id="flash_attention-flash_attention.cu"),
     pytest.param("rwkv6_scan", ["wkv6.cu"], [], id="rwkv6_scan-wkv6.cu")])
 def test_every_kernel_builds_from_its_own_sources_under_a_content_hash(
